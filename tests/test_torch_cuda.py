@@ -1,0 +1,99 @@
+"""The hand-written CUDA kernels against their plain-torch versions, on the
+card.  Every test here is marked ``cuda`` and skips without a GPU; this file
+imports no JAX, so it runs on a machine that has only PyTorch and the CUDA
+toolkit: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+
+Packed words and counts are integers: bit-identical, no tolerance.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.db import BitmapDB
+from repro_torch.engine import planner
+from repro_torch.kernels import bit_transpose as tbt
+from repro_torch.kernels import bitmap_ops as tbq
+from repro_torch.kernels import cam_match as tcm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _words(rng, *shape, dev):
+    return torch.from_numpy(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+                            .view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n,w,m", [(1000, 7, 37), (4096, 32, 256),
+                                   (33, 1, 1), (70, 500, 70)])
+def test_cam_match_kernel(dev, n, w, m):
+    rng = np.random.default_rng(n + m)
+    rec = torch.from_numpy(rng.integers(0, 256, (n, w), dtype=np.int32)).to(dev)
+    keys = torch.from_numpy(rng.integers(0, 256, (m,), dtype=np.int32)).to(dev)
+    got = tcm.cam_match(rec, keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tcm.cam_match_plain(rec, keys))
+
+
+@pytest.mark.parametrize("r,cw", [(1000, 3), (4096, 8), (32, 1), (2100, 17)])
+def test_bit_transpose_kernel(dev, r, cw):
+    x = _words(np.random.default_rng(r), r, cw, dev=dev)
+    got = tbt.bit_transpose(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tbt.bit_transpose_plain(x))
+
+
+@pytest.mark.parametrize("k,nw,allinv", [(4, 1001, True), (1, 1 << 16, False),
+                                         (7, 333, False)])
+def test_bitmap_query_kernel(dev, k, nw, allinv):
+    rng = np.random.default_rng(k * nw)
+    rows = _words(rng, k, nw, dev=dev)
+    inv = (torch.ones(k, dtype=torch.int32) if allinv else
+           torch.from_numpy(rng.integers(0, 2, k).astype(np.int32))).to(dev)
+    got_r, got_c = tbq.bitmap_query(rows, inv)
+    want_r, want_c = tbq.bitmap_query_plain(rows, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(got_r, want_r) and int(got_c) == int(want_c)
+
+
+@pytest.mark.parametrize("m,nw,shape", [(13, 1001, (8, 4, 2, 4)),
+                                        (256, 4096, (16, 2, 1, 4)),
+                                        (5, 33, (65536, 1, 1, 1)),
+                                        (13, 300, (2, 128, 1, 64))])
+def test_bulk_program_kernel(dev, m, nw, shape):
+    rng = np.random.default_rng(m + nw)
+    aug = torch.cat([_words(rng, m, nw, dev=dev),
+                     torch.full((1, nw), -1, dtype=torch.int32, device=dev)])
+    sels = torch.from_numpy(rng.integers(0, m + 1, shape).astype(np.int32))
+    invs = torch.from_numpy(rng.integers(0, 2, shape).astype(np.int32))
+    post = torch.from_numpy(np.where(rng.random(shape[:3]) < 0.3, -1, 0)
+                            .astype(np.int32))
+    sels, invs, post = sels.to(dev), invs.to(dev), post.to(dev)
+    got = tbq.bulk_program(aug, sels, invs, post)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tbq.bulk_program_plain(aug, sels, invs, post))
+
+
+def test_cuda_backend_matches_ref_end_to_end(dev):
+    rng = np.random.default_rng(9)
+    db = BitmapDB(num_keys=64, device=dev)
+    for n in (1000, 77, 4096):
+        db.append_encoded(rng.integers(0, 64, (n, 8), dtype=np.uint8))
+    k = planner.key
+    preds = [k(1) & ~k(2), (k(3) | k(4)) & k(5), k(6) | k(7) | k(8),
+             k(9) & ~k(9)]
+    preds.append(planner.And(tuple(k(2 * i) | k(2 * i + 1)
+                                   for i in range(8))))      # composite
+    counts0 = (tbq.bulk_program.launches, tbq.bitmap_query.launches)
+    rows, cnt = db.query_many(preds).materialize()
+    rows_ref, cnt_ref = db.query_many(preds, backend="ref").materialize()
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows_ref) and torch.equal(cnt, cnt_ref)
+    assert tbq.bulk_program.launches > counts0[0]
+    assert tbq.bitmap_query.launches > counts0[1]
