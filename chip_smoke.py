@@ -9,34 +9,60 @@ Phases (any failure exits non-zero and prints no result):
    versions, and the build of every kernel under ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once).
 2. Each kernel against its plain-torch version on the card at ragged
-   shapes (N, M, Nw off the block multiples, every operand inverted):
-   bit-identical.
-3. The main path at the paper's record geometry (W = 32 eight-bit words,
-   M = 256 keys): ``BitmapDB(num_keys=256).append_encoded`` of 8 blocks of
-   2^22 records (2^25 records, a 1 GiB live index), made from ``--seed``
-   with numpy as uint8 and cast to int32 on the card; then a ``query_many``
-   wave of the 64-predicate serving mix plus a size-guard composite (an AND
-   of 8 two-key ORs), served once cold and then WARM_WAVES times warm (the
-   warm figure is their total over their count), and one single
-   ``query``.  Every kernel's launch counter is zeroed just before and read
-   just after; each must be > 0.
-4. The main path's answers: every row and count bit-identical to the
+   shapes: the bitmap kernels (N, M, Nw off the block multiples, every
+   operand inverted) bit-identical; the flash-attention kernel at S = 300
+   and 1, head_dim 32 and 128, H/KV = 1, 4 and 7, causal and full, against
+   the plain version in fp32 from the same inputs: atol 2e-5 for fp32 inputs
+   (the reference kernel test's), one bf16 ulp at the output's largest
+   magnitude (2^-7 * max|plain|) for bf16 inputs.
+3. The bitmap main path at the paper's record geometry (W = 32 eight-bit
+   words, M = 256 keys): ``BitmapDB(num_keys=256).append_encoded`` of 8
+   blocks of 2^22 records (2^25 records, a 1 GiB live index), made from
+   ``--seed`` with numpy as uint8 and cast to int32 on the card; then a
+   ``query_many`` wave of the 64-predicate serving mix plus a size-guard
+   composite (an AND of 8 two-key ORs), served once cold and then
+   WARM_WAVES times warm (the warm figure is their total over their count),
+   and one single ``query``.  Every kernel's launch counter is zeroed just
+   before and read just after; each bitmap kernel must be > 0.
+4. The bitmap path's answers: every row and count bit-identical to the
    port's plain ``ref`` backend on the card, and the streamed index
    identical, block by block, to a plain create_index of the same records.
-5. Each kernel timed at the main path's shapes — its device time from
-   ``torch.profiler`` (and the span between two CUDA events beside it) —
-   next to its plain version and its bound: the larger of the bytes it
-   must move over 3.35e12 B/s and the operations its function needs over
+5. Each bitmap kernel timed at the main path's shapes — its device time
+   from ``torch.profiler`` (and the span between two CUDA events beside
+   it) — next to its plain version and its bound: the larger of the bytes
+   it must move over 3.35e12 B/s and the operations its function needs over
    6.7e13 op/s (the H100 SXM's published memory rate and 32-bit non-tensor
    peak), counted over this run's real work only (no pad query, pad
    literal or identity row).
 6. Where the time goes: the card's busy time and idle share over one warm
    wave and over one more block append, with the top kernels by time.
+7. The LM serving path: Qwen2-7B at its full published config (28 layers,
+   d_model 3584, 28 query / 4 KV heads, head_dim 128, d_ff 18944, vocab
+   152064), random weights from ``--seed`` on the card in bf16 with fp32
+   norm scales; ``greedy_generate`` of LM_STEPS tokens for LM_BATCH prompts
+   of LM_PROMPT random token ids (numpy, from ``--seed``), with every
+   launch counter zeroed just before and read just after: the flash kernel
+   must run exactly once per layer (one prefill).  Then prefill and decode
+   timed apart (a CUDA synchronize around each); the flash kernel at layers
+   0 and 27 (q/k/v captured by forward hooks) against its plain version;
+   the prefill's last-position logits against a prefill with the plain
+   attention swapped in (here only: the package has no switch), in bf16
+   and again with the compute dtype set to fp32, each within its LOGIT_TOL
+   of their largest magnitude, with argmax equal on every batch row whose
+   top-2 margin exceeds that tolerance; the kernel timed at the
+   path's shape beside its plain version, ``scaled_dot_product_attention``
+   (timed only, as the library yardstick) and its bound (the larger of the
+   bytes of q, k, v, o over 3.35e12 B/s and the causal half's
+   2*S*(S+1)*hd*B*H flops over 989e12 flop/s, the H100 SXM's dense bf16
+   tensor-core peak); and the card's busy time and idle share over one
+   prefill and one decode step.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and the result JSON.
 """
 import argparse
+import gc
+import itertools
 import json
 import os
 import statistics
@@ -54,6 +80,14 @@ M, W = 256, 32              # the paper's 32 eight-bit words: 256 key values
 BLOCK = 1 << 22             # records per appended block
 BLOCKS = 8                  # blocks appended: 2^25 records
 WARM_WAVES = 10             # warm waves timed after the cold one
+PEAK_BF16 = 989e12          # H100 SXM dense bf16 tensor-core flop/s
+LM_ARCH = "qwen2-7b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 32
+#: kernel- vs plain-route prefill logits, as a fraction of max|logit|: in
+#: bf16 each of the 28 layers rounds its attention output (2^-8 relative)
+#: and the residual stream carries the difference on (measured 3.4% in the
+#: first run); in fp32 the routes differ by accumulation order only.
+LOGIT_TOL = {"bfloat16": 1 / 8, "float32": 1e-3}
 
 
 def serving_mix(planner, m: int, count: int, seed: int) -> list:
@@ -127,14 +161,44 @@ def device_profile(torch, fn, reps: int = 1) -> tuple[float, float, dict]:
     return wall, sum(by_name.values()), by_name
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS
+def profile(label: str, wall: float, busy: float, by_name: dict) -> dict:
+    """Print one profiled run: host wall, card busy, idle share and the top
+    kernels by card time; returns the numbers."""
+    idle = 1 - busy / wall
+    print(f"profile {label}: {wall:.3f} ms host wall (profiler on), "
+          f"{busy:.3f} ms card busy, idle share {idle:.3f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print("  top device time: " + "; ".join(f"{k[:60]} {v:.4f} ms"
+                                             for k, v in top))
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": idle,
+            "top": [[k[:80], v] for k, v in top]}
+
+
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS
+          ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def max_abs_err(a, b) -> int:
-    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+def max_abs_err(a, b):
+    """Largest absolute difference: an int for integer tensors, a float
+    (compared in fp32) for floating ones."""
+    if not a.numel():
+        return 0
+    if a.is_floating_point():
+        return float((a.float() - b.float()).abs().max())
+    return int((a.long() - b.long()).abs().max())
+
+
+def attn_tol(want, dtype) -> float:
+    """Kernel-vs-plain tolerance of the flash kernel: the reference test's
+    atol for fp32 inputs; for bf16, one bf16 ulp at the output's largest
+    magnitude (each side rounds an fp32 result to bf16 once)."""
+    import torch
+    if dtype == torch.float32:
+        return 2e-5
+    return 2.0 ** -7 * float(want.float().abs().max())
 
 
 def block_records(seed: int, b: int) -> np.ndarray:
@@ -155,8 +219,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.db import BitmapDB
     from repro_torch.engine import backends, batch, planner, policy
-    from repro_torch.kernels import _build, bit_transpose, bitmap_ops
-    from repro_torch.kernels import cam_match
+    from repro_torch.kernels import _build, attention, bit_transpose
+    from repro_torch.kernels import bitmap_ops, cam_match
     dev = torch.device("cuda")
     wrappers = {"cam_match": cam_match.cam_match,
                 "bit_transpose": bit_transpose.bit_transpose,
@@ -229,6 +293,27 @@ def main() -> int:
                              "version on ragged shapes")
         print(f"check {name}: bit-identical at ragged shape "
               f"{tuple(got.shape)}")
+    worst = {}                                  # dtype -> (err / tol, case)
+    for seq, hd, g, causal, dt in itertools.product(
+            (300, 1), (32, 128), (1, 4, 7), (True, False),
+            (torch.float32, torch.bfloat16)):
+        kvh = 2
+        fq, fk, fv = (torch.from_numpy(rng.standard_normal((2, seq, heads, hd))
+                                       .astype(np.float32)).to(dev, dt)
+                      for heads in (kvh * g, kvh, kvh))
+        got = attention.flash_attention_fwd(fq, fk, fv, causal=causal)
+        want = attention.flash_attention_fwd_plain(
+            fq.float(), fk.float(), fv.float(), causal=causal)
+        torch.cuda.synchronize()
+        err, tol = max_abs_err(got, want), attn_tol(want, dt)
+        case = f"S={seq} hd={hd} H/KV={g} causal={causal}"
+        if not err <= tol:
+            raise SystemExit(f"flash_attention_fwd: kernel disagrees with its "
+                             f"plain version at {case} {dt}: {err} > {tol}")
+        worst[dt] = max(worst.get(dt, (0.0, "")), (err / tol, case))
+    for dt, (ratio, case) in worst.items():
+        print(f"check flash_attention_fwd {dt}: 24 ragged cases within "
+              f"tolerance, worst err/tol {ratio} at {case}")
 
     # ---- 3. the main path ----------------------------------------------
     t0 = time.perf_counter()
@@ -242,7 +327,7 @@ def main() -> int:
     wave = mix + [composite]
     db = BitmapDB(num_keys=M, device=dev)
 
-    for fn in wrappers.values():
+    for fn in (*wrappers.values(), attention.flash_attention_fwd):
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -307,31 +392,37 @@ def main() -> int:
     qrows, qinv = db.index.packed[sel0[0]], inv0[0]
     records = []
 
-    def kernel(name, src, line, shape_s, run, plain, nbytes, ops, reps):
+    def kernel(name, src, line, shape_s, run, plain, nbytes, ops, reps, *,
+               count, tol=0, peak_ops=PEAK_OPS, library=None):
+        """Check ``run`` against ``plain`` (within ``tol``), time both and
+        ``library`` (one PyTorch call of the same function, or None), and
+        add the kernel's record; ``count`` is its main-path launch count."""
         got, want = run(), plain()
         if isinstance(got, (tuple, list)):
             got, want = (torch.cat([t.reshape(-1) for t in got]),
                          torch.cat([t.reshape(-1) for t in want]))
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        if err:
+        if not err <= tol:
             raise SystemExit(f"{name}: kernel disagrees with its plain "
-                             f"version at {shape_s}")
+                             f"version at {shape_s}: {err} > {tol}")
         _, ms, _ = device_profile(torch, run, reps)
         _, plain_ms, _ = device_profile(torch, plain, 2)
         ev_ms = event_ms(torch, run, reps)
-        if not ms:
+        lib_ms = (device_profile(torch, library, reps)[1]
+                  if library is not None else None)
+        if not ms or lib_ms == 0:
             raise SystemExit(f"{name}: the profiler saw no device time")
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(nbytes, ops, peak_ops)
         records.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": line,
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "event_ms": ev_ms, "shape": shape_s})
+            "library_ms": lib_ms, "event_ms": ev_ms, "shape": shape_s})
         print(f"kernel {name} at {shape_s}: {ms} ms on the card "
               f"({ev_ms} ms between events; plain {plain_ms} ms; "
-              f"bound {b_ms} ms by {b_by})")
+              f"library {lib_ms} ms; bound {b_ms} ms by {b_by})")
 
     nrec = rec0.shape[0]
     # The function needs no N*W*M compares: a 256-entry table from a word's
@@ -343,19 +434,21 @@ def main() -> int:
            f"records {tuple(rec0.shape)} x keys ({M},)",
            lambda: cam_match.cam_match(rec0, keys),
            lambda: cam_match.cam_match_plain(rec0, keys),
-           nrec * W * 4 + M * 4 + nrec * M // 8, nrec * W * M // 32, 5)
+           nrec * W * 4 + M * 4 + nrec * M // 8, nrec * W * M // 32, 5,
+           count=launches["cam_match"])
     kernel("bit_transpose", "bit_transpose.cu",
            "src/repro/kernels/bit_transpose.py:65", f"{tuple(rm.shape)}",
            lambda: bit_transpose.bit_transpose(rm),
            lambda: bit_transpose.bit_transpose_plain(rm),
-           2 * rm.numel() * 4, 0, 10)
+           2 * rm.numel() * 4, 0, 10, count=launches["bit_transpose"])
     nw = qrows.shape[1]
     kernel("bitmap_query", "bitmap_ops.cu",
            "src/repro/kernels/bitmap_ops.py:57",
            f"rows {tuple(qrows.shape)} (one composite pass)",
            lambda: bitmap_ops.bitmap_query(qrows, qinv),
            lambda: bitmap_ops.bitmap_query_plain(qrows, qinv),
-           (qrows.shape[0] + 1) * nw * 4 + 8, 3 * qrows.numel(), 20)
+           (qrows.shape[0] + 1) * nw * 4 + 8, 3 * qrows.numel(), 20,
+           count=launches["bitmap_query"])
     # bulk_program: every bucket of the wave, timed as one wave.  Its bound
     # counts the real queries' programs only: each distinct key row the
     # wave reads once, one row written per real query, two operations per
@@ -377,31 +470,192 @@ def main() -> int:
            lambda: [bitmap_ops.bulk_program(aug, *b[2:]) for b in buckets],
            lambda: [bitmap_ops.bulk_program_plain(aug, *b[2:])
                     for b in buckets],
-           nbytes, ops, 10)
+           nbytes, ops, 10, count=launches["bulk_program"])
 
     # ---- 6. where the time goes -------------------------------------------
-    wall, busy, by_name = device_profile(
-        torch, lambda: db.query_many(wave).materialize())
-    print(f"profile warm wave: {wall:.3f} ms host wall (profiler on), "
-          f"{busy:.3f} ms card busy, idle share {1 - busy / wall:.3f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print("  top device time: " + "; ".join(f"{k[:60]} {v:.4f} ms"
-                                             for k, v in top))
-    wall, busy, by_name = device_profile(
-        torch, lambda: db.append_encoded(host_blocks[0]))
-    print(f"profile one more {BLOCK}-record append: {wall:.3f} ms host wall "
-          f"(profiler on), {busy:.3f} ms card busy, idle share "
-          f"{1 - busy / wall:.3f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print("  top device time: " + "; ".join(f"{k[:60]} {v:.4f} ms"
-                                             for k, v in top))
-
+    profile("warm wave", *device_profile(
+        torch, lambda: db.query_many(wave).materialize()))
+    profile(f"one more {BLOCK}-record append", *device_profile(
+        torch, lambda: db.append_encoded(host_blocks[0])))
     print(json.dumps({"main_path": {
         "records": n, "keys": M, "words": W, "blocks": BLOCKS,
         "ingest_s": ingest_s, "ingest_records_per_s": n / ingest_s,
         "wave_queries": len(wave), "wave_ms_cold": cold_ms,
         "wave_ms_warm": warm_ms, "warm_waves": WARM_WAVES,
         "launches": launches}}))
+
+    # ---- 7. the LM serving path: Qwen2-7B prefill + decode ----------------
+    del db, rows, counts, rows_ref, counts_ref, single, single_ref, aug
+    del buckets, rm, rec0, qrows, host_blocks
+    batch._AUG_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparam = sum(p.numel() for p in params.parameters())
+    print(f"lm: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}): {nparam} parameters "
+          f"(config: {cfg.param_count()}), {torch.cuda.memory_allocated()} "
+          f"bytes on the card, made in {init_s} s")
+    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    flash_fn = attention.flash_attention_fwd
+    for fn in (*wrappers.values(), flash_fn):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = tstep.greedy_generate(params, cfg, prompts, steps=LM_STEPS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    lm_launches = {name: fn.launches for name, fn in wrappers.items()}
+    lm_launches["flash_attention_fwd"] = flash_fn.launches
+    print(f"lm path: greedy_generate B={LM_BATCH} prompt {LM_PROMPT} "
+          f"steps {LM_STEPS}: {gen_s} s (first run), launches {lm_launches}")
+    if flash_fn.launches != cfg.num_layers:
+        raise SystemExit(f"flash_attention_fwd launched {flash_fn.launches} "
+                         f"times in one prefill, want {cfg.num_layers}")
+    if gen.shape != (LM_BATCH, LM_STEPS) or not (
+            0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
+        raise SystemExit(f"lm path: bad tokens {tuple(gen.shape)}")
+
+    # prefill and decode timed apart; layers 0 and L-1 captured by hooks
+    prefill = tstep.make_prefill_step(cfg, max_len=LM_PROMPT + LM_STEPS)
+    decode = tstep.make_decode_step(cfg)
+    captured = {}
+
+    def capture(i):
+        def hook(module, inputs, output):
+            captured[i] = (*inputs, output)
+        return hook
+
+    last = cfg.num_layers - 1
+    hooks = [params.layers[i].attn_core.register_forward_hook(capture(i))
+             for i in (0, last)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    for h in hooks:
+        h.remove()
+    kernel_logits = logits[:, -1, :cfg.vocab_size].float()
+    toks = [kernel_logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(LM_STEPS - 1):
+        logits, cache = decode(params, {"tokens": toks[-1][:, None],
+                                        "cache": cache})
+        toks.append(logits[:, -1, :cfg.vocab_size].argmax(-1))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (LM_STEPS - 1)
+    tok_s = LM_BATCH * LM_STEPS / ((prefill_ms
+                                    + decode_ms * (LM_STEPS - 1)) / 1e3)
+    same = int((torch.stack(toks, 1) == gen).sum())
+    print(f"lm timing: prefill {prefill_ms} ms ({LM_BATCH} x {LM_PROMPT} "
+          f"tokens), decode {decode_ms} ms/step, {tok_s} generated tokens/s; "
+          f"{same}/{gen.numel()} tokens equal to the first run's")
+
+    # the kernel against its plain version at the captured layers
+    layer_err = {}
+    for i, (cq, ck, cv, cout) in captured.items():
+        want = attention.flash_attention_fwd_plain(
+            cq.float(), ck.float(), cv.float(), causal=True)
+        err, tol = max_abs_err(cout, want), attn_tol(want, cout.dtype)
+        if not err <= tol:
+            raise SystemExit(f"flash_attention_fwd at layer {i}: {err} > {tol}")
+        layer_err[i] = (err, tol)
+    print(f"lm check: flash kernel vs plain at layers 0 and {last} "
+          f"(q {tuple(captured[0][0].shape)}, bf16): (err, tol) {layer_err}")
+
+    # The same prefill with the plain attention swapped in (here only), in
+    # the path's bf16 and, for a sharp comparison, with COMPUTE_DTYPE set
+    # to fp32 (the weights are cast at use, as the reference does).
+    def route_logits(dtype, plain):
+        kernel_route = tflash.flash_attention
+        if plain:
+            tflash.flash_attention = (
+                lambda q, k, v, *, causal, **kw:
+                attention.flash_attention_fwd_plain(q, k, v, causal=causal))
+        tmodel.COMPUTE_DTYPE = dtype
+        try:
+            out, _ = prefill(params, {"tokens": prompts})
+        finally:
+            tflash.flash_attention = kernel_route
+            tmodel.COMPUTE_DTYPE = torch.bfloat16
+        return out[:, -1, :cfg.vocab_size].float()
+
+    logit_checks = {}
+    for name, frac in LOGIT_TOL.items():
+        dt = getattr(torch, name)
+        got = (kernel_logits if dt == torch.bfloat16
+               else route_logits(dt, plain=False))
+        want = route_logits(dt, plain=True)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        tol = frac * float(want.abs().max())
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > tol
+        agree = got.argmax(-1) == want.argmax(-1)
+        if not (err <= tol and bool(agree[decided].all())
+                and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"lm check {name}: kernel-route logits differ from "
+                             f"the plain route: {err} > {tol} or argmax "
+                             f"{agree.tolist()} on decided rows "
+                             f"{decided.tolist()}")
+        logit_checks[name] = {"err": err, "tol": tol,
+                                 "argmax_agree": int(agree.sum()),
+                                 "rows_decided": int(decided.sum())}
+        print(f"lm check {name}: last-position logits, kernel vs plain route: "
+              f"max err {err} <= {tol} ({frac} of max "
+              f"{float(want.abs().max())}); argmax agrees on "
+              f"{int(agree.sum())}/{LM_BATCH} rows ({int(decided.sum())} "
+              f"rows with a top-2 margin above the tolerance)")
+    del got, want
+
+    # the kernel at the path's shape, beside its plain version and SDPA
+    fq, fk, fv, _ = captured[0]
+    B_, S_, H_, hd_ = fq.shape
+    sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_err = max_abs_err(sdpa(sq, sk, sv, is_causal=True,
+                                enable_gqa=True).transpose(1, 2),
+                           captured[0][3])
+    print(f"library yardstick scaled_dot_product_attention vs the kernel at "
+          f"layer 0: max err {sdpa_err}")
+    nbytes = 2 * (fq.numel() + fk.numel() + fv.numel() + fq.numel())
+    flops = 2 * S_ * (S_ + 1) * hd_ * B_ * H_
+    kernel("flash_attention_fwd", "attention.cu",
+           "src/repro/kernels/attention.py:67",
+           f"q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, causal, bf16",
+           lambda: attention.flash_attention_fwd(fq, fk, fv, causal=True),
+           lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
+                                                       causal=True),
+           nbytes, flops, 5, count=lm_launches["flash_attention_fwd"],
+           tol=attn_tol(captured[0][3], torch.bfloat16), peak_ops=PEAK_BF16,
+           library=lambda: sdpa(sq, sk, sv, is_causal=True, enable_gqa=True))
+
+    # where the time goes: one prefill, one decode step
+    lm_prof = {"prefill": profile(
+        f"one prefill ({LM_BATCH} x {LM_PROMPT})", *device_profile(
+            torch, lambda: prefill(params, {"tokens": prompts})))}
+    logits, cache = prefill(params, {"tokens": prompts})
+    nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    lm_prof["decode"] = profile("one decode step", *device_profile(
+        torch, lambda: decode(params, {"tokens": nxt, "cache": cache})))
+    print(json.dumps({"lm_path": {
+        "arch": cfg.name, "params": nparam, "batch": LM_BATCH,
+        "prompt": LM_PROMPT, "steps": LM_STEPS, "init_s": init_s,
+        "greedy_first_s": gen_s, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": decode_ms, "generated_tokens_per_s": tok_s,
+        "launches": lm_launches, "logit_checks": logit_checks,
+        "profile": lm_prof}}))
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,8 @@ Built-ins:
 ``ref`` and ``bulk`` are plain torch on every device, so on the card they
 are the references the kernels are held against.  ``auto`` resolves by the
 device of the index: ``cuda`` on a CUDA device, ``ref`` on the CPU (the
-measured cost model of the reference is not ported yet).
+measured cost model of the reference is not ported yet); with no device it
+resolves for the card, like every entry point of the port.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.engine import bulk
+from repro_torch.engine import bulk, policy
 from repro_torch.kernels import ops, ref
 
 
@@ -77,9 +78,11 @@ def available_backends() -> tuple[str, ...]:
 
 
 def resolve_backend(name: str, device=None) -> str:
-    """Map ``auto`` to a concrete backend for ``device`` (default CPU)."""
+    """Map ``auto`` to a concrete backend for ``device`` (default the card:
+    raises through :func:`policy.resolve_device` when no GPU is present)."""
     if name == "auto":
-        dev = torch.device("cpu" if device is None else device)
+        dev = (policy.resolve_device("cuda") if device is None
+               else torch.device(device))
         return "cuda" if dev.type == "cuda" else "ref"
     if name not in _REGISTRY:
         raise ValueError(f"unknown backend {name!r}; "

@@ -39,11 +39,14 @@ SIGNATURES = {
     "bitmap_query": ("bitmap_query_launch", (_P, _P, _P, _P, _I, _I, _P)),
     "bulk_program": ("bulk_program_launch",
                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "flash_attention_fwd": ("flash_attention_fwd_launch",
+                            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 #: which source file holds each kernel
 SOURCES = {"cam_match": "cam_match.cu", "bit_transpose": "bit_transpose.cu",
-           "bitmap_query": "bitmap_ops.cu", "bulk_program": "bitmap_ops.cu"}
+           "bitmap_query": "bitmap_ops.cu", "bulk_program": "bitmap_ops.cu",
+           "flash_attention_fwd": "attention.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}       # source file -> loaded library

@@ -3,7 +3,12 @@ card.  Every test here is marked ``cuda`` and skips without a GPU; this file
 imports no JAX, so it runs on a machine that has only PyTorch and the CUDA
 toolkit: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 
-Packed words and counts are integers: bit-identical, no tolerance.
+Packed words and counts are integers: bit-identical, no tolerance.  The
+flash-attention kernel is held against its plain version in fp32 on the
+same inputs: atol 2e-5 for fp32 inputs (the reference kernel test's), and
+for bf16 inputs one bf16 ulp at the output's largest magnitude
+(2^-7 * max|plain|: kernel and plain version each round an fp32 result to
+bf16 once).
 """
 import numpy as np
 import pytest
@@ -13,6 +18,7 @@ from repro_torch.db import BitmapDB
 from repro_torch.engine import planner
 from repro_torch.kernels import bit_transpose as tbt
 from repro_torch.kernels import bitmap_ops as tbq
+from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
 
 pytestmark = pytest.mark.cuda
@@ -97,3 +103,84 @@ def test_cuda_backend_matches_ref_end_to_end(dev):
     assert torch.equal(rows, rows_ref) and torch.equal(cnt, cnt_ref)
     assert tbq.bulk_program.launches > counts0[0]
     assert tbq.bitmap_query.launches > counts0[1]
+
+
+def _attn_inputs(rng, b, s, h, kv, hd, dtype, dev):
+    def one(heads):
+        return torch.from_numpy(rng.standard_normal((b, s, heads, hd))
+                                .astype(np.float32)).to(dev, dtype)
+    return one(h), one(kv), one(kv)
+
+
+def _attn_tol(want, dtype):
+    if dtype == torch.float32:
+        return 2e-5
+    return 2.0 ** -7 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,h,kv,hd", [(300, 4, 4, 32), (1, 7, 1, 128),
+                                       (300, 28, 4, 128), (77, 8, 2, 8),
+                                       (129, 4, 2, 256), (64, 2, 1, 16),
+                                       (200, 4, 1, 64)])
+def test_flash_attention_kernel(dev, dtype, causal, s, h, kv, hd):
+    rng = np.random.default_rng(s * h + hd)
+    q, k, v = _attn_inputs(rng, 2, s, h, kv, hd, dtype, dev)
+    before = tfa.flash_attention_fwd.launches
+    got = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = tfa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                         causal=causal)
+    err = float((got.float() - want).abs().max())
+    assert err <= _attn_tol(want, dtype), err
+
+
+def test_flash_attention_kernel_reference_layout(dev):
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 300, 32))
+                                .astype(np.float32)).to(dev)
+               for _ in range(3))
+    got = tfa.flash_attention_fwd(q, k, v, causal=False, block_q=64,
+                                  block_k=96)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_fwd_plain(q, k, v, causal=False)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "kv_heads",
+                                 "devices"])
+def test_flash_attention_kernel_rejects_before_launch(dev, bad):
+    rng = np.random.default_rng(0)
+    q, k, v = _attn_inputs(rng, 1, 16, 4, 2, 32, torch.float32, dev)
+    if bad == "head_dim":
+        q, k, v = _attn_inputs(rng, 1, 16, 4, 2, 48, torch.float32, dev)
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "strided":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "kv_heads":
+        k, v = k[:, :, :1].repeat(1, 1, 3, 1), v[:, :, :1].repeat(1, 1, 3, 1)
+    else:
+        k = k.cpu()
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="flash_attention_fwd"):
+        tfa.flash_attention_fwd(q, k, v)
+    assert tfa.flash_attention_fwd.launches == before
+
+
+def test_prefill_launches_the_kernel_once_per_layer(dev):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model
+    from repro_torch.serve.step import greedy_generate
+    cfg = get_smoke_config("qwen2_7b")
+    params = model.init_params(cfg, seed=0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(dev)
+    before = tfa.flash_attention_fwd.launches
+    out = greedy_generate(params, cfg, tokens, steps=3)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 3)
+    assert tfa.flash_attention_fwd.launches - before == cfg.num_layers

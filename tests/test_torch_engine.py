@@ -244,6 +244,16 @@ def test_auto_resolves_by_device():
         tbackends.resolve_backend("pallas")
 
 
+def test_auto_without_a_device_resolves_for_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tbackends.resolve_backend("auto") == "cuda"
+    assert tbackends.get_backend().name == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tbackends.resolve_backend("auto")
+    assert tbackends.resolve_backend("auto", "cpu") == "ref"
+
+
 # ------------------------------------------------------------ runtime
 @pytest.mark.parametrize("backend", PORT_BACKENDS)
 def test_streaming_indexer_matches_reference(backend):

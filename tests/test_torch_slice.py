@@ -120,3 +120,17 @@ def test_cuda_entry_points_raise_without_a_gpu(monkeypatch):
     from repro_torch.core.bic import BICCore
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         BICCore()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    cfg = get_smoke_config("qwen2_7b")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        model.init_params(cfg)                   # default device="cuda"
+    params = {name: np.zeros(shape, np.float32)
+              for name, (shape, _) in model._schema(cfg).items()}
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        model.params_from_numpy(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        model.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        serve.main(["--demo", "--steps", "2"])   # no --device cpu
