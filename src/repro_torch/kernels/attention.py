@@ -2,15 +2,22 @@
 (``csrc/attention.cu``) and its plain-torch version.
 
 Online-softmax attention, causal or full, scale 1/sqrt(hd), fp32
-accumulation, output in q's dtype.  Two layouts, one kernel:
+accumulation, output in q's dtype.  Two layouts, one entry point:
 
 * the model's: q (B, S, H, hd), k/v (B, S, KV, hd) with H % KV == 0; query
   head h reads KV head h // (H // KV), with no broadcast copy;
 * the reference kernel's: q/k/v (BH, S, hd), KV heads pre-broadcast (the
   model layout with H = KV = 1).
 
+On the card the C entry point picks one of two hand-written kernels by type
+and shape: bf16 at head_dim 64 or 128 (every full config the port serves)
+runs on the tensor cores (``flash_fwd_wgmma``: wgmma tiles fed by TMA
+copies, P carried as a bf16 hi + lo pair); fp32 inputs and the other head
+dims run on the CUDA cores (``flash_fwd_kernel``: fp32 FMAs, which keep
+fp32 within the reference test's atol of 2e-5).
+
 Replaces ``src/repro/kernels/attention.py::flash_attention_fwd``; the source
-note in the ``.cu`` file gives the kernel's bound and design.
+note in the ``.cu`` file gives the kernels' bound and design.
 """
 from __future__ import annotations
 
@@ -60,9 +67,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on CUDA tensors; run the plain version on CPU
     tensors.  Takes q/k/v of one dtype (fp32 or bf16), either (BH, S, hd)
     each or q (B, S, H, hd) with k/v (B, S, KV, hd); on the card they must be
-    contiguous with hd in :data:`HEAD_DIMS`.  ``block_q``/``block_k`` are
-    the reference kernel's tile sizes: checked, not used (the kernel tiles
-    64 queries by 32 or 64 keys)."""
+    contiguous and 16-byte aligned, with hd in :data:`HEAD_DIMS`.
+    ``block_q``/``block_k`` are the reference kernel's tile sizes: checked,
+    not used (the kernels tile 128 queries by 128 keys on the tensor cores,
+    64 queries by 32 or 64 keys on the CUDA cores)."""
     name = "flash_attention_fwd"
     card = _build.on_card(name, q, k, v)
     _build.require(name, q.dtype in DTYPES and k.dtype == q.dtype
@@ -88,6 +96,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"head_dim {hd} not in {HEAD_DIMS}")
     _build.require(name, q.is_contiguous() and k.is_contiguous()
                    and v.is_contiguous(), "q/k/v must be contiguous")
+    _build.require(name, all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                   "q/k/v must be 16-byte aligned")
     out = torch.empty_like(q)
     fn = _build.library(name)
     _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),

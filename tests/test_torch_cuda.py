@@ -8,7 +8,9 @@ flash-attention kernel is held against its plain version in fp32 on the
 same inputs: atol 2e-5 for fp32 inputs (the reference kernel test's), and
 for bf16 inputs one bf16 ulp at the output's largest magnitude
 (2^-7 * max|plain|: kernel and plain version each round an fp32 result to
-bf16 once).
+bf16 once) and, element by element, ``torch_checks.bf16_attn_err``: one
+bf16 ulp of the element plus 2^-12 of its row's largest magnitude, which a
+kernel that rounds P to bf16 before P V fails.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro_torch.kernels import bit_transpose as tbt
 from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
+from torch_checks import any_int32_cam_inputs, bf16_attn_err
 
 pytestmark = pytest.mark.cuda
 
@@ -42,6 +45,18 @@ def test_cam_match_kernel(dev, n, w, m):
     rng = np.random.default_rng(n + m)
     rec = torch.from_numpy(rng.integers(0, 256, (n, w), dtype=np.int32)).to(dev)
     keys = torch.from_numpy(rng.integers(0, 256, (m,), dtype=np.int32)).to(dev)
+    got = tcm.cam_match(rec, keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tcm.cam_match_plain(rec, keys))
+
+
+@pytest.mark.parametrize("m", [1, 37, 256, 300, 4096])
+@pytest.mark.parametrize("w", [1, 32, 500])
+def test_cam_match_kernel_any_int32(dev, w, m):
+    """Every table width: key words up to 4, 8, 16 (M = 300) and 32 per
+    key-word range; M = 4096 takes two ranges."""
+    rec, keys = (torch.from_numpy(a).to(dev) for a in any_int32_cam_inputs(
+        np.random.default_rng(w * m), 777, w, m))
     got = tcm.cam_match(rec, keys)
     torch.cuda.synchronize()
     assert torch.equal(got, tcm.cam_match_plain(rec, keys))
@@ -136,6 +151,48 @@ def test_flash_attention_kernel(dev, dtype, causal, s, h, kv, hd):
                                          causal=causal)
     err = float((got.float() - want).abs().max())
     assert err <= _attn_tol(want, dtype), err
+    if dtype == torch.bfloat16:
+        assert bf16_attn_err(got, want) <= 1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4, 7])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 300, 2048])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_tensor_core_kernel(dev, hd, s, g, causal):
+    """bf16 at head_dim 64 / 128 runs on the tensor-core kernel: ragged S
+    off the 128-row tiles, GQA groups 1, 4 and 7."""
+    rng = np.random.default_rng(s * g + hd)
+    q, k, v = _attn_inputs(rng, 2, s, 2 * g, 2, hd, torch.bfloat16, dev)
+    got = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                         causal=causal)
+    err = float((got.float() - want).abs().max())
+    assert err <= _attn_tol(want, torch.bfloat16), err
+    assert bf16_attn_err(got, want) <= 1
+
+
+def test_flash_attention_launches_the_named_kernel(dev):
+    """The profiler sees the kernel the C entry picks: the tensor-core one
+    for bf16 at head_dim 64 and 128, the CUDA-core one for fp32 and for bf16
+    at the other head dims."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    for dtype, hd, want in (
+            (torch.bfloat16, 128, "flash_fwd_wgmma"),
+            (torch.bfloat16, 64, "flash_fwd_wgmma"),
+            (torch.float32, 128, "flash_fwd_kernel"),
+            (torch.float32, 64, "flash_fwd_kernel"),
+            (torch.bfloat16, 32, "flash_fwd_kernel"),
+            (torch.bfloat16, 256, "flash_fwd_kernel")):
+        q, k, v = _attn_inputs(rng, 1, 200, 4, 2, hd, dtype, dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tfa.flash_attention_fwd(q, k, v)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "flash_fwd" in e.key]
+        assert len(names) == 1 and want in names[0], (dtype, hd, names)
 
 
 def test_flash_attention_kernel_reference_layout(dev):
@@ -151,7 +208,7 @@ def test_flash_attention_kernel_reference_layout(dev):
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "kv_heads",
-                                 "devices"])
+                                 "devices", "unaligned"])
 def test_flash_attention_kernel_rejects_before_launch(dev, bad):
     rng = np.random.default_rng(0)
     q, k, v = _attn_inputs(rng, 1, 16, 4, 2, 32, torch.float32, dev)
@@ -163,6 +220,8 @@ def test_flash_attention_kernel_rejects_before_launch(dev, bad):
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "kv_heads":
         k, v = k[:, :, :1].repeat(1, 1, 3, 1), v[:, :, :1].repeat(1, 1, 3, 1)
+    elif bad == "unaligned":                # contiguous, 4 bytes off
+        q = torch.cat([q.new_zeros(1), q.reshape(-1)])[1:].view(q.shape)
     else:
         k = k.cpu()
     before = tfa.flash_attention_fwd.launches

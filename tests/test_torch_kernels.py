@@ -22,6 +22,7 @@ from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import cam_match as tcm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_checks import any_int32_cam_inputs
 
 
 def u32(t: torch.Tensor) -> np.ndarray:
@@ -71,6 +72,25 @@ def test_cam_match_plain_matches_reference_and_pallas(n, w, m):
     records = rng.integers(0, 256, (n, w), dtype=np.int32)
     keys = rng.integers(0, 256, (m,), dtype=np.int32)
     got = tcm.cam_match(torch.from_numpy(records), torch.from_numpy(keys))
+    pallas = jops.cam_match(jnp.asarray(records), jnp.asarray(keys))
+    np.testing.assert_array_equal(u32(got), np.asarray(pallas))
+    if m % 32 == 0:
+        np.testing.assert_array_equal(
+            u32(got), np.asarray(jref.cam_match(jnp.asarray(records),
+                                                jnp.asarray(keys))))
+
+
+@pytest.mark.parametrize("n,w,m", [
+    (40, 7, 37),         # ragged, keys outside the 256-entry table
+    (33, 32, 256),       # the paper's geometry
+    (20, 500, 64),       # records wider than one staged pass
+    (9, 1, 1),
+])
+def test_cam_match_plain_any_int32_matches_reference_and_pallas(n, w, m):
+    rng = np.random.default_rng(n * 7 + w + m)
+    records, keys = any_int32_cam_inputs(rng, n, w, m)
+    got = tcm.cam_match(torch.from_numpy(records), torch.from_numpy(keys))
+    assert u32(got).any()                 # the cases do match something
     pallas = jops.cam_match(jnp.asarray(records), jnp.asarray(keys))
     np.testing.assert_array_equal(u32(got), np.asarray(pallas))
     if m % 32 == 0:

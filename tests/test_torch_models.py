@@ -11,9 +11,13 @@ across with ``params_from_numpy``.  Tolerances:
 * bf16 model logits: 1/32 of the logits' largest magnitude plus 1e-3, and
   the bf16 KV cache atol 0.02 (the two packages round to bf16 at other
   places: up to 2^-8 relative per rounding, a few dozen roundings deep;
-  the smoke configs show about 1/200).
+  the smoke configs show about 1/200);
+* bf16 attention against its fp32 plain version: the card's element check
+  (``torch_checks.bf16_attn_err``), shown here to pass the reference and
+  to fail P rounded to bf16 before P V.
 """
 import dataclasses
+import math
 
 import pytest
 
@@ -35,6 +39,7 @@ from repro_torch.models import flash as tflash  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.serve import step as tstep  # noqa: E402
+from torch_checks import bf16_attn_err  # noqa: E402
 
 DENSE = ["qwen2_7b", "granite_20b", "command_r_plus_104b"]
 #: dense branches no smoke config takes: qk-norm, a logit soft-cap, geglu
@@ -155,6 +160,55 @@ def test_flash_wrapper_rejects(bad):
         k = v = torch.zeros(1, 5, 2, 8)
     with pytest.raises(ValueError, match="flash_attention_fwd"):
         tattention.flash_attention_fwd(q, k, v)
+
+
+def _tiled_bf16_attention(q, k, v, causal: bool, split: bool):
+    """The tensor-core kernel's arithmetic on the CPU: 128-key tiles, online
+    softmax in fp32, P into P V as bf16 hi + lo (``split``, the kernel) or
+    rounded to bf16 alone (the control); the output rounded to bf16 once."""
+    S = q.shape[1]
+    s = (q.float() @ k.float().transpose(1, 2)) / math.sqrt(q.shape[-1])
+    if causal:
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                          tattention.NEG_INF)
+    m = torch.full((*s.shape[:2], 1), tattention.NEG_INF)
+    den = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, S, 128):
+        st, vt = s[:, :, k0:k0 + 128], v[:, k0:k0 + 128].float()
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(st - m_new)
+        den = den * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc, m = acc * corr + pv, m_new
+    return (acc / den).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [63, 129, 300])
+def test_bf16_attention_check_fails_a_bf16_pv_control(s, causal):
+    """The card's bf16 check (``torch_checks.bf16_attn_err``) passes the
+    Pallas reference, the plain version and the tensor-core kernel's
+    arithmetic (P as a bf16 hi + lo pair), and fails the same arithmetic
+    with P rounded to bf16 alone."""
+    rng = np.random.default_rng(s)
+    q, k, v = (t(rng.standard_normal((3, s, 128)).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    want = tattention.flash_attention_fwd_plain(q.float(), k.float(),
+                                                v.float(), causal=causal)
+    pallas = jattention.flash_attention_fwd(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+        causal=causal, block_q=128, block_k=128)
+    assert bf16_attn_err(t(np.asarray(pallas, np.float32)), want) <= 1
+    assert bf16_attn_err(tattention.flash_attention_fwd(
+        q, k, v, causal=causal), want) <= 1
+    assert bf16_attn_err(_tiled_bf16_attention(q, k, v, causal, True),
+                         want) <= 1
+    assert bf16_attn_err(_tiled_bf16_attention(q, k, v, causal, False),
+                         want) > 2
 
 
 # --------------------------------------- (c) the model-layout flash entry
