@@ -7,10 +7,16 @@ Phases (any failure exits non-zero and prints no result):
 
 1. Device and build: the card's name and power limit, the torch/CUDA
    versions, and the build of every kernel under ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all at once).
+   (one ``nvcc`` per source, all at once), with ``ptxas``'s registers and,
+   for ``bit_transpose.cu`` and ``bitmap_ops.cu``, its shared memory and
+   spill bytes per kernel.
 2. Each kernel against its plain-torch version on the card at ragged
    shapes: the bitmap kernels (N, M, Nw off the block multiples, every
-   operand inverted) bit-identical, ``cam_match`` also with keys over the
+   operand inverted) bit-identical, ``bit_transpose`` also at R = 1, 31,
+   33, 1023, 1025, 2^22 + 1 x Cw = 1, 3, 8, 17, at (1025, 12) and on a view
+   4 bytes past a 16-byte boundary, ``bitmap_query`` at K = 1, 2, 8, 33 x
+   Nw = 1, 3, 1001, 2^20, 2^20 + 3, all rows inverted and mixed, at K = 1030
+   and on such a view, ``cam_match`` also with keys over the
    whole int32 range (duplicates, the key sentinel -2, records holding -1
    and values outside the 256-entry table) and at M = 300 and 4096 (16-word
    tables; two key-word ranges); the flash-attention kernels at S = 1, 63,
@@ -42,7 +48,15 @@ Phases (any failure exits non-zero and prints no result):
    it must move over 3.35e12 B/s and the operations its function needs over
    6.7e13 op/s (the H100 SXM's published memory rate and 32-bit non-tensor
    peak), counted over this run's real work only (no pad query, pad
-   literal or identity row).
+   literal or identity row).  ``bitmap_query`` is timed over a ring of
+   copies four times the L2 (so its inputs come from HBM and its HBM bound
+   holds); its record also keeps the L2-resident time (``l2_ms``), which
+   is what the path sees.  Then, on lines outside the kernels' record and
+   three rounds taken in turn: ``bitmap_query`` on aligned rows and on
+   views 4 bytes past a 16-byte boundary, from HBM and L2-resident, at the
+   path's pass and at 8 rows of the index (an 8-literal conjunction pass),
+   and ``bit_transpose``'s 16-byte and 4-byte copies (an aligned input and
+   such a view) at the path's shape.
 6. Where the time goes: the card's busy time and idle share over one warm
    wave and over one more block append, with the top kernels by time.
 7. The LM serving path: Qwen2-7B at its full published config (28 layers,
@@ -209,6 +223,59 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max())
 
 
+def offset_view(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary (the kernels' 4-byte path)."""
+    v = t.new_empty(t.numel() + 1)[1:].view(t.shape)
+    assert v.data_ptr() % 16 == 4
+    return v.copy_(t)
+
+
+def hbm_ring(fn, *args, l2_bytes: int, copy=lambda t: t.clone()):
+    """``fn`` over a ring of ``copy``s of ``args``, at least four times the
+    L2 in all, so that each call reads its inputs from HBM.  The ring keeps
+    each call's result until its slot comes round again, so each call also
+    writes to memory that no recent call wrote."""
+    per = sum(a.numel() * a.element_size() for a in args)
+    n = max(8, -(-4 * l2_bytes // per))
+    copies = [[copy(a) for a in args] for _ in range(n)]
+    results, calls = [None] * n, itertools.count()
+
+    def call():
+        j = next(calls) % n
+        results[j] = fn(*copies[j])
+        return results[j]
+    return call
+
+
+def in_turn(torch, fns: dict, symbol: str, reps: int, rounds: int = 3
+            ) -> dict:
+    """Card ms of each of ``fns`` over ``rounds`` rounds that take them in
+    turn, ``reps`` calls each: {label: [(ms, ms of the kernels named
+    ``symbol`` alone), ...]}."""
+    out = {label: [] for label in fns}
+    for _ in range(rounds):
+        for label, fn in fns.items():
+            for _ in range(3):          # the profiler now and then sees none
+                _, ms, by_name = device_profile(torch, fn, reps)
+                if ms:
+                    break
+            else:
+                raise SystemExit(f"{label}: the profiler saw no device time")
+            out[label].append((ms, sum(v for k, v in by_name.items()
+                                       if symbol in k)))
+    return out
+
+
+def print_in_turn(title: str, times: dict) -> None:
+    print(f"{title} (3 rounds in turn; card ms, min-max, and the kernel "
+          f"alone):")
+    for label, ts in times.items():
+        tot, own = [t for t, _ in ts], [k for _, k in ts]
+        print(f"  {label}: {min(tot)}-{max(tot)} ms (kernel alone "
+              f"{min(own)}-{max(own)} ms)")
+
+
 def launches_named(counts: dict, symbol: str) -> int:
     """Launches of the kernels whose profiler name contains ``symbol``."""
     return sum(n for key, n in counts.items() if symbol in key)
@@ -261,8 +328,13 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s")
+    src = None
     for line in report.splitlines():
-        if "registers" in line or line.startswith("---"):
+        if line.startswith("---"):
+            src = line[4:].strip()
+        if ("registers" in line or line.startswith("---") or (
+                src in ("bit_transpose.cu", "bitmap_ops.cu")
+                and ("Compiling entry" in line or "spill" in line))):
             print(f"  {line.strip()}")
 
     # ---- 2. kernels against their plain versions, ragged shapes --------
@@ -299,6 +371,15 @@ def main() -> int:
         return (bitmap_ops.bulk_program(a, *prog),
                 bitmap_ops.bulk_program_plain(a, *prog))
 
+    def transpose_pair(t):
+        return (bit_transpose.bit_transpose(t),
+                bit_transpose.bit_transpose_plain(t))
+
+    def query_pair(rows, inv):          # rows and count, as one tensor
+        return tuple(torch.cat([t.reshape(-1) for t in f(rows, inv)])
+                     for f in (bitmap_ops.bitmap_query,
+                               bitmap_ops.bitmap_query_plain))
+
     checks = {
         "cam_match": (cam_match.cam_match(rec, keys37),
                       cam_match.cam_match_plain(rec, keys37)),
@@ -306,13 +387,8 @@ def main() -> int:
         "cam_match int32 keys W=32 M=300": cam_pair(1000, 32, 300),
         "cam_match int32 keys W=32 M=4096": cam_pair(1000, 32, 4096),
         "cam_match int32 keys W=500 M=37": cam_pair(333, 500, 37),
-        "bit_transpose": (bit_transpose.bit_transpose(x),
-                          bit_transpose.bit_transpose_plain(x)),
-        "bitmap_query": (torch.cat([t.reshape(-1) for t in
-                                    bitmap_ops.bitmap_query(rows4, inv4)]),
-                         torch.cat([t.reshape(-1) for t in
-                                    bitmap_ops.bitmap_query_plain(rows4,
-                                                                  inv4)])),
+        "bit_transpose": transpose_pair(x),
+        "bitmap_query": query_pair(rows4, inv4),
         "bulk_program": bulk_pair(aug, program((8, 4, 2, 4))),
         # past grid.y's 65535 queries, and a 16384-literal program
         "bulk_program Q=65536": bulk_pair(aug[:, :33].contiguous(),
@@ -320,6 +396,26 @@ def main() -> int:
         "bulk_program G*P*L=16384": bulk_pair(aug[:, :300].contiguous(),
                                               program((2, 128, 1, 64))),
     }
+    # the shapes the redesigned bit_transpose and bitmap_query split on:
+    # ragged R and Cw, K past the staged flags, Nw % 4 != 0, and views 4
+    # bytes past a 16-byte boundary (bit_transpose's 4-byte copies)
+    for r_, cw_ in [*itertools.product((1, 31, 33, 1023, 1025, BLOCK + 1),
+                                       (1, 3, 8, 17)), (1025, 12)]:
+        checks[f"bit_transpose R={r_} Cw={cw_}"] = transpose_pair(
+            words(r_, cw_))
+    checks["bit_transpose view"] = transpose_pair(offset_view(words(3000, 8)))
+    for k_, nw_, allinv in [*itertools.product(
+            (1, 2, 8, 33), (1, 3, 1001, 1 << 20, (1 << 20) + 3),
+            (True, False)), (1030, 4100, False)]:
+        inv = (torch.ones(k_, dtype=torch.int32, device=dev) if allinv else
+               torch.from_numpy(rng.integers(0, 2, k_).astype(np.int32))
+               .to(dev))
+        checks[f"bitmap_query K={k_} Nw={nw_} "
+               f"{'all inverted' if allinv else 'mixed'}"] = query_pair(
+            words(k_, nw_), inv)
+    checks["bitmap_query view"] = query_pair(
+        offset_view(words(3, 4096)),
+        torch.tensor([0, 1, 0], dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     for name, (got, want) in checks.items():
         if not torch.equal(got, want):
@@ -327,6 +423,7 @@ def main() -> int:
                              "version on ragged shapes")
         print(f"check {name}: bit-identical at ragged shape "
               f"{tuple(got.shape)}")
+    del checks
     worst = {}                  # (dtype, hd, check) -> (err / tol, case)
     seqs, groups = (1, 63, 65, 127, 129, 300, 2048), (1, 4, 7)
     for seq, hd, g, causal, dt in itertools.product(
@@ -495,14 +592,54 @@ def main() -> int:
            lambda: bit_transpose.bit_transpose(rm),
            lambda: bit_transpose.bit_transpose_plain(rm),
            2 * rm.numel() * 4, 0, 10, count=launches["bit_transpose"])
-    nw = qrows.shape[1]
+    # On the path the planner has just gathered bitmap_query's rows, so
+    # they sit in L2; a ring of copies past the L2 times it from HBM, where
+    # its HBM bound holds.  The record also keeps the L2-resident time.
+    nw, l2 = qrows.shape[1], torch.cuda.get_device_properties(0).L2_cache_size
+    bq, bq_plain = bitmap_ops.bitmap_query, bitmap_ops.bitmap_query_plain
     kernel("bitmap_query", "bitmap_ops.cu",
            "src/repro/kernels/bitmap_ops.py:57",
-           f"rows {tuple(qrows.shape)} (one composite pass)",
-           lambda: bitmap_ops.bitmap_query(qrows, qinv),
-           lambda: bitmap_ops.bitmap_query_plain(qrows, qinv),
+           f"rows {tuple(qrows.shape)} (one composite pass), from HBM",
+           hbm_ring(bq, qrows, qinv, l2_bytes=l2),
+           hbm_ring(bq_plain, qrows, qinv, l2_bytes=l2),
            (qrows.shape[0] + 1) * nw * 4 + 8, 3 * qrows.numel(), 20,
            count=launches["bitmap_query"])
+    records[-1]["l2_ms"] = device_profile(torch, lambda: bq(qrows, qinv),
+                                          20)[1]
+    # informational: bitmap_query on aligned rows and on views 4 bytes past
+    # a 16-byte boundary, from HBM and from L2, at the path's pass and at an
+    # 8-literal conjunction pass
+    rows8 = db.index.packed[torch.arange(8, device=dev) * 29 % M]
+    inv8 = torch.tensor([0, 1] * 4, dtype=torch.int32, device=dev)
+    for rows_, inv_ in ((qrows, qinv), (rows8, inv8)):
+        off = offset_view(rows_)
+        if not (torch.equal(torch.cat([t.reshape(-1) for t in bq(off, inv_)]),
+                            torch.cat([t.reshape(-1) for t in
+                                       bq_plain(rows_, inv_)]))):
+            raise SystemExit(f"bitmap_query disagrees with its plain "
+                             f"version at {tuple(rows_.shape)}")
+        k_ = rows_.shape[0]
+        b_ms, b_by = bound((k_ + 1) * nw * 4 + 4 * k_ + 4, 3 * rows_.numel())
+        print_in_turn(
+            f"bitmap_query at rows {tuple(rows_.shape)}, bound {b_ms} ms by "
+            f"{b_by}", in_turn(torch, {
+                "aligned, from HBM": hbm_ring(bq, rows_, inv_, l2_bytes=l2),
+                "view +4 bytes, from HBM": hbm_ring(
+                    bq, rows_, inv_, l2_bytes=l2, copy=offset_view),
+                "aligned, L2-resident": lambda: bq(rows_, inv_),
+                "view +4 bytes, L2-resident": lambda: bq(off, inv_)},
+                "bitmap_query_kernel", 20))
+    del rows8, off
+    # informational: bit_transpose's 16-byte and 4-byte copies
+    rm_off = offset_view(rm)
+    if not torch.equal(bit_transpose.bit_transpose(rm_off),
+                       bit_transpose.bit_transpose(rm)):
+        raise SystemExit("bit_transpose: the 4-byte copies disagree")
+    print_in_turn(f"bit_transpose at {tuple(rm.shape)}", in_turn(torch, {
+        "16-byte copies": lambda: bit_transpose.bit_transpose(rm),
+        "4-byte copies": lambda: bit_transpose.bit_transpose(rm_off)},
+        "bit_transpose_kernel", 10))
+    del rm_off
     # bulk_program: every bucket of the wave, timed as one wave.  Its bound
     # counts the real queries' programs only: each distinct key row the
     # wave reads once, one row written per real query, two operations per
@@ -529,8 +666,11 @@ def main() -> int:
     # ---- 6. where the time goes -------------------------------------------
     profile("warm wave", *device_profile(
         torch, lambda: db.query_many(wave).materialize()))
-    profile(f"one more {BLOCK}-record append", *device_profile(
-        torch, lambda: db.append_encoded(host_blocks[0])))
+    append = device_profile(torch, lambda: db.append_encoded(host_blocks[0]))
+    profile(f"one more {BLOCK}-record append", *append)
+    print("  index-build kernels in the append: " + "; ".join(
+        f"{sym} {sum(ms for k, ms in append[2].items() if sym in k)} ms"
+        for sym in ("cam_match_kernel", "bit_transpose_kernel")))
     print(json.dumps({"main_path": {
         "records": n, "keys": M, "words": W, "blocks": BLOCKS,
         "ingest_s": ingest_s, "ingest_records_per_s": n / ingest_s,

@@ -8,13 +8,23 @@
 // Replaces the TPU kernel src/repro/kernels/bitmap_ops.py::bitmap_query
 // (_query_kernel), which carries the popcount across its sequential grid in
 // an SMEM scalar.  Hopper blocks run in parallel and in no order, so here
-// each block reduces its popcounts with warp shuffles and adds them once
+// each block reduces its popcounts with warp reductions and adds them once
 // into the count with an integer atomicAdd: integer addition is exact in
 // any order, so the count is deterministic.
 //
-// Bound on Hopper: memory, (K + 1) * Nw * 4 bytes.  A grid-stride loop over
-// words, neighbouring threads on neighbouring words, reads each operand
-// word once, coalesced.
+// Bound on Hopper: memory, (K + 1) * Nw * 4 bytes.  On the serving path the
+// rows were just gathered (planner: packed[sel]) and sit in L2, so at one
+// 2^20-word row the time is launch ramp and load latency, not the HBM rate.
+// Design: fat blocks, one wave at that size.  A block of 256 threads
+// covers QW = 4096 words, 16 per thread, THREADS apart (each load of a warp
+// is one coalesced 128-byte run); the grid is ceil(Nw / QW) blocks.  The K
+// invert flags go to shared memory as xor masks once per block (in chunks
+// of QFLAGS rows for larger K).  A thread issues the loads of four rows
+// before it folds them, without bounds checks in every block but the last.
+// These are 4-byte loads, so any contiguous view and any Nw take the same
+// path: a 16-byte (uint4) instance for aligned rows measured no faster on
+// the card at the serving path's pass (PERF.md).  One atomicAdd per block:
+// 256 at Nw = 2^20.
 //
 // ---- bulk_program -------------------------------------------------------
 // aug (M+1, Nw) uint32 (all-ones identity row at M), sels/invs (Q, G, P, L)
@@ -49,33 +59,90 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WPT = 4;          // bulk_program: words per thread
+constexpr int QV = 16;          // bitmap_query: words per thread per row
+constexpr int QW = THREADS * QV;        // bitmap_query: words per block
+constexpr int QFLAGS = 1024;    // bitmap_query: flags staged per chunk
 
-__global__ void bitmap_query_kernel(const uint32_t* __restrict__ rows,
-                                    const int32_t* __restrict__ invert,
-                                    uint32_t* __restrict__ out,
-                                    int32_t* __restrict__ count,
-                                    long long k, long long nw) {
-  unsigned local = 0;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < nw; i += (long long)gridDim.x * blockDim.x) {
-    uint32_t acc = 0xffffffffu;
-    for (long long r = 0; r < k; ++r) {
-      const uint32_t flip = invert[r] ? 0xffffffffu : 0u;
-      acc &= rows[r * nw + i] ^ flip;
-    }
-    out[i] = acc;
-    local += __popc(acc);
+// A thread's words of row a: w0 + j THREADS + threadIdx.x, j < QV; past nw
+// they read as zero (FULL: the whole block lies inside nw, no checks).
+template <bool FULL>
+__device__ __forceinline__ void query_load(uint32_t (&v)[QV],
+                                           const uint32_t* __restrict__ a,
+                                           long long nw, long long w0) {
+#pragma unroll
+  for (int j = 0; j < QV; ++j) {
+    const long long i = w0 + threadIdx.x + (long long)j * THREADS;
+    v[j] = FULL || i < nw ? __ldg(a + i) : 0u;
   }
-  for (int off = 16; off > 0; off >>= 1)
-    local += __shfl_down_sync(0xffffffffu, local, off);
+}
+
+// Fold rows [k0, k0 + kc) into acc.  The pair loop, unrolled twice, issues
+// four rows' loads before it folds them.
+template <bool FULL>
+__device__ __forceinline__ void query_fold(
+    uint32_t (&acc)[QV], const uint32_t* __restrict__ rows,
+    const uint32_t* flip, long long k0, int kc, long long nw, long long w0) {
+  uint32_t va[QV], vb[QV];
+  int kk = 0;
+#pragma unroll 2
+  for (; kk + 1 < kc; kk += 2) {
+    query_load<FULL>(va, rows + (k0 + kk) * nw, nw, w0);
+    query_load<FULL>(vb, rows + (k0 + kk + 1) * nw, nw, w0);
+    const uint32_t fa = flip[kk], fb = flip[kk + 1];
+#pragma unroll
+    for (int j = 0; j < QV; ++j) acc[j] &= (va[j] ^ fa) & (vb[j] ^ fb);
+  }
+  if (kk < kc) {
+    query_load<FULL>(va, rows + (k0 + kk) * nw, nw, w0);
+#pragma unroll
+    for (int j = 0; j < QV; ++j) acc[j] &= va[j] ^ flip[kk];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+bitmap_query_kernel(const uint32_t* __restrict__ rows,
+                    const int32_t* __restrict__ invert,
+                    uint32_t* __restrict__ out, int32_t* __restrict__ count,
+                    long long k, long long nw) {
+  __shared__ uint32_t flip[QFLAGS];
   __shared__ unsigned warp_sums[THREADS / 32];
+  const bool staged = k <= QFLAGS;      // all flags staged once per block
+  if (staged)
+    for (int i = threadIdx.x; i < k; i += THREADS)
+      flip[i] = invert[i] ? 0xffffffffu : 0u;
+  const long long w0 = (long long)blockIdx.x * QW;
+  uint32_t acc[QV];
+#pragma unroll
+  for (int j = 0; j < QV; ++j) acc[j] = 0xffffffffu;
+  for (long long k0 = 0; k0 < k; k0 += QFLAGS) {
+    const int kc = (int)(k - k0 < QFLAGS ? k - k0 : QFLAGS);
+    if (!staged) {
+      __syncthreads();                  // the last chunk's flags are read
+      for (int i = threadIdx.x; i < kc; i += THREADS)
+        flip[i] = invert[k0 + i] ? 0xffffffffu : 0u;
+    }
+    __syncthreads();
+    if (w0 + QW <= nw)
+      query_fold<true>(acc, rows, flip, k0, kc, nw, w0);
+    else
+      query_fold<false>(acc, rows, flip, k0, kc, nw, w0);
+  }
+  unsigned local = 0;
+#pragma unroll
+  for (int j = 0; j < QV; ++j) {
+    const long long i = w0 + threadIdx.x + (long long)j * THREADS;
+    if (i < nw) {
+      out[i] = acc[j];
+      local += __popc(acc[j]);
+    }
+  }
+  local = __reduce_add_sync(0xffffffffu, local);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) warp_sums[warp] = local;
   __syncthreads();
   if (warp == 0) {
-    unsigned v = lane < (int)(blockDim.x / 32) ? warp_sums[lane] : 0u;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
+    unsigned v = lane < THREADS / 32 ? warp_sums[lane] : 0u;
+    v = __reduce_add_sync(0xffffffffu, v);
     if (lane == 0 && v) atomicAdd(count, (int32_t)v);
   }
 }
@@ -141,9 +208,8 @@ extern "C" int bitmap_query_launch(const void* rows, const void* invert,
                                    void* out, void* count, long long k,
                                    long long nw, void* stream) {
   if (nw == 0) return (int)cudaGetLastError();
-  long long blocks = (nw + THREADS - 1) / THREADS;
-  if (blocks > 132 * 16) blocks = 132 * 16;   // grid-stride past ~16 per SM
-  bitmap_query_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  bitmap_query_kernel<<<(unsigned)((nw + QW - 1) / QW), THREADS, 0,
+                        (cudaStream_t)stream>>>(
       (const uint32_t*)rows, (const int32_t*)invert, (uint32_t*)out,
       (int32_t*)count, k, nw);
   return (int)cudaGetLastError();

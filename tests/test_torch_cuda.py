@@ -12,6 +12,8 @@ bf16 once) and, element by element, ``torch_checks.bf16_attn_err``: one
 bf16 ulp of the element plus 2^-12 of its row's largest magnitude, which a
 kernel that rounds P to bf16 before P V fails.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -62,7 +64,15 @@ def test_cam_match_kernel_any_int32(dev, w, m):
     assert torch.equal(got, tcm.cam_match_plain(rec, keys))
 
 
-@pytest.mark.parametrize("r,cw", [(1000, 3), (4096, 8), (32, 1), (2100, 17)])
+# bit_transpose: rows around a tile (32) and an item (1024 rows) of the
+# kernel and one past a full 2^22-record block; column words around its 8
+# per item and its 16-byte (4-word) copies; Cw = 12 ends on half an item
+# with 16-byte copies.
+@pytest.mark.parametrize("r,cw", [(1000, 3), (4096, 8), (32, 1), (2100, 17),
+                                  (1025, 12),
+                                  *itertools.product(
+                                      (1, 31, 33, 1023, 1025, (1 << 22) + 1),
+                                      (1, 3, 8, 17))])
 def test_bit_transpose_kernel(dev, r, cw):
     x = _words(np.random.default_rng(r), r, cw, dev=dev)
     got = tbt.bit_transpose(x)
@@ -70,13 +80,48 @@ def test_bit_transpose_kernel(dev, r, cw):
     assert torch.equal(got, tbt.bit_transpose_plain(x))
 
 
+def _unaligned(rng, *shape, dev):
+    """Random words as a contiguous view 4 bytes past a 16-byte boundary
+    (``bit_transpose``'s 4-byte copies)."""
+    v = _words(rng, int(np.prod(shape)) + 1, dev=dev)[1:].view(*shape)
+    assert v.is_contiguous() and v.data_ptr() % 16 == 4
+    return v
+
+
+def test_bit_transpose_kernel_unaligned_view(dev):
+    x = _unaligned(np.random.default_rng(9), 3000, 8, dev=dev)
+    got = tbt.bit_transpose(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tbt.bit_transpose_plain(x))
+
+
+# bitmap_query: K around the kernel's row pairs and its four rows in
+# flight, past 32 and past the 1024 flags it stages at once; Nw % 4 != 0
+# puts rows k >= 1 off a 16-byte boundary, and Nw off the 4096-word block
+# leaves a last block with bounds checks; 2^23 + 5 words take more blocks
+# than the card holds at once.
 @pytest.mark.parametrize("k,nw,allinv", [(4, 1001, True), (1, 1 << 16, False),
-                                         (7, 333, False)])
+                                         (7, 333, False), (1030, 4100, False),
+                                         (1, (1 << 23) + 5, False),
+                                         *itertools.product(
+                                             (1, 2, 8, 33),
+                                             (1, 3, 1001, 1 << 20,
+                                              (1 << 20) + 3),
+                                             (True, False))])
 def test_bitmap_query_kernel(dev, k, nw, allinv):
     rng = np.random.default_rng(k * nw)
     rows = _words(rng, k, nw, dev=dev)
     inv = (torch.ones(k, dtype=torch.int32) if allinv else
            torch.from_numpy(rng.integers(0, 2, k).astype(np.int32))).to(dev)
+    got_r, got_c = tbq.bitmap_query(rows, inv)
+    want_r, want_c = tbq.bitmap_query_plain(rows, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(got_r, want_r) and int(got_c) == int(want_c)
+
+
+def test_bitmap_query_kernel_unaligned_view(dev):
+    rows = _unaligned(np.random.default_rng(10), 3, 4096, dev=dev)
+    inv = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
     got_r, got_c = tbq.bitmap_query(rows, inv)
     want_r, want_c = tbq.bitmap_query_plain(rows, inv)
     torch.cuda.synchronize()

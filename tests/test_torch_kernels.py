@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.engine import bulk as jbulk
+from repro.kernels import bit_transpose as jbit_transpose
 from repro.kernels import bitmap_ops as jbitmap_ops
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -145,6 +146,132 @@ def test_bit_transpose_chunking_is_bit_identical(monkeypatch):
                                   whole.numpy())
 
 
+# -------------------------------- bit_transpose's CUDA tile arithmetic
+# A torch model of what csrc/bit_transpose.cu runs: the butterfly across the
+# 32 lanes of a warp (shuffle partner lane ^ j, a rotate by j or 32 - j and
+# a masked select), the two shared-memory swizzles and the order of the
+# item's copies, reads, writes and stores.  Words are held as int64 with
+# uint32 values.
+_MASKS = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
+_LANE = torch.arange(32)
+_ROWS, _COLS = 1024, 8                  # rows x column words of one item
+
+
+def _shuffle_transpose32(x: torch.Tensor) -> torch.Tensor:
+    """x (..., 32): lane i holds word i of a tile; returns lane b holding
+    output word b."""
+    for k, m in enumerate(_MASKS):
+        j = 16 >> k
+        up = (_LANE & j) == 0
+        take = torch.where(up, torch.tensor(~m & 0xFFFFFFFF), torch.tensor(m))
+        rot = torch.where(up, torch.tensor(j), torch.tensor(32 - j))
+        p = x[..., _LANE ^ j]                           # __shfl_xor_sync
+        q = ((p << rot) | (p >> (32 - rot))) & 0xFFFFFFFF  # funnel shift
+        x = (x & ~take) | (q & take)
+    return x
+
+
+def _in_slot(lr, c):
+    """Stage word of item word (row lr, column word c): the row's two
+    16-byte chunks swap on every other group of 4 rows."""
+    return lr * _COLS + ((((c >> 2) ^ (lr >> 2)) & 1) << 2) + (c & 3)
+
+
+def _out_slot(o, tr):
+    """Stage word of output row o (= 32 c + b) of the item, row tile tr."""
+    return o * 32 + (tr ^ (o & 31))
+
+
+def _model_bit_transpose(packed: torch.Tensor) -> torch.Tensor:
+    """The kernel's item loop on the CPU: copy, lane reads, butterfly,
+    staged writes and row stores, with its index arithmetic."""
+    r, cw = packed.shape
+    rw = tref.num_words(r)
+    src = packed.long() & 0xFFFFFFFF
+    out = torch.zeros((cw * 32, rw), dtype=torch.int64)
+    lr, c = torch.meshgrid(torch.arange(_ROWS), torch.arange(_COLS),
+                           indexing="ij")
+    tr = torch.arange(32)[:, None]                      # (tile, lane)
+    row_of = tr * 32 + _LANE                            # lane i reads row i
+    sw = (_LANE >> 2) & 1
+    o = torch.arange(_COLS * 32)[:, None]               # (out row, lane)
+    for row0 in range(0, r, _ROWS):
+        for col0 in range(0, cw, _COLS):
+            stage = torch.zeros(_ROWS * _COLS, dtype=torch.int64)
+            gr, gc = row0 + lr, col0 + c
+            ok = (gr < r) & (gc < cw)                   # the rest zero-filled
+            stage[_in_slot(lr[ok], c[ok])] = src[gr[ok], gc[ok]]
+            base = row_of * _COLS
+            lo = stage[base[..., None] + 4 * sw[:, None] + torch.arange(4)]
+            hi = stage[base[..., None] + 4 * (sw ^ 1)[:, None]
+                       + torch.arange(4)]
+            x = torch.cat([lo, hi], -1)                 # (tr, lane, c)
+            x = _shuffle_transpose32(x.transpose(1, 2)).transpose(1, 2)
+            tile, b, cc = torch.meshgrid(torch.arange(32), _LANE,
+                                         torch.arange(_COLS), indexing="ij")
+            stage[_out_slot(cc * 32 + b, tile)] = x[tile, b, cc]
+            gcol, t = col0 + o // 32, row0 // 32 + _LANE
+            keep = (gcol < cw) & (t < rw)
+            val = stage[_out_slot(o, _LANE)]
+            gcol, t = gcol.expand_as(val), t.expand_as(val)
+            orow = (gcol * 32 + o % 32).expand_as(val)
+            out[orow[keep], t[keep]] = val[keep]
+    return (out & 0xFFFFFFFF).numpy().astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_shuffle_butterfly_matches_reference_transpose32(seed):
+    """The kernel's lane butterfly on random tiles against the reference
+    kernel's _transpose32 (JAX, CPU) and the port's plain version."""
+    rng = np.random.default_rng(100 + seed)
+    tiles = words(rng, 16, 32)                          # 16 tiles, row-major
+    got = _shuffle_transpose32(torch.from_numpy(tiles.astype(np.int64)))
+    got = got.numpy().astype(np.uint32)
+    want = np.asarray(jbit_transpose._transpose32(jnp.asarray(tiles.T))).T
+    np.testing.assert_array_equal(got, want)
+    for i in range(tiles.shape[0]):
+        plain = tref.bit_transpose(t32(tiles[i][:, None]))   # (32, 1)
+        np.testing.assert_array_equal(got[i], u32(plain)[:, 0])
+
+
+@pytest.mark.parametrize("r,cw", [(1, 1), (31, 3), (33, 8), (1025, 17),
+                                  (2100, 8)])
+def test_kernel_model_matches_reference(r, cw):
+    """The whole item loop, ragged rows and column words included."""
+    x = words(np.random.default_rng(r * 31 + cw), r, cw)
+    want = u32(tref.bit_transpose(t32(x)))
+    np.testing.assert_array_equal(
+        _model_bit_transpose(t32(x)).view(np.uint32), want)
+    np.testing.assert_array_equal(
+        want, np.asarray(jops.transpose(jnp.asarray(x))))
+
+
+def test_kernel_swizzles_are_bijections_on_distinct_banks():
+    """Both stage layouts fill the 8192-word stage exactly once, 16-byte
+    chunks stay whole and aligned, and every shared-memory access of a warp
+    (each quarter-warp's eight 16-byte reads, a warp's 32 word writes and
+    32 word reads) covers 32 distinct banks."""
+    lr, c = np.meshgrid(np.arange(_ROWS), np.arange(_COLS), indexing="ij")
+    slots = _in_slot(lr, c)
+    assert sorted(slots.ravel()) == list(range(_ROWS * _COLS))
+    assert (slots[:, [0, 4]] % 4 == 0).all()
+    assert (slots[:, 1:4] - slots[:, :1] == [1, 2, 3]).all()
+    o, tr = np.meshgrid(np.arange(_COLS * 32), np.arange(32), indexing="ij")
+    assert sorted(_out_slot(o, tr).ravel()) == list(range(_ROWS * _COLS))
+    lane = np.arange(32)
+    for t in range(32):
+        row = t * 32 + lane
+        for half in (0, 4):                             # the lo and hi reads
+            first = _in_slot(row, half)
+            for q in range(4):
+                banks = (first[8 * q:8 * q + 8, None] + np.arange(4)) % 32
+                assert len(set(banks.ravel())) == 32
+        for cc in range(_COLS):                         # staged writes
+            assert len(set(_out_slot(cc * 32 + lane, t) % 32)) == 32
+    for oo in range(_COLS * 32):                        # row reads
+        assert len(set(_out_slot(oo, lane) % 32)) == 32
+
+
 # ---------------------------------------------------------- bitmap_query
 @pytest.mark.parametrize("k,nw,invert", [
     (3, 64, [0, 0, 1]),
@@ -165,6 +292,22 @@ def test_bitmap_query_matches_reference_and_pallas(k, nw, invert):
                                   np.asarray(pal_r))
     assert int(got_c) == int(pal_c)
     assert got_c.dtype == torch.int32
+
+
+@pytest.mark.parametrize("k,nw", [(2, 1025), (3, 1026), (33, 1027),
+                                  (33, 2048), (1, 5), (8, 3)])
+def test_bitmap_query_odd_widths_match_reference_and_pallas(k, nw):
+    """Ragged widths (Nw % 4 != 0 puts rows k >= 1 off a 16-byte
+    boundary) and K past 32, mixed inversions."""
+    rng = np.random.default_rng(k * 7 + nw)
+    rows = words(rng, k, nw)
+    inv = rng.integers(0, 2, k).astype(np.int32)
+    got_r, got_c = tbq.bitmap_query(t32(rows), torch.from_numpy(inv))
+    want_r, want_c = jref.bitmap_query(jnp.asarray(rows), jnp.asarray(inv))
+    np.testing.assert_array_equal(u32(got_r), np.asarray(want_r))
+    pal_r, pal_c = jops.query(jnp.asarray(rows), jnp.asarray(inv))
+    np.testing.assert_array_equal(u32(got_r), np.asarray(pal_r))
+    assert int(got_c) == int(want_c) == int(pal_c)
 
 
 # ---------------------------------------------------------- bulk_program
