@@ -85,6 +85,48 @@ Phases (any failure exits non-zero and prints no result):
    kernel (fp32 inputs); the bf16 one, and the layer checks, the
    tensor-core kernel.
 
+8. The durable main path at the same geometry: ``BitmapDB(num_keys=256,
+   path=<temporary directory>, spill_records=2^22)`` on the card takes the
+   phase-3 blocks; blocks 1-7 spill by the threshold as 7 committed
+   segments (the store's auto-compaction is switched off, so that they
+   stay 8 uniform segments in the end); block 8 is appended with an
+   enqueue-only spill hook, ``prepare_spill()`` writes its segment file,
+   and the session is dropped before ``commit_spill`` (a crash between the
+   file write and the manifest swap).  ``repro_torch.open`` recovers on the
+   card (7 segments + block 8 re-indexed from the WAL through
+   ``cam_match`` and ``bit_transpose``; the orphan file ignored): the
+   recovered index must be bit-identical to phase 3's streamed one.
+   ``gc()`` must then collect the orphan and the dead WAL generations,
+   ``snapshot()`` commits segment 8, and the store, opened as a
+   ``StoredIndex`` of 8 segments of 2^17 words, serves phase 3's wave
+   through ``BitmapDB.from_index``: once stacked (one stacked
+   ``bulk_program`` launch per bucket, which its launch counter must show)
+   and once per segment, every row and count bit-identical to phase 3's
+   answers and to the ``ref`` backend.  Prints the durable ingest rate,
+   the seconds per WAL append and per segment write (fsync included), the
+   recovery seconds, the warm stacked and per-segment wave ms and the
+   bytes on disk; the second append, with its threshold spill, runs under
+   the profiler (card busy time and idle share); the stacked ``bulk_program`` is timed against its plain
+   version and against the 2-D launch per segment.  Needs about 5.2 GiB
+   free under the temporary directory (checked first; the phase fails
+   with the number of bytes it needs); the directory is removed at the
+   end.
+9. ``MulticoreRuntime`` on the card (one H100 is one core):
+   ``index_stream`` over ticks of (2, 0, 1) blocks of 2^22 records with
+   ``calibrate_energy=True``, then one ``run_tick(queries=<the wave>)``,
+   whose blocks must be bit-identical to phase 3's index and whose rows
+   and counts must be bit-identical to ``ref`` over
+   ``fold_block_indexes`` of the same tick.  Prints the measured MB/s
+   (paper units: one 8-bit record word per byte) and the ``EnergyReport``:
+   the paper's 65-nm SOTB silicon model charged over busy time measured on
+   the H100, not the H100's energy.
+
+Phase 2 also holds the stacked ``bulk_program`` launch against its plain
+version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
+ragged Nw, Q past 65535, every literal inverted).  Each path (phases 3,
+8, 9) is driven with every launch counter set to 0 just before it and read
+just after.
+
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and the result JSON.
 """
@@ -93,9 +135,11 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,6 +160,8 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 32
 #: and the residual stream carries the difference on (measured 3.4% in the
 #: first run); in fp32 the routes differ by accumulation order only.
 LOGIT_TOL = {"bfloat16": 1 / 8, "float32": 1e-3}
+STACKED_WAVES = 5           # warm stacked / per-segment waves timed
+TICKS = (2, 0, 1)           # phase 9's ticks, in blocks of BLOCK records
 
 
 def serving_mix(planner, m: int, count: int, seed: int) -> list:
@@ -297,6 +343,316 @@ def block_records(seed: int, b: int) -> np.ndarray:
         0, 256, (BLOCK, W), dtype=np.uint8)
 
 
+def timed(obj, name: str, into: list) -> None:
+    """Record the seconds of every call of ``obj.name`` into ``into`` (an
+    instance attribute shadowing the method, for this run only)."""
+    real = getattr(obj, name)
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        into.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, call)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def durable(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+            kernel, records, repro_torch, BitmapDB, batch, open_index,
+            bitmap_ops, planner) -> None:
+    """Phase 8 (see the module docstring)."""
+    words_per_seg = BLOCK // 32
+    seg_bytes = M * words_per_seg * 4
+    # the WAL holds int32 records, every generation until gc; one segment
+    # per block; the crashed prepare's orphan; manifests and slack
+    need = BLOCKS * BLOCK * W * 4 + (BLOCKS + 1) * seg_bytes + (64 << 20)
+    root = tempfile.mkdtemp(prefix="chip_smoke_store-")
+    free = shutil.disk_usage(root).free
+    if free < need:
+        shutil.rmtree(root)
+        raise SystemExit(f"durable path: needs {need} bytes free under "
+                         f"{root}, {free} are")
+    try:
+        _durable(torch, dev, host_blocks, wave, p3, zero_counts,
+                 read_counts, kernel, records, repro_torch, BitmapDB, batch,
+                 open_index, bitmap_ops, planner, root, need, free)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _durable(torch, dev, host_blocks, wave, p3, zero_counts,
+             read_counts, kernel, records, repro_torch, BitmapDB, batch,
+             open_index, bitmap_ops, planner, root, need, free) -> None:
+    n_all = BLOCKS * BLOCK
+    wal_s, prep_s, seg_s = [], [], []
+    zero_counts()
+    t0 = time.perf_counter()
+    ddb = BitmapDB(num_keys=M, path=root, spill_records=BLOCK, device=dev)
+    # fanout-4 compaction would merge each 4 spilled 2^22-record segments
+    # into one; off, the store keeps the 8 uniform segments served below
+    ddb.store.auto_compact = False
+    timed(ddb.store, "log_block", wal_s)
+    timed(ddb.store, "prepare_segment", prep_s)
+    timed(ddb.store, "write_segment", seg_s)
+    append_prof = None
+    for i, blk in enumerate(host_blocks[:-1]):
+        if i == 1:                         # one append + its spill, traced
+            append_prof = profile(
+                "durable append of one block with its threshold spill",
+                *device_profile(torch, lambda: ddb.append_encoded(blk)))
+        else:
+            ddb.append_encoded(blk)        # each reaches the threshold
+    hooked = []
+    ddb.indexer.set_spill_hook(lambda: hooked.append(1))   # enqueue only
+    ddb.append_encoded(host_blocks[-1])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ingest_launches = read_counts("cam_match", "bit_transpose")
+    committed = len(ddb.store.segments)
+    token = ddb.indexer.prepare_spill()    # block 8's segment file
+    orphan = token[0].file
+    peak_bytes = dir_bytes(root)
+    if committed != BLOCKS - 1 or hooked != [1] or ddb.num_records != n_all:
+        raise SystemExit(f"durable path: {committed} segments committed, "
+                         f"hook calls {hooked}, {ddb.num_records} records")
+    del ddb, token                         # dies before commit_spill
+    gc.collect()
+    print(f"durable ingest: {BLOCKS} appends of {BLOCK} records in "
+          f"{ingest_s} s = {n_all / ingest_s} records/s (synchronized; "
+          f"{committed} threshold spills inline); WAL append {wal_s} s "
+          f"each; segment write (file + fsync) {prep_s} s each, with the "
+          f"manifest commit and WAL rotation {seg_s} s each (append 2 of "
+          f"{BLOCKS} under the profiler); launches "
+          f"{ingest_launches}; crashed with orphan {orphan} on disk, "
+          f"{peak_bytes} bytes in the store")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rdb = repro_torch.open(root, num_keys=M, device=dev)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    rec_launches = read_counts("cam_match", "bit_transpose")
+    if (rdb.num_records != n_all or len(rdb.store.segments) != BLOCKS - 1
+            or min(rec_launches.values()) < 1
+            or not os.path.exists(os.path.join(root, orphan))):
+        raise SystemExit(f"recovery: {rdb.num_records} records, "
+                         f"{len(rdb.store.segments)} segments, launches "
+                         f"{rec_launches}")
+    if not torch.equal(rdb.index.packed, p3["packed"]):
+        raise SystemExit("recovery: the recovered index differs from phase "
+                         "3's streamed index")
+    print(f"recovery: repro_torch.open in {recover_s} s: {BLOCKS - 1} "
+          f"segments + block {BLOCKS} re-indexed from the WAL (launches "
+          f"{rec_launches}); index bit-identical to phase 3's streamed "
+          f"index")
+    rdb.store.auto_compact = False
+    removed = set(rdb.store.gc())
+    dead = {f"wal-{g:08d}.log" for g in range(BLOCKS - 1)}
+    if orphan not in removed or not dead <= removed:
+        raise SystemExit(f"gc: removed {sorted(removed)}, want the orphan "
+                         f"{orphan} and {sorted(dead)}")
+    t0 = time.perf_counter()
+    rdb.snapshot()                         # commits segment 8
+    snap_s = time.perf_counter() - t0
+    removed2 = set(rdb.store.gc())
+    if (len(rdb.store.segments) != BLOCKS
+            or f"wal-{BLOCKS - 1:08d}.log" not in removed2):
+        raise SystemExit(f"snapshot: {len(rdb.store.segments)} segments, "
+                         f"gc removed {sorted(removed2)}")
+    final_bytes = dir_bytes(root)
+    print(f"gc: collected the orphan {orphan} and {len(dead)} dead WAL "
+          f"generations ({len(removed)} files); snapshot() committed "
+          f"segment {BLOCKS} in {snap_s} s; gc after it removed "
+          f"{sorted(removed2)}; {final_bytes} bytes on disk (peak "
+          f"{peak_bytes}; {free} free before, {need} checked)")
+    del rdb
+    gc.collect()
+
+    stored = open_index(repro_torch.store.SegmentStore(root), device=dev)
+    shapes = {tuple(p.shape) for p, _ in stored.parts}
+    if stored.num_segments != BLOCKS or shapes != {(M, BLOCK // 32)}:
+        raise SystemExit(f"stored index: {stored.num_segments} segments of "
+                         f"{shapes}")
+    sdb = BitmapDB.from_index(stored)
+    plans = [sdb._plan_for(q) for q in wave]
+    buckets, _, _ = batch._partition(plans, M, dev)
+    zero_counts()
+    rows_s, counts_s = sdb.query_many(wave).materialize()
+    torch.cuda.synchronize()
+    stacked_launches = read_counts("bulk_program_stacked", "bulk_program",
+                                   "bitmap_query")
+    zero_counts()
+    rows_p, counts_p = batch.execute_many_segments(
+        stored.parts, plans, backend="cuda", stack_uniform=False)
+    torch.cuda.synchronize()
+    per_launches = read_counts("bulk_program_stacked", "bulk_program",
+                               "bitmap_query")
+    rows_r, counts_r = batch.execute_many_segments(stored.parts, plans,
+                                                   backend="ref")
+    print(f"stored index: {BLOCKS} segments x {tuple(shapes)[0]} words; "
+          f"{len(buckets)} buckets; launches, stacked wave "
+          f"{stacked_launches}, per-segment wave {per_launches}")
+    if (stacked_launches["bulk_program_stacked"] != len(buckets)
+            or stacked_launches["bulk_program"]
+            or per_launches["bulk_program"] != len(buckets) * BLOCKS
+            or per_launches["bulk_program_stacked"]):
+        raise SystemExit("segment waves: want one stacked bulk_program "
+                         "launch per bucket stacked, one 2-D launch per "
+                         "bucket and segment per segment")
+    for label, (r_, c_) in (("stacked", (rows_s, counts_s)),
+                            ("per segment", (rows_p, counts_p)),
+                            ("ref", (rows_r, counts_r))):
+        if not (torch.equal(r_, p3["rows"]) and torch.equal(c_,
+                                                            p3["counts"])):
+            raise SystemExit(f"segment wave ({label}): rows/counts differ "
+                             "from phase 3's answers")
+    print(f"segment waves: stacked, per segment and ref — all {len(wave)} "
+          "rows and counts bit-identical to phase 3's answers")
+
+    def wave_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STACKED_WAVES):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / STACKED_WAVES
+
+    stacked_ms = wave_ms(lambda: sdb.query_many(wave).materialize())
+    per_ms = wave_ms(lambda: batch.execute_many_segments(
+        stored.parts, plans, backend="cuda", stack_uniform=False))
+    print(f"segment waves warm (mean of {STACKED_WAVES}, synchronized): "
+          f"stacked {stacked_ms} ms, per segment {per_ms} ms")
+    prof = profile("warm stacked segment wave", *device_profile(
+        torch, lambda: sdb.query_many(wave).materialize()))
+
+    # the stacked kernel at the path's shape, beside its plain version and
+    # the 2-D launch once per segment; bound as bulk_program's, per segment
+    aug_s = torch.empty((BLOCKS, M + 1, BLOCK // 32), dtype=torch.int32,
+                        device=dev)
+    aug_s[:, :M] = torch.stack([p for p, _ in stored.parts])
+    aug_s[:, M] = -1
+    nrecs = torch.full((BLOCKS,), BLOCK, dtype=torch.int32, device=dev)
+    progs = [batch._lowered(pl)[0] for pl in plans
+             if not isinstance(pl, planner.CompositePlan)]
+    rows_read = {k for prog in progs for grp in prog for lits, _ in grp
+                 for k, _ in lits}
+    lits = sum(len(ls) for prog in progs for grp in prog for ls, _ in grp)
+    passes = sum(len(grp) for prog in progs for grp in prog)
+    groups = sum(len(prog) for prog in progs)
+    nw = aug_s.shape[2]
+    nbytes = (BLOCKS * (len(rows_read) + len(progs)) * nw * 4 + 4 * BLOCKS
+              + 4 * (2 * lits + passes))
+    ops = BLOCKS * nw * (2 * lits + 2 * passes + groups)
+    kernel("bulk_program_stacked", "bitmap_ops.cu",
+           "src/repro/kernels/bitmap_ops.py:110",
+           f"aug {tuple(aug_s.shape)}, {len(buckets)} buckets (Q, G, P, L) "
+           f"{[tuple(b[2].shape) for b in buckets]}, per wave",
+           lambda: [bitmap_ops.bulk_program_stacked(aug_s, nrecs, *b[2:])
+                    for b in buckets],
+           lambda: [bitmap_ops.bulk_program_stacked_plain(aug_s, nrecs,
+                                                          *b[2:])
+                    for b in buckets],
+           nbytes, ops, 10, count=stacked_launches["bulk_program_stacked"])
+    per_seg = [aug_s[i] for i in range(BLOCKS)]
+    two_d = device_profile(torch, lambda: [
+        bitmap_ops.bulk_program(a, *b[2:]) for a in per_seg
+        for b in buckets], 10)[1]
+    records[-1]["per_segment_2d_ms"] = two_d
+    print(f"  the 2-D launch once per segment over the same wave: {two_d} "
+          f"ms on the card ({len(buckets) * BLOCKS} launches)")
+    print(json.dumps({"durable_path": {
+        "records": n_all, "blocks": BLOCKS, "ingest_s": ingest_s,
+        "ingest_records_per_s": n_all / ingest_s, "wal_append_s": wal_s,
+        "segment_file_s": prep_s, "segment_write_commit_s": seg_s,
+        "recover_s": recover_s, "snapshot_s": snap_s,
+        "bytes_peak": peak_bytes, "bytes_final": final_bytes,
+        "stacked_wave_ms": stacked_ms, "per_segment_wave_ms": per_ms,
+        "stacked_launches": stacked_launches,
+        "per_segment_launches": per_launches, "buckets": len(buckets),
+        "append_profile": append_prof, "profile": prof}}))
+    del aug_s, per_seg, stored, sdb, rows_s, rows_p, rows_r
+    batch._AUG_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def runtime_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+                 truntime, BICConfig, batch, policy) -> None:
+    """Phase 9 (see the module docstring)."""
+    keys = torch.arange(M, dtype=torch.int32, device=dev)
+    cfg = BICConfig(num_keys=M, num_records=BLOCK, words_per_record=W)
+    rt = truntime.MulticoreRuntime([dev], cfg, calibrate_energy=True)
+    nxt = iter(range(BLOCKS))
+
+    def tick(b):                           # b blocks, uint8 on the card
+        if b == 0:
+            return None
+        return torch.from_numpy(np.stack([host_blocks[next(nxt)]
+                                          for _ in range(b)])).to(dev)
+
+    ticks = [tick(b) for b in TICKS]
+    zero_counts()
+    outs, rep = rt.index_stream(ticks, keys, 1.0)
+    torch.cuda.synchronize()
+    b = 0
+    for out in outs:
+        for blk in out:
+            want = policy.extract_packed(p3["packed"], b * BLOCK, BLOCK)
+            if not torch.equal(blk, want):
+                raise SystemExit(f"index_stream: block {b} differs from "
+                                 "phase 3's index")
+            b += 1
+    stream_mbps = rt.measured_mbps
+    qtick = tick(2)
+    res = rt.run_tick(qtick, keys, 1.0, queries=wave)
+    torch.cuda.synchronize()
+    launches = read_counts("cam_match", "bit_transpose", "bulk_program",
+                           "bitmap_query")
+    for i, blk in enumerate(res.indexes):  # the query tick's own build
+        want = policy.extract_packed(p3["packed"], (b + i) * BLOCK, BLOCK)
+        if not torch.equal(blk, want):
+            raise SystemExit(f"run_tick: block {b + i} differs from phase "
+                             "3's index")
+    idx = truntime.fold_block_indexes(res.indexes, BLOCK)
+    want_r, want_c = batch.execute_many(idx.packed, wave,
+                                        num_records=idx.num_records,
+                                        backend="ref")
+    if not (torch.equal(res.query_rows, want_r)
+            and torch.equal(res.query_counts, want_c)):
+        raise SystemExit("run_tick: rows/counts differ from ref over "
+                         "fold_block_indexes of the tick")
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        raise SystemExit(f"runtime path: kernels never launched {missing}")
+    report = {f: getattr(rt.report, f) for f in (
+        "active_joules", "standby_joules", "busy_core_seconds",
+        "idle_core_seconds", "batches", "total_joules")}
+    print(f"runtime path: index_stream over ticks {TICKS} x {BLOCK} records "
+          f"on 1 core (the card), {b} blocks bit-identical to phase 3's; "
+          f"measured {stream_mbps} MB/s over the stream (EWMA), "
+          f"{res.measured_mbps} MB/s in the query tick ({res.measured_seconds}"
+          f" s; paper units: one 8-bit record word per byte); run_tick of "
+          f"{len(wave)} queries bit-identical to ref, its blocks {b + 1}-"
+          f"{b + 2} to phase 3's index; launches {launches}")
+    print(f"energy (the paper's 65-nm SOTB silicon model charged over busy "
+          f"time measured on the H100, not the H100's energy): stream "
+          f"{rep}, runtime total {report}; ledger "
+          f"{rt.ledger.snapshot(num_records=b * BLOCK + 2 * BLOCK, num_keys=M)}")
+    print(json.dumps({"runtime_path": {
+        "ticks": list(TICKS), "block_records": BLOCK,
+        "stream_mbps_ewma": stream_mbps, "query_tick_mbps": res.measured_mbps,
+        "query_tick_s": res.measured_seconds, "active_cores":
+        res.active_cores, "launches": launches,
+        "energy_model_report": report,
+        "energy_note": "65-nm SOTB silicon model over busy time measured on "
+                       "the H100; not the H100's energy"}}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -308,9 +664,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_checks import any_int32_cam_inputs, bf16_attn_err
+    from torch_checks import (STACKED_CASES, any_int32_cam_inputs,
+                              bf16_attn_err, stacked_program_inputs)
+    import repro_torch
+    from repro_torch.core.bic import BICConfig
     from repro_torch.db import BitmapDB
     from repro_torch.engine import backends, batch, planner, policy
+    from repro_torch.engine import runtime as truntime
+    from repro_torch.store import open_index
     from repro_torch.kernels import _build, attention, bit_transpose
     from repro_torch.kernels import bitmap_ops, cam_match
     dev = torch.device("cuda")
@@ -318,6 +679,18 @@ def main() -> int:
                 "bit_transpose": bit_transpose.bit_transpose,
                 "bitmap_query": bitmap_ops.bitmap_query,
                 "bulk_program": bitmap_ops.bulk_program}
+    # every counted wrapper: all are set to 0 before each path is driven
+    counted = {**wrappers,
+               "bulk_program_stacked": bitmap_ops.bulk_program_stacked,
+               "flash_attention_fwd": attention.flash_attention_fwd}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+
+    def read_counts(*names):
+        return {name: counted[name].launches for name in names}
 
     # ---- 1. device and build ------------------------------------------
     smi = subprocess.run(
@@ -416,6 +789,14 @@ def main() -> int:
     checks["bitmap_query view"] = query_pair(
         offset_view(words(3, 4096)),
         torch.tensor([0, 1, 0], dtype=torch.int32, device=dev))
+    # the stacked launch: S = 1, 3, 8, ragged Nw and tails, Q past 65535,
+    # every literal inverted (the card tests' cases)
+    for s_, m_, nw_, shape_, lits_ in STACKED_CASES:
+        args_ = [torch.from_numpy(a).to(dev) for a in stacked_program_inputs(
+            rng, s_, m_, nw_, shape_, lits_)]
+        checks[f"bulk_program_stacked S={s_} M={m_} Nw={nw_} {shape_} "
+               f"{lits_}"] = (bitmap_ops.bulk_program_stacked(*args_),
+                              bitmap_ops.bulk_program_stacked_plain(*args_))
     torch.cuda.synchronize()
     for name, (got, want) in checks.items():
         if not torch.equal(got, want):
@@ -480,9 +861,7 @@ def main() -> int:
     wave = mix + [composite]
     db = BitmapDB(num_keys=M, device=dev)
 
-    for fn in (*wrappers.values(), attention.flash_attention_fwd):
-        fn.launches = 0
-    torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     for blk in host_blocks:
         db.append_encoded(blk)             # host uint8 -> card -> int32
@@ -533,6 +912,9 @@ def main() -> int:
                              "create_index")
     print(f"index: all {BLOCKS} streamed blocks bit-identical to plain "
           "create_index")
+    # phases 8 and 9 hold their answers against phase 3's (phase 6 appends
+    # one more block to this session)
+    p3 = {"packed": db.index.packed.clone(), "rows": rows, "counts": counts}
 
     # ---- 5. kernels at the main path's shapes ------------------------------
     rec0 = torch.from_numpy(host_blocks[0]).to(dev).to(torch.int32)
@@ -680,7 +1062,7 @@ def main() -> int:
 
     # ---- 7. the LM serving path: Qwen2-7B prefill + decode ----------------
     del db, rows, counts, rows_ref, counts_ref, single, single_ref, aug
-    del buckets, rm, rec0, qrows, host_blocks
+    del buckets, rm, rec0, qrows
     batch._AUG_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -702,9 +1084,7 @@ def main() -> int:
     prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
     flash_fn = attention.flash_attention_fwd
-    for fn in (*wrappers.values(), flash_fn):
-        fn.launches = 0
-    torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     gen = tstep.greedy_generate(params, cfg, prompts, steps=LM_STEPS)
     torch.cuda.synchronize()
@@ -868,6 +1248,20 @@ def main() -> int:
         "decode_ms_per_step": decode_ms, "generated_tokens_per_s": tok_s,
         "launches": lm_launches, "logit_checks": logit_checks,
         "profile": lm_prof}}))
+
+    # ---- 8. the durable main path ------------------------------------------
+    del params, cache, logits, prefill, decode, captured, fq, fk, fv, sq, sk
+    del sv, kernel_logits, prompts, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    durable(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+            kernel, records, repro_torch, BitmapDB, batch, open_index,
+            bitmap_ops, planner)
+
+    # ---- 9. MulticoreRuntime on the card ---------------------------------
+    runtime_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+                 truntime, BICConfig, batch, policy)
+
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ unless the caller asks for ``device="cpu"``::
     db.ingest({"city": ["SF", "LA", "SF"]})
     db.query(rt.col("city") == "SF").ids        # -> array([0, 2])
 
+    db = rt.BitmapDB(schema, path="/data/idx")  # durable: WAL + segments
+    ...                                         # crash
+    db = rt.open("/data/idx")                   # the same index, recovered
+
 Symbols resolve lazily, so importing ``repro_torch`` alone loads no
 submodule.
 """
@@ -22,9 +26,9 @@ from __future__ import annotations
 import importlib
 
 #: facade symbols re-exported at top level -> their home in repro_torch.db
-_DB_EXPORTS = ("BitmapDB", "Schema", "Column", "col", "Result")
+_DB_EXPORTS = ("BitmapDB", "Schema", "Column", "col", "Result", "open")
 
-_SUBMODULES = ("db", "engine", "core", "kernels")
+_SUBMODULES = ("db", "engine", "store", "core", "kernels", "fault", "obs")
 
 __all__ = sorted(_DB_EXPORTS) + sorted(_SUBMODULES)
 

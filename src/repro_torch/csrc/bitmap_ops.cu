@@ -52,6 +52,16 @@
 // load.  Literals, post masks, passes and groups fold in registers, one
 // store per result word.  A row shared by several queries of a bucket is
 // read again by each (L2 catches part of that).
+//
+// Stacked launch (bulk_program_stacked_launch): aug (S, M+1, Nw), one
+// stack of uniform segments, nrecs (S,) int32 record counts -> rows
+// (S, Q, Nw), segment s's words past nrecs[s] zeroed (its tail mask).
+// Replaces the reference's segment-stacked executor, which vmaps the bucket
+// body (and so this TPU kernel) over the segment axis
+// (src/repro/engine/batch.py:155-165).  The segment axis folds into grid.x
+// as the query axis does (blocks [s * Q * bpq, (s + 1) * Q * bpq) serve
+// segment s), the row reads take a segment stride, and the program is
+// shared by every segment.  Bound: as the 2-D launch, per segment.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -147,16 +157,29 @@ bitmap_query_kernel(const uint32_t* __restrict__ rows,
   }
 }
 
+// STACKED: S segments of aug, (S, M+1, Nw), served by one launch with the
+// program shared by all of them; segment s's words past nrecs[s] records
+// are written as zero (its tail mask).  Otherwise S = 1 and no mask.
+template <bool STACKED>
 __global__ void bulk_program_kernel(const uint32_t* __restrict__ aug,
+                                    const int32_t* __restrict__ nrecs,
                                     const int32_t* __restrict__ sels,
                                     const int32_t* __restrict__ invs,
                                     const uint32_t* __restrict__ post,
                                     uint32_t* __restrict__ out,
-                                    long long nw, long long bpq, int m,
-                                    int g, int p, int l) {
-  const long long q = blockIdx.x / bpq;
-  const long long w0 =
-      (blockIdx.x % bpq) * (long long)(THREADS * WPT) + threadIdx.x;
+                                    long long nw, long long bpq,
+                                    long long nq, int m, int g, int p,
+                                    int l) {
+  long long bid = blockIdx.x;
+  long long s = 0;
+  if (STACKED) {                        // blocks [s * nq * bpq, ...) serve s
+    s = bid / (nq * bpq);
+    bid -= s * nq * bpq;
+    aug += s * (long long)(m + 1) * nw;
+    out += s * nq * nw;
+  }
+  const long long q = bid / bpq;
+  const long long w0 = (bid % bpq) * (long long)(THREADS * WPT) + threadIdx.x;
   const long long gpl = (long long)g * p * l, gp = (long long)g * p;
   const int32_t* q_sel = sels + q * gpl;
   const int32_t* q_inv = invs + q * gpl;
@@ -195,10 +218,18 @@ __global__ void bulk_program_kernel(const uint32_t* __restrict__ aug,
 #pragma unroll
     for (int k = 0; k < WPT; ++k) res[k] |= grp[k];
   }
+  long long n = 0;
+  if (STACKED) n = __ldg(nrecs + s);
 #pragma unroll
   for (int k = 0; k < WPT; ++k) {
     const long long w = w0 + k * THREADS;
-    if (w < nw) out[q * nw + w] = res[k];
+    if (w >= nw) continue;
+    uint32_t v = res[k];
+    if (STACKED) {                      // this segment's tail mask
+      const long long left = n - w * 32;
+      v = left >= 32 ? v : left <= 0 ? 0u : v & ((1u << left) - 1u);
+    }
+    out[q * nw + w] = v;
   }
 }
 
@@ -224,10 +255,27 @@ extern "C" int bulk_program_launch(const void* aug, const void* sels,
   const long long span = (long long)THREADS * WPT;      // words per block
   const long long bpq = (nw + span - 1) / span;         // blocks per query
   if (q > 0x7fffffffLL / bpq) return (int)cudaErrorInvalidConfiguration;
-  bulk_program_kernel<<<(unsigned)(q * bpq), THREADS, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)aug, (const int32_t*)sels, (const int32_t*)invs,
-      (const uint32_t*)post, (uint32_t*)out, nw, bpq, (int)(m1 - 1), (int)g,
-      (int)p, (int)l);
+  bulk_program_kernel<false><<<(unsigned)(q * bpq), THREADS, 0,
+                               (cudaStream_t)stream>>>(
+      (const uint32_t*)aug, nullptr, (const int32_t*)sels,
+      (const int32_t*)invs, (const uint32_t*)post, (uint32_t*)out, nw, bpq,
+      q, (int)(m1 - 1), (int)g, (int)p, (int)l);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bulk_program_stacked_launch(
+    const void* aug, const void* nrecs, const void* sels, const void* invs,
+    const void* post, void* out, long long s, long long m1, long long nw,
+    long long q, long long g, long long p, long long l, void* stream) {
+  if (s == 0 || nw == 0 || q == 0) return (int)cudaGetLastError();
+  const long long span = (long long)THREADS * WPT;      // words per block
+  const long long bpq = (nw + span - 1) / span;         // blocks per query
+  if (q > 0x7fffffffLL / bpq || s > 0x7fffffffLL / (q * bpq))
+    return (int)cudaErrorInvalidConfiguration;
+  bulk_program_kernel<true><<<(unsigned)(s * q * bpq), THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      (const uint32_t*)aug, (const int32_t*)nrecs, (const int32_t*)sels,
+      (const int32_t*)invs, (const uint32_t*)post, (uint32_t*)out, nw, bpq,
+      q, (int)(m1 - 1), (int)g, (int)p, (int)l);
   return (int)cudaGetLastError();
 }

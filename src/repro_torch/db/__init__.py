@@ -1,11 +1,12 @@
-"""``repro_torch.db`` — the schema-aware database facade over the engine
-(the port's twin of ``repro.db``, in-memory half):
+"""``repro_torch.db`` — the schema-aware database facade over engine + store
+(the port's twin of ``repro.db``):
 
   * :class:`Schema` / :class:`Column` — named, typed columns mapped onto
     bitmap-index key rows.
   * :func:`col` — the typed expression DSL, lowering to engine predicates.
-  * :class:`BitmapDB` — the session object: streaming ingest,
-    selectivity-stats-ordered planning, lazy :class:`Result` handles and
+  * :class:`BitmapDB` — the session object: streaming ingest with
+    auto-spill durability, selectivity-stats-ordered planning, lazy
+    :class:`Result` handles, crash recovery via :func:`open`, and
     ``serve_step()``.
   * :func:`include_exclude_pred` — the deprecation shim for legacy
     ``include=``/``exclude=`` key lists.
@@ -14,7 +15,7 @@ Symbols resolve lazily (the :mod:`repro_torch.engine` idiom)::
 
     from repro_torch.db import BitmapDB, Column, Schema, col
 
-    db = BitmapDB(schema)                    # on the card
+    db = BitmapDB(schema, path="/data/idx")  # on the card, durable
     db.ingest({"city": [...], "temp": [...]})
     hot = db.query((col("city") == "SF") & col("temp").between(20, 30))
     print(hot.count, hot.ids[:10])
@@ -34,14 +35,19 @@ _EXPORTS = {
     "Result": "result", "LazyBatch": "result", "ResultBatch": "result",
     # session
     "BitmapDB": "session", "include_exclude_pred": "session",
+    "SCHEMA_FILE": "session",
 }
+_ALIASES = {"open": ("session", "open_db")}
 
-__all__ = sorted(_EXPORTS) + list(_SUBMODULES)
+__all__ = sorted(_EXPORTS) + sorted(_ALIASES) + list(_SUBMODULES)
 
 
 def __getattr__(name):
     if name in _SUBMODULES:
         return importlib.import_module(f"{__name__}.{name}")
+    if name in _ALIASES:
+        mod, attr = _ALIASES[name]
+        return getattr(importlib.import_module(f"{__name__}.{mod}"), attr)
     mod = _EXPORTS.get(name)
     if mod is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,6 +1,5 @@
 """``repro_torch.engine`` — the execution layer for bitmap indexing (the
-port's twin of ``repro.engine``; the cost model, the multi-core runtime and
-segment serving wait for later slices):
+port's twin of ``repro.engine``; the cost model waits for a later slice):
 
   * :mod:`repro_torch.engine.policy`   — padding/sentinel policy, the tail
     mask, the packed splice, and the :class:`BitmapIndex` container.
@@ -10,11 +9,12 @@ segment serving wait for later slices):
   * :mod:`repro_torch.engine.planner`  — boolean query planner: DNF, size
     guard, factoring, shape-keyed executor caches.
   * :mod:`repro_torch.engine.batch`    — batched query serving: plan-shape
-    bucketing, identity-row padding, one executor call per bucket.
+    bucketing, identity-row padding, one executor call per bucket, and
+    segment-parallel serving (stacked or per segment).
   * :mod:`repro_torch.engine.bulk`     — whole pass programs as fused
     sweeps (``bulk_program`` kernel on the card, plain sweep on the CPU).
-  * :mod:`repro_torch.engine.runtime`  — streaming append into a packed
-    index.
+  * :mod:`repro_torch.engine.runtime`  — streaming, durable append into a
+    packed index, and the multi-core runtime with its energy accounting.
 
 Symbols resolve lazily, so lower layers never form an import cycle through
 this package ``__init__``.
@@ -41,10 +41,11 @@ _EXPORTS = {
     "total_clauses": "planner", "execute": "planner",
     "from_include_exclude": "planner", "KeyStats": "planner",
     # batch
-    "execute_many": "batch",
+    "execute_many": "batch", "execute_many_segments": "batch",
     # runtime
-    "StreamingIndexer": "runtime", "append_packed": "runtime",
-    "fold_block_indexes": "runtime",
+    "StreamingIndexer": "runtime", "MulticoreRuntime": "runtime",
+    "multicore_create_index": "runtime",
+    "append_packed": "runtime", "fold_block_indexes": "runtime",
 }
 
 __all__ = sorted(_EXPORTS) + list(_SUBMODULES)

@@ -12,14 +12,16 @@ two primitive operations the engine needs:
       plan);
 
 and optionally ``run_program``, a whole-bucket executor with the batched
-layer's call contract (see :mod:`repro_torch.engine.bulk`).
+layer's call contract (see :mod:`repro_torch.engine.bulk`), and
+``run_program_stacked``, its twin over a stack of uniform segments.
 
 Built-ins:
 
   * ``cuda`` — the hand-written kernels: ``create_index`` is ``cam_match``
     then ``bit_transpose``, ``query`` is ``bitmap_query``, ``run_program`` is
-    ``bulk_program`` then the tail mask.  On CPU tensors each kernel wrapper
-    runs its plain version.
+    ``bulk_program`` then the tail mask, ``run_program_stacked`` is the
+    stacked ``bulk_program`` launch (tails masked per segment in the
+    kernel).  On CPU tensors each kernel wrapper runs its plain version.
   * ``ref`` — the plain-torch oracle (per-pass bucket body).
   * ``bulk`` — the plain-torch tiled sweep (whole-bucket ``run_program``).
 
@@ -49,6 +51,10 @@ class Backend:
     #: optional whole-bucket executor; backends without one get the
     #: per-pass bucket body composed around ``query``
     run_program: Callable | None = None
+    #: optional segment-stacked whole-bucket executor (aug (S, M+1, Nw),
+    #: S record counts); backends without one run their bucket body
+    #: segment by segment
+    run_program_stacked: Callable | None = None
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -58,7 +64,7 @@ _REGISTRY: dict[str, Backend] = {}
 # module may be mid-import.
 _COMPILED_CACHES = (
     ("repro_torch.engine.planner", ("_compiled", "_compiled_factored")),
-    ("repro_torch.engine.batch", ("_executor",)),
+    ("repro_torch.engine.batch", ("_executor", "_stacked_executor")),
 )
 
 
@@ -101,4 +107,5 @@ register_backend(Backend("ref", bulk.create_index, ref.bitmap_query))
 register_backend(Backend("bulk", bulk.create_index, bulk.query,
                          run_program=bulk.run_program_plain))
 register_backend(Backend("cuda", ops.create_index, ops.query,
-                         run_program=bulk.run_program))
+                         run_program=bulk.run_program,
+                         run_program_stacked=bulk.run_program_stacked))

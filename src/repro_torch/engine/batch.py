@@ -1,6 +1,6 @@
 """Batched query serving: many predicate trees per dispatch.
 
-The port's twin of ``repro.engine.batch`` (in-memory half):
+The port's twin of ``repro.engine.batch``:
 
   1. **Lower** every plan to a uniform *pass program*: a tuple of groups,
      each group a tuple of fused AND-passes ``(literals, post_invert)``.
@@ -17,13 +17,25 @@ The port's twin of ``repro.engine.batch`` (in-memory half):
   4. **Execute each bucket as ONE executor call** over ``(Q, G, P, L)``
      literal-selector arrays, the query axis padded to a power of two.
      Executors are cached on ``(backend, G, P, L)``, the reference's jit
-     cache key; :data:`COUNTERS` counts cache misses as
-     ``executor_builds``.
+     cache key; ``engine_executor_builds_total`` counts cache misses.
 
 Composite plans (the DNF size-guard fallback) are served out-of-band
 through ``planner.execute`` (which reaches ``Backend.query``: the
 ``bitmap_query`` kernel on the ``cuda`` backend), contradictions as constant
 zeros, and both are spliced back into input order.
+
+:func:`execute_many_segments` extends the same machinery to indexes that
+live as a chain of packed **segments** over disjoint record ranges (the
+durable layout of :mod:`repro_torch.store`): plans lower and bucket ONCE,
+the bucketed dispatch runs per segment — or, when every segment has the
+same word count, once over the whole stack (the ``cuda`` backend's stacked
+``bulk_program`` launch) — and the per-segment result rows OR-splice
+together at their record offsets.
+
+Every wave fires the ``engine.dispatch`` fault seam and, with a tracer
+installed, records one ``bucket.dispatch`` span per bucket.  On a CUDA
+device that span measures host dispatch (the launch is asynchronous), not
+the card's time — as the reference's span around a JAX dispatch does.
 """
 from __future__ import annotations
 
@@ -34,10 +46,22 @@ import numpy as np
 import torch
 
 from repro_torch.engine import backends, planner, policy
+from repro_torch.fault import seam as _fault_seam
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import trace as _obs_trace
 
-#: bucket executors built (executor cache misses) — process-wide, like
-#: the cache below.
-COUNTERS = {"executor_builds": 0}
+# waves / bucket dispatches / executor builds in the process-wide registry
+# (the executor caches below are process-global); the names are the
+# reference's.  builds == cache misses; hits are dispatches - builds.
+_WAVES = _obs_metrics.GLOBAL.counter(
+    "engine_waves_total", "batched _serve invocations")
+_QUERIES = _obs_metrics.GLOBAL.counter(
+    "engine_queries_total", "queries served through batched waves")
+_DISPATCHES = _obs_metrics.GLOBAL.counter(
+    "engine_bucket_dispatches_total", "bucket executor calls")
+_BUILDS = _obs_metrics.GLOBAL.counter(
+    "engine_executor_builds_total",
+    "bucket executors built (cache misses)")
 
 #: One pass: (literals tuple[(key, inverted)], post_invert).  Program:
 #: tuple of groups, each a tuple of passes.
@@ -103,15 +127,42 @@ def _bucket_body(backend, p: int, g: int):
     return run
 
 
-@functools.lru_cache(maxsize=64)
-def _executor(backend_name: str, g: int, p: int, l: int):
-    """One batched executor per (backend, canonical shape): the backend's
-    whole-bucket ``run_program`` when it has one, else the per-pass body."""
-    COUNTERS["executor_builds"] += 1   # body runs only on a cache miss
-    backend = backends.get_backend(backend_name)
+def _body_for(backend, g: int, p: int):
+    """A backend's bucket executor body: its whole-bucket ``run_program``
+    when it has one, else the per-pass body composed around ``query``."""
     if backend.run_program is not None:
         return backend.run_program
     return _bucket_body(backend, p, g)
+
+
+@functools.lru_cache(maxsize=64)
+def _executor(backend_name: str, g: int, p: int, l: int):
+    """One batched executor per (backend, canonical shape)."""
+    _BUILDS.inc()                      # body runs only on a cache miss
+    return _body_for(backends.get_backend(backend_name), g, p)
+
+
+@functools.lru_cache(maxsize=64)
+def _stacked_executor(backend_name: str, g: int, p: int, l: int):
+    """Segment-stacked twin of :func:`_executor`: ``aug`` (S, M+1, Nw),
+    ``nrecs`` S record counts, the selector arrays shared by every segment
+    -> (rows (S, Q, Nw), counts (S, Q)).  The backend's
+    ``run_program_stacked`` when it has one (the ``cuda`` backend: one
+    stacked ``bulk_program`` launch per bucket), else the bucket body run
+    segment by segment (the reference vmaps it)."""
+    _BUILDS.inc()
+    backend = backends.get_backend(backend_name)
+    if backend.run_program_stacked is not None:
+        return backend.run_program_stacked
+    body = _body_for(backend, g, p)
+
+    def run(aug, nrecs, sels, invs, post):
+        outs = [body(aug[si], int(n), sels, invs, post)
+                for si, n in enumerate(nrecs)]
+        return (torch.stack([r for r, _ in outs]),
+                torch.stack([c for _, c in outs]))
+
+    return run
 
 
 def batched_executor_cache_info():
@@ -235,15 +286,21 @@ def _augmented(packed: torch.Tensor) -> torch.Tensor:
     return aug
 
 
-def _serve(packed: torch.Tensor, num_records: int, plans: Sequence,
-           part, name: str, pad_output: bool = False
-           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run a pre-partitioned batch against ONE packed buffer; results come
-    back in input order.  ``pad_output=True`` pads the OUTPUT query axis to
-    ``pow2_ceil(Q)`` (rows past the real Q are unspecified padding)."""
-    m, nw = packed.shape
-    dev = packed.device
-    buckets, zeros, composite = part
+def _wave(name: str, plans: Sequence, part, run, composite, lead: tuple,
+          nw: int, dev, pad_output: bool = False, **span
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wave shared by :func:`_serve` and :func:`_serve_stacked`: the
+    ``engine.dispatch`` seam and the counters, ``run(shape, sels, invs,
+    post)`` once per bucket inside a ``bucket.dispatch`` span, the
+    contradiction zeros, ``composite(qi)`` per size-guard fallback query,
+    and the reorder to input order.  Every piece is ``lead + (q, ...)``:
+    ``lead`` is ``()`` for one buffer, ``(S,)`` for a stack."""
+    # fault seam: an injected dispatch error aborts the whole wave here
+    _fault_seam.fire("engine.dispatch", backend=name, queries=len(plans))
+    _WAVES.inc()
+    _QUERIES.add(len(plans))
+    ax = len(lead)                      # the query axis
+    buckets, zeros, comp = part
     q = len(plans)
     q_out = _pow2_ceil(max(q, 1)) if pad_output else q
     pieces_r: list[torch.Tensor] = []
@@ -251,42 +308,64 @@ def _serve(packed: torch.Tensor, num_records: int, plans: Sequence,
     order: list[int] = []       # original query index per real row
     pos: list[int] = []         # its row in the concatenated pieces
     off = 0
-    if buckets:
-        aug = _augmented(packed)
-        for shape, idxs, sels, invs, post in buckets:
-            rws, cts = _executor(name, *shape)(aug, num_records, sels, invs,
-                                               post)
-            if not pad_output and rws.shape[0] != len(idxs):
-                rws, cts = rws[:len(idxs)], cts[:len(idxs)]  # drop Q-pads
-            pieces_r.append(rws)
-            pieces_c.append(cts)
-            order.extend(idxs)
-            pos.extend(range(off, off + len(idxs)))
-            off += rws.shape[0]
+    for shape, idxs, sels, invs, post in buckets:
+        _DISPATCHES.inc()
+        with _obs_trace.maybe_span("bucket.dispatch", backend=name,
+                                   shape=shape, q=len(idxs), **span):
+            rws, cts = run(shape, sels, invs, post)
+        if not pad_output and rws.shape[ax] != len(idxs):   # drop Q-pads
+            rws, cts = rws.narrow(ax, 0, len(idxs)), cts.narrow(ax, 0,
+                                                               len(idxs))
+        pieces_r.append(rws)
+        pieces_c.append(cts)
+        order.extend(idxs)
+        pos.extend(range(off, off + len(idxs)))
+        off += rws.shape[ax]
     if zeros:
         zn = _pow2_ceil(len(zeros)) if pad_output else len(zeros)
-        pieces_r.append(torch.zeros((zn, nw), dtype=torch.int32, device=dev))
-        pieces_c.append(torch.zeros((zn,), dtype=torch.int32, device=dev))
+        pieces_r.append(torch.zeros(lead + (zn, nw), dtype=torch.int32,
+                                    device=dev))
+        pieces_c.append(torch.zeros(lead + (zn,), dtype=torch.int32,
+                                    device=dev))
         order.extend(zeros)
         pos.extend(range(off, off + len(zeros)))
         off += zn
-    for qi in composite:                # size-guard fallback: out-of-band
-        r, c = planner.execute(packed, plans[qi], num_records=num_records,
-                               backend=name)
-        pieces_r.append(r[None])
-        pieces_c.append(c[None])
+    for qi in comp:                     # size-guard fallback: out-of-band
+        r, c = composite(qi)
+        pieces_r.append(r.unsqueeze(ax))
+        pieces_c.append(c.unsqueeze(ax))
         order.append(qi)
         pos.append(off)
         off += 1
 
-    rows_all = pieces_r[0] if len(pieces_r) == 1 else torch.cat(pieces_r)
-    counts_all = pieces_c[0] if len(pieces_c) == 1 else torch.cat(pieces_c)
-    if order == list(range(q)) and rows_all.shape[0] == q_out:
+    rows_all = (pieces_r[0] if len(pieces_r) == 1
+                else torch.cat(pieces_r, dim=ax))
+    counts_all = (pieces_c[0] if len(pieces_c) == 1
+                  else torch.cat(pieces_c, dim=ax))
+    if order == list(range(q)) and rows_all.shape[ax] == q_out:
         return rows_all, counts_all     # single in-order exact bucket
     inv = np.zeros(q_out, np.int64)     # pad slots gather row 0 (ignored)
     inv[np.asarray(order, np.int64)] = np.asarray(pos, np.int64)
     inv = torch.from_numpy(inv).to(dev)
-    return rows_all[inv], counts_all[inv]
+    return rows_all.index_select(ax, inv), counts_all.index_select(ax, inv)
+
+
+def _serve(packed: torch.Tensor, num_records: int, plans: Sequence,
+           part, name: str, pad_output: bool = False
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run a pre-partitioned batch against ONE packed buffer; results come
+    back in input order.  ``pad_output=True`` pads the OUTPUT query axis to
+    ``pow2_ceil(Q)`` (rows past the real Q are unspecified padding)."""
+    def run(shape, sels, invs, post):
+        return _executor(name, *shape)(_augmented(packed), num_records,
+                                       sels, invs, post)
+
+    def composite(qi):
+        return planner.execute(packed, plans[qi], num_records=num_records,
+                               backend=name)
+
+    return _wave(name, plans, part, run, composite, (), packed.shape[1],
+                 packed.device, pad_output)
 
 
 def execute_many(packed: torch.Tensor,
@@ -314,3 +393,107 @@ def execute_many(packed: torch.Tensor,
     name = backends.resolve_backend(backend, packed.device)
     return _serve(packed, int(num_records), plans,
                   _partition(plans, m, packed.device), name, pad_output)
+
+
+def _serve_stacked(stack: torch.Tensor, nrecs: Sequence[int], plans: Sequence,
+                   part, name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run a pre-partitioned batch against a STACK of uniform-word-count
+    packed buffers (S, M, Nw) holding ``nrecs[s]`` records each — one
+    stacked executor call per bucket covers every segment.  Returns
+    (rows (S, Q, Nw), counts (S, Q)) in input query order."""
+    s, m, nw = stack.shape
+    aug = []                            # built at the first bucket
+
+    def run(shape, sels, invs, post):
+        if not aug:
+            a = torch.empty((s, m + 1, nw), dtype=torch.int32,
+                            device=stack.device)
+            a[:, :m] = stack
+            a[:, m] = -1
+            aug.append(a)
+        return _stacked_executor(name, *shape)(aug[0], nrecs, sels, invs,
+                                               post)
+
+    def composite(qi):
+        rs, cs = zip(*(planner.execute(stack[si], plans[qi],
+                                       num_records=int(nrecs[si]),
+                                       backend=name) for si in range(s)))
+        return torch.stack(rs), torch.stack(cs)
+
+    return _wave(name, plans, part, run, composite, (s,), nw, stack.device,
+                 segments=s)
+
+
+def execute_many_segments(parts: Sequence[tuple[torch.Tensor, int]],
+                          predicates: Sequence, *, backend: str = "auto",
+                          max_clauses: int | None =
+                          planner.DEFAULT_MAX_CLAUSES,
+                          factor: bool = False,
+                          stack_uniform: bool | None = None,
+                          device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Serve a query batch over an index stored as a chain of packed
+    segments covering contiguous record ranges — the durable layout of
+    :mod:`repro_torch.store` — without materializing one contiguous buffer.
+
+    ``parts``: ordered ``(packed (M, ceil(n_i/32)) int32, n_i)`` pairs on
+    one device; record ``sum(n_(<i))`` is the absolute offset of segment
+    i.  Plans lower, validate, and bucket ONCE; each segment then runs the
+    bucketed dispatch and its result rows — tail-masked within the segment
+    — are OR-spliced into the global (Q, ceil(N/32)) rows at the segment's
+    bit offset.  Counts sum per segment.  Bit-identical to
+    :func:`execute_many` over the spliced-together index.
+
+    ``stack_uniform``: when every segment shares ONE word count the
+    segments stack into an (S, M, Nw) tensor and each bucket serves ALL
+    segments in one stacked executor call (:func:`_serve_stacked`);
+    results stay bit-identical to the per-segment path.  ``None`` (the
+    default) stacks.  The port has no cost model yet, so ``backend="auto"``
+    resolves by the parts' device (``cuda`` on a CUDA device, ``ref`` on
+    the CPU) and stacks whenever word counts are uniform, as the
+    reference's explicit backends do.  ``device`` is where an empty chain's
+    results go (default the card)."""
+    parts = [(p, int(n)) for p, n in parts]
+    if not parts:
+        # an empty index has no key count to validate against; every
+        # query matches nothing by definition
+        dev = policy.resolve_device("cuda" if device is None else device)
+        q = len(predicates)
+        return (torch.zeros((q, 0), dtype=torch.int32, device=dev),
+                torch.zeros((q,), dtype=torch.int32, device=dev))
+    dev = parts[0][0].device
+    total = sum(n for _, n in parts)
+    tw = policy.num_words(total)
+    m = parts[0][0].shape[0]
+    if any(p.shape[0] != m for p, _ in parts):
+        raise ValueError("segments disagree on key count: "
+                         f"{[p.shape[0] for p, _ in parts]}")
+    plans = _to_plans(predicates, m, max_clauses, factor)
+    q = len(plans)
+    if q == 0:
+        return (torch.zeros((q, tw), dtype=torch.int32, device=dev),
+                torch.zeros((q,), dtype=torch.int32, device=dev))
+    name = backends.resolve_backend(backend, dev)
+    if stack_uniform is None:
+        stack_uniform = True
+    max_bw = max(p.shape[1] for p, _ in parts)
+    part = _partition(plans, m, dev)
+    # a fresh buffer no snapshot shares: the per-segment splices go in place
+    rows = torch.zeros((q, tw + max_bw + 1), dtype=torch.int32, device=dev)
+    uniform = len({p.shape[1] for p, _ in parts}) == 1
+    if stack_uniform and uniform and len(parts) > 1:
+        stack = torch.stack([p for p, _ in parts])
+        nrecs = [n for _, n in parts]
+        rows_s, counts_s = _serve_stacked(stack, nrecs, plans, part, name)
+        start = 0
+        for si, n in enumerate(nrecs):
+            policy.splice_into(rows, start, rows_s[si])
+            start += n
+        return rows[:, :tw], counts_s.sum(dim=0, dtype=torch.int32)
+    counts = torch.zeros((q,), dtype=torch.int32, device=dev)
+    start = 0
+    for packed, n in parts:
+        r_i, c_i = _serve(packed, n, plans, part, name)
+        policy.splice_into(rows, start, r_i)
+        counts = counts + c_i
+        start += n
+    return rows[:, :tw], counts

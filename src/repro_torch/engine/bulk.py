@@ -96,3 +96,17 @@ def run_program_plain(aug: torch.Tensor, num_records: int,
     """:func:`run_program` through the plain sweep on any device."""
     return policy.mask_tail(bitmap_ops.bulk_program_plain(aug, sels, invs,
                                                           post), num_records)
+
+
+def run_program_stacked(aug: torch.Tensor, nrecs, sels: torch.Tensor,
+                        invs: torch.Tensor, post: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Segment-stacked whole-bucket executor (the
+    ``Backend.run_program_stacked`` hook): aug (S, M+1, Nw), ``nrecs`` S
+    record counts, selector arrays shared by every segment -> (rows
+    (S, Q, Nw) with each segment's tail masked past its own count, counts
+    (S, Q)).  One stacked ``bulk_program`` launch on a CUDA tensor, its
+    plain version on a CPU tensor."""
+    n = torch.tensor(list(nrecs), dtype=torch.int32).to(aug.device)
+    rows = bitmap_ops.bulk_program_stacked(aug, n, sels, invs, post)
+    return rows, policy.popcount(rows).sum(dim=-1, dtype=torch.int32)

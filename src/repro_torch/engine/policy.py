@@ -27,7 +27,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import (KEY_SENTINEL, PACK,  # noqa: F401
                                      RECORD_SENTINEL, num_words, pad_keys,
-                                     pad_records, popcount, round_up, shr)
+                                     pad_records, popcount, round_up, shr,
+                                     tail_mask)
 
 
 def resolve_device(device) -> torch.device:
@@ -39,17 +40,6 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but no CUDA GPU is available; "
             "pass device='cpu' to run the plain-torch path")
     return dev
-
-
-def tail_mask(nw: int, num_records: int, device) -> torch.Tensor:
-    """(nw,) int32 words with bits [0, num_records) set."""
-    full = min(max(num_records, 0) // PACK, nw)
-    mask = torch.zeros((nw,), dtype=torch.int32, device=device)
-    mask[:full] = -1
-    rem = num_records % PACK
-    if full < nw and rem and num_records > 0:
-        mask[full] = (1 << rem) - 1
-    return mask
 
 
 def mask_tail(result: torch.Tensor, num_records: int

@@ -9,6 +9,11 @@ CUDA kernels (``csrc/bitmap_ops.cu``) and their plain-torch versions.
   masks -> rows (Q, Nw) = OR over groups of [AND over passes of [(AND over
   literals of possibly inverted aug[sel]) ^ post]], tails NOT masked.
   Replaces ``src/repro/kernels/bitmap_ops.py::bulk_program``.
+* ``bulk_program_stacked``: the same bucket over a stack of uniform
+  segments in one launch — aug (S, M+1, Nw), nrecs (S,) int32 -> rows
+  (S, Q, Nw), the program shared by every segment, segment s's tail masked
+  past nrecs[s].  The reference vmaps ``bulk_program`` over the segment
+  axis (``src/repro/engine/batch.py:155-165``).
 
 The source notes in the ``.cu`` file give each kernel's bound and design.
 """
@@ -135,3 +140,54 @@ def bulk_program(aug: torch.Tensor, sels: torch.Tensor, invs: torch.Tensor,
 
 
 bulk_program.launches = 0
+
+
+# ---------------------------------------------------- bulk_program, stacked
+def bulk_program_stacked_plain(aug: torch.Tensor, nrecs: torch.Tensor,
+                               sels: torch.Tensor, invs: torch.Tensor,
+                               post: torch.Tensor) -> torch.Tensor:
+    """The plain-torch version: :func:`bulk_program_plain` per segment,
+    each segment's rows masked past its own record count."""
+    return torch.stack([
+        bulk_program_plain(aug[s], sels, invs, post)
+        & ref.tail_mask(aug.shape[2], int(nrecs[s]), aug.device)
+        for s in range(aug.shape[0])])
+
+
+def bulk_program_stacked(aug: torch.Tensor, nrecs: torch.Tensor,
+                         sels: torch.Tensor, invs: torch.Tensor,
+                         post: torch.Tensor) -> torch.Tensor:
+    """Launch the stacked kernel on CUDA tensors; run the plain version on
+    CPU tensors.  Takes contiguous int32 aug (S, M+1, Nw) whose row M of
+    every segment is all ones, nrecs (S,), sels/invs (Q, G, P, L) and post
+    (Q, G, P); every selector must lie in [0, M]."""
+    name = "bulk_program_stacked"
+    card = _build.on_card(name, aug, nrecs, sels, invs, post)
+    _build.require(name, all(t.dtype == torch.int32
+                             for t in (aug, nrecs, sels, invs, post)),
+                   "aug/nrecs/sels/invs/post must be int32")
+    _build.require(name, aug.dim() == 3 and nrecs.shape == aug.shape[:1]
+                   and sels.dim() == 4 and invs.shape == sels.shape
+                   and post.shape == sels.shape[:3],
+                   f"want aug (S, M+1, Nw), nrecs (S,), sels/invs "
+                   f"(Q, G, P, L), post (Q, G, P); got {tuple(aug.shape)}, "
+                   f"{tuple(nrecs.shape)}, {tuple(sels.shape)}, "
+                   f"{tuple(invs.shape)}, {tuple(post.shape)}")
+    _build.require(name, min(sels.shape) >= 1, "empty program axis")
+    if not card:
+        return bulk_program_stacked_plain(aug, nrecs, sels, invs, post)
+    _build.require(name, all(t.is_contiguous()
+                             for t in (aug, nrecs, sels, invs, post)),
+                   "aug/nrecs/sels/invs/post must be contiguous")
+    s, m1, nw = aug.shape
+    q, g, p, l = sels.shape
+    out = torch.empty((s, q, nw), dtype=torch.int32, device=aug.device)
+    fn = _build.library(name)
+    _build.check(fn(_build.ptr(aug), _build.ptr(nrecs), _build.ptr(sels),
+                    _build.ptr(invs), _build.ptr(post), _build.ptr(out), s,
+                    m1, nw, q, g, p, l, _build.stream(aug.device)), name)
+    bulk_program_stacked.launches += 1
+    return out
+
+
+bulk_program_stacked.launches = 0

@@ -54,6 +54,17 @@ def shr(x: torch.Tensor, s: int) -> torch.Tensor:
     return (x >> s) & ((1 << (PACK - s)) - 1)
 
 
+def tail_mask(nw: int, num_records: int, device) -> torch.Tensor:
+    """(nw,) int32 words with bits [0, num_records) set."""
+    full = min(max(num_records, 0) // PACK, nw)
+    mask = torch.zeros((nw,), dtype=torch.int32, device=device)
+    mask[:full] = -1
+    rem = num_records % PACK
+    if full < nw and rem and num_records > 0:
+        mask[full] = (1 << rem) - 1
+    return mask
+
+
 def popcount(x: torch.Tensor) -> torch.Tensor:
     """Per-word set-bit count of int32 words (SWAR), as int32."""
     x = x - (shr(x, 1) & 0x55555555)

@@ -24,7 +24,8 @@ from repro_torch.kernels import bit_transpose as tbt
 from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
-from torch_checks import any_int32_cam_inputs, bf16_attn_err
+from torch_checks import (STACKED_CASES, any_int32_cam_inputs,
+                          bf16_attn_err, stacked_program_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -144,6 +145,43 @@ def test_bulk_program_kernel(dev, m, nw, shape):
     got = tbq.bulk_program(aug, sels, invs, post)
     torch.cuda.synchronize()
     assert torch.equal(got, tbq.bulk_program_plain(aug, sels, invs, post))
+
+
+@pytest.mark.parametrize("s,m,nw,shape,literals", STACKED_CASES)
+def test_bulk_program_stacked_kernel(dev, s, m, nw, shape, literals):
+    """The stacked launch against its plain version (bulk_program_plain
+    per segment, each masked past its own record count)."""
+    rng = np.random.default_rng(s * 1000 + nw)
+    args = [torch.from_numpy(a).to(dev) for a in stacked_program_inputs(
+        rng, s, m, nw, shape, literals)]
+    n0 = tbq.bulk_program_stacked.launches
+    got = tbq.bulk_program_stacked(*args)
+    torch.cuda.synchronize()
+    assert tbq.bulk_program_stacked.launches == n0 + 1
+    assert got.shape == (s, shape[0], nw)
+    assert torch.equal(got, tbq.bulk_program_stacked_plain(*args))
+
+
+def test_stacked_segments_match_per_segment_and_ref(dev):
+    from repro_torch.engine import batch as tbatch
+    rng = np.random.default_rng(21)
+    parts = []
+    for n in (4096, 4096, 4090):       # uniform word counts, ragged tail
+        idx = BitmapDB(num_keys=64, device=dev)
+        idx.append_encoded(rng.integers(0, 64, (n, 8), dtype=np.uint8))
+        parts.append((idx.index.packed.contiguous(), n))
+    k = planner.key
+    preds = [k(1) & ~k(2), (k(3) | k(4)) & k(5), k(6) | k(7), k(9) & ~k(9),
+             planner.And(tuple(k(2 * i) | k(2 * i + 1) for i in range(8)))]
+    n0 = tbq.bulk_program_stacked.launches
+    got = tbatch.execute_many_segments(parts, preds, backend="cuda")
+    assert tbq.bulk_program_stacked.launches - n0 == 3     # one per bucket
+    per = tbatch.execute_many_segments(parts, preds, backend="cuda",
+                                       stack_uniform=False)
+    ref = tbatch.execute_many_segments(parts, preds, backend="ref")
+    torch.cuda.synchronize()
+    for other in (per, ref):
+        assert torch.equal(got[0], other[0]) and torch.equal(got[1], other[1])
 
 
 def test_cuda_backend_matches_ref_end_to_end(dev):

@@ -227,12 +227,12 @@ def test_execute_many_empty_and_executor_cache():
     r, c = tbatch.execute_many(packed, [], num_records=90)
     assert r.shape == (0, 3) and c.shape == (0,)
     tbackends.register_backend(tbackends.get_backend("bulk"))  # clears caches
-    builds = tbatch.COUNTERS["executor_builds"]
+    builds = tbatch._BUILDS.value
     preds = [tplanner.key(0) & ~tplanner.key(1), tplanner.key(2)]
     for _ in range(3):
         tbatch.execute_many(packed, preds, num_records=90, backend="bulk")
     # two bucket shapes, built once each: later waves are cache hits
-    assert tbatch.COUNTERS["executor_builds"] - builds == 2
+    assert tbatch._BUILDS.value - builds == 2
     assert tbatch.batched_executor_cache_info().currsize == 2
 
 

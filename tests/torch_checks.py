@@ -46,3 +46,33 @@ def bf16_attn_err(got: torch.Tensor, want: torch.Tensor) -> float:
     tol = bf16_spacing(want) + BF16_ROW_SLACK * want.abs().amax(
         -1, keepdim=True)
     return float(((got.float() - want).abs() / tol).max())
+
+
+#: stacked ``bulk_program`` cases (S, M, Nw, (Q, G, P, L), literals):
+#: one, three and eight segments, ragged Nw, Q past grid.y's 65535, and
+#: every literal inverted.  Shared by the card tests and chip_smoke.py.
+STACKED_CASES = (
+    (1, 13, 1001, (8, 4, 2, 4), "mixed"),
+    (3, 13, 1001, (8, 4, 2, 4), "mixed"),
+    (8, 256, 4096, (16, 2, 1, 4), "mixed"),
+    (8, 13, 33, (4, 2, 2, 8), "mixed"),
+    (3, 5, 33, (65536, 1, 1, 1), "mixed"),
+    (3, 13, 300, (4, 2, 2, 8), "all inverted"),
+)
+
+
+def stacked_program_inputs(rng, s: int, m: int, nw: int, shape, literals):
+    """numpy int32 inputs of a stacked ``bulk_program``: aug (S, M+1, Nw)
+    with the all-ones identity row at M of every segment, record counts
+    (S,) that cut each segment's tail at a different place (empty, ragged,
+    full), and a random program over [0, M] (sels, invs, post)."""
+    aug = rng.integers(0, 2 ** 32, (s, m + 1, nw), dtype=np.uint32)
+    aug[:, m] = 0xFFFFFFFF
+    cuts = [0, 1, 32 * nw - 5, 32 * nw, 32 * (nw // 2) + 7]
+    nrecs = np.array([cuts[i % len(cuts)] if s > 1 else 32 * nw - 3
+                      for i in range(s)], np.int32)
+    sels = rng.integers(0, m + 1, shape).astype(np.int32)
+    invs = (np.ones(shape, np.int32) if literals == "all inverted"
+            else rng.integers(0, 2, shape).astype(np.int32))
+    post = np.where(rng.random(shape[:3]) < 0.3, -1, 0).astype(np.int32)
+    return aug.view(np.int32), nrecs, sels, invs, post
