@@ -38,7 +38,10 @@ Phases (any failure exits non-zero and prints no result):
    composite (an AND of 8 two-key ORs), served once cold and then
    WARM_WAVES times warm (the warm figure is their total over their count),
    and one single ``query``.  Every kernel's launch counter is zeroed just
-   before and read just after; each bitmap kernel must be > 0.
+   before and read just after; each bitmap kernel must be > 0, and every
+   bitmap wave, counted per resolved backend
+   (``repro_torch.engine.batch.waves_by_backend``), must have run on
+   ``cuda``: a wave on ``ref`` or ``bulk`` would be the plain version.
 4. The bitmap path's answers: every row and count bit-identical to the
    port's plain ``ref`` backend on the card, and the streamed index
    identical, block by block, to a plain create_index of the same records.
@@ -120,17 +123,61 @@ Phases (any failure exits non-zero and prints no result):
    (paper units: one 8-bit record word per byte) and the ``EnergyReport``:
    the paper's 65-nm SOTB silicon model charged over busy time measured on
    the H100, not the H100's energy.
+10. The cost model on the card.  Phases 3-9 run ``auto`` on the port's
+   ``cuda`` priors: the script points ``REPRO_TORCH_BITMAP_CALIBRATION`` at
+   a file in a temporary directory that does not exist yet.  Then
+   ``measure_calibration(device="cuda")`` at the main path's size (2^25
+   records x 256 keys; backends ``ref``, ``bulk``, ``cuda``) is saved
+   through that env var, read back and printed, profile by profile.  A
+   session holding the 8 phase-3 blocks plans phase 3's wave: ``decide``
+   must pick ``cuda`` for it at 2^20 words (else the phase fails and prints
+   the estimates and terms); the decision over phase 8's ``StoredIndex``
+   shape (8 segments x 2^17 words) and ``BitmapDB.explain`` of one
+   serving-mix query and of the composite are printed; the wave, served
+   again under ``auto`` with the measured calibration, must be
+   bit-identical to phase 3's with ``bulk_program`` and ``bitmap_query``
+   launched.
+11. The service on the card (its energy is the paper's silicon model over
+   busy time, not the H100's).  a: ``db.serve(max_batch=256,
+   max_delay_ms=2.0, idle_after_ms=200.0)`` over that session, ``warmup``
+   of the wave (seconds printed), then 8 submitter threads x 4 rounds of
+   the 65-query wave (2080 queries); each thread compares every future
+   with phase 3's answer as it resolves and drops it, and its resolve
+   sequence must increase; prints queries/s, waves, the mean coalesced
+   batch, p50/p99 latency and the active/standby joules, then profiles one
+   more round (card busy time, idle share).  b: after the 200 ms idle
+   timer the service must be in standby; one submission wakes it (its
+   answer phase 3's), and ``make_bitmap_query_step`` over the session
+   returns phase 3's rows and counts for the whole wave.  c:
+   ``BitmapDB(num_keys=256, path=<temporary directory>,
+   spill_records=2^22).serve(maintenance=True)`` takes phase 3's first 4
+   blocks through ``append_encoded`` while 4 threads keep submitting the
+   wave; every answer must equal phase 3's row cut to the record count its
+   wave saw, at least 3 spills must complete in the background with no
+   error, and after ``close()`` ``repro_torch.open`` must recover phase
+   3's first 2^24 records bit for bit; prints each append's wall time
+   beside phase 8's synchronous WAL and ``write_segment`` seconds.  Needs
+   about 3.1 GiB free (checked first).  Every service phase, the one-shot
+   step's own service included, fails unless the ladder counters (degraded
+   waves, fallback queries, wave retries, isolated failures, deadline
+   rejections) read 0, the breaker is closed and the bitmap kernels'
+   launch counters are above 0 (``cam_match`` and ``bit_transpose`` too in
+   11c).
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
 ragged Nw, Q past 65535, every literal inverted).  Each path (phases 3,
 8, 9) is driven with every launch counter set to 0 just before it and read
-just after.
+just after; so is each of phases 10 and 11's runs (11b's wake and one-shot
+step together).  Each of those runs also fails unless every bitmap wave it
+served ran on ``cuda``, counted per backend like the launches.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and the result JSON.
 """
 import argparse
+import atexit
+import dataclasses
 import gc
 import itertools
 import json
@@ -362,9 +409,10 @@ def dir_bytes(path: str) -> int:
 
 
 def durable(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
-            kernel, records, repro_torch, BitmapDB, batch, open_index,
-            bitmap_ops, planner) -> None:
-    """Phase 8 (see the module docstring)."""
+            read_waves, kernel, records, repro_torch, BitmapDB, batch,
+            open_index, bitmap_ops, planner) -> dict:
+    """Phase 8 (see the module docstring); returns its synchronous WAL
+    append and segment write seconds for phase 11c."""
     words_per_seg = BLOCK // 32
     seg_bytes = M * words_per_seg * 4
     # the WAL holds int32 records, every generation until gc; one segment
@@ -377,16 +425,18 @@ def durable(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
         raise SystemExit(f"durable path: needs {need} bytes free under "
                          f"{root}, {free} are")
     try:
-        _durable(torch, dev, host_blocks, wave, p3, zero_counts,
-                 read_counts, kernel, records, repro_torch, BitmapDB, batch,
-                 open_index, bitmap_ops, planner, root, need, free)
+        return _durable(torch, dev, host_blocks, wave, p3, zero_counts,
+                        read_counts, read_waves, kernel, records, repro_torch,
+                        BitmapDB, batch, open_index, bitmap_ops, planner,
+                        root, need, free)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 def _durable(torch, dev, host_blocks, wave, p3, zero_counts,
-             read_counts, kernel, records, repro_torch, BitmapDB, batch,
-             open_index, bitmap_ops, planner, root, need, free) -> None:
+             read_counts, read_waves, kernel, records, repro_torch, BitmapDB,
+             batch, open_index, bitmap_ops, planner, root, need,
+             free) -> dict:
     n_all = BLOCKS * BLOCK
     wal_s, prep_s, seg_s = [], [], []
     zero_counts()
@@ -485,17 +535,20 @@ def _durable(torch, dev, host_blocks, wave, p3, zero_counts,
     torch.cuda.synchronize()
     stacked_launches = read_counts("bulk_program_stacked", "bulk_program",
                                    "bitmap_query")
+    stacked_waves = read_waves("stored index, auto wave")
     zero_counts()
     rows_p, counts_p = batch.execute_many_segments(
         stored.parts, plans, backend="cuda", stack_uniform=False)
     torch.cuda.synchronize()
     per_launches = read_counts("bulk_program_stacked", "bulk_program",
                                "bitmap_query")
+    per_waves = read_waves("stored index, per-segment wave")
     rows_r, counts_r = batch.execute_many_segments(stored.parts, plans,
                                                    backend="ref")
     print(f"stored index: {BLOCKS} segments x {tuple(shapes)[0]} words; "
           f"{len(buckets)} buckets; launches, stacked wave "
-          f"{stacked_launches}, per-segment wave {per_launches}")
+          f"{stacked_launches}, per-segment wave {per_launches}; waves per "
+          f"backend {stacked_waves}, {per_waves}")
     if (stacked_launches["bulk_program_stacked"] != len(buckets)
             or stacked_launches["bulk_program"]
             or per_launches["bulk_program"] != len(buckets) * BLOCKS
@@ -574,15 +627,18 @@ def _durable(torch, dev, host_blocks, wave, p3, zero_counts,
         "stacked_wave_ms": stacked_ms, "per_segment_wave_ms": per_ms,
         "stacked_launches": stacked_launches,
         "per_segment_launches": per_launches, "buckets": len(buckets),
+        "waves": {"stacked": stacked_waves, "per_segment": per_waves},
         "append_profile": append_prof, "profile": prof}}))
     del aug_s, per_seg, stored, sdb, rows_s, rows_p, rows_r
     batch._AUG_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
+    return {"wal_append_s": wal_s, "segment_file_s": prep_s,
+            "segment_write_commit_s": seg_s}
 
 
 def runtime_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
-                 truntime, BICConfig, batch, policy) -> None:
+                 read_waves, truntime, BICConfig, batch, policy) -> None:
     """Phase 9 (see the module docstring)."""
     keys = torch.arange(M, dtype=torch.int32, device=dev)
     cfg = BICConfig(num_keys=M, num_records=BLOCK, words_per_record=W)
@@ -613,6 +669,7 @@ def runtime_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
     torch.cuda.synchronize()
     launches = read_counts("cam_match", "bit_transpose", "bulk_program",
                            "bitmap_query")
+    waves = read_waves("runtime path")
     for i, blk in enumerate(res.indexes):  # the query tick's own build
         want = policy.extract_packed(p3["packed"], (b + i) * BLOCK, BLOCK)
         if not torch.equal(blk, want):
@@ -638,7 +695,8 @@ def runtime_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
           f"{res.measured_mbps} MB/s in the query tick ({res.measured_seconds}"
           f" s; paper units: one 8-bit record word per byte); run_tick of "
           f"{len(wave)} queries bit-identical to ref, its blocks {b + 1}-"
-          f"{b + 2} to phase 3's index; launches {launches}")
+          f"{b + 2} to phase 3's index; launches {launches}; waves per "
+          f"backend {waves}")
     print(f"energy (the paper's 65-nm SOTB silicon model charged over busy "
           f"time measured on the H100, not the H100's energy): stream "
           f"{rep}, runtime total {report}; ledger "
@@ -647,10 +705,384 @@ def runtime_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
         "ticks": list(TICKS), "block_records": BLOCK,
         "stream_mbps_ewma": stream_mbps, "query_tick_mbps": res.measured_mbps,
         "query_tick_s": res.measured_seconds, "active_cores":
-        res.active_cores, "launches": launches,
+        res.active_cores, "launches": launches, "waves": waves,
         "energy_model_report": report,
         "energy_note": "65-nm SOTB silicon model over busy time measured on "
                        "the H100; not the H100's energy"}}))
+
+
+SERVICE_ROUNDS = 4          # phase 11a: rounds of the wave per submitter
+SERVICE_THREADS = 8         # phase 11a submitters
+DURABLE_THREADS = 4         # phase 11c submitters
+DURABLE_BLOCKS = 4          # phase 11c: blocks appended under service
+#: the trouble counters of the service's fallback ladder: each must stay 0
+#: on the measured path (a wave served by ``ref`` or isolated per query
+#: would hide the kernels)
+LADDER = ("degraded_waves", "fallback_queries", "wave_retries",
+          "isolated_failures", "deadline_rejected")
+
+
+def ladder_clean(svc, label: str) -> dict:
+    """The service's ladder counters and breaker; fails unless every
+    counter is 0 and the breaker closed."""
+    h = svc.health()
+    got = {k: h[k] for k in LADDER}
+    got["breaker"] = h["breaker"]["state"]
+    if any(got[k] for k in LADDER) or got["breaker"] != "closed":
+        raise SystemExit(f"{label}: the service served around a failure "
+                         f"{got}")
+    return got
+
+
+def cost_model_path(torch, dev, host_blocks, wave, mix, composite, p3,
+                    zero_counts, read_counts, read_waves, costmodel, BitmapDB,
+                    seed: int):
+    """Phase 10 (see the module docstring); returns the 2^25-record
+    session phase 11 serves."""
+    t0 = time.perf_counter()
+    cal = costmodel.measure_calibration(
+        device=dev, num_records=BLOCKS * BLOCK, num_keys=M,
+        backend_names=("ref", "bulk", "cuda"), seed=seed)
+    measure_s = time.perf_counter() - t0
+    path = costmodel.save_calibration(cal)       # through the env var
+    costmodel.set_calibration(None)
+    if costmodel.get_calibration(dev) != cal:
+        raise SystemExit(f"cost model: {path} did not load back")
+    print(f"cost model: measure_calibration(device=cuda, num_records="
+          f"{BLOCKS * BLOCK}, num_keys={M}) in {measure_s} s, saved to "
+          f"{path} (${costmodel.ENV_PATH}); copy {cal.copy_bytes_per_sec} "
+          f"B/s; candidates {costmodel.candidates(device=dev)}")
+    for name, prof in cal.profiles:
+        print(f"  profile {name}: {prof.words_per_sec} words/s, "
+              f"{prof.dispatch_overhead_s} s per dispatch")
+    db = BitmapDB(num_keys=M, device=dev)
+    for blk in host_blocks:
+        db.append_encoded(blk)
+    plans = [db._plan_for(q) for q in wave]
+    nw = BLOCKS * BLOCK // 32
+    dec = costmodel.decide(plans, num_words=nw, num_keys=M, stats=db.stats,
+                           device=dev)
+    print(f"decide, phase 3's wave of {len(wave)} at {nw} words: "
+          f"{dec.backend} (factor {dec.factor}); estimates "
+          f"{dict(dec.estimates)}; terms {dict(dec.terms)}")
+    if dec.backend != "cuda":
+        raise SystemExit("cost model: auto does not pick cuda for phase 3's "
+                         f"wave: estimates {dict(dec.estimates)}, terms "
+                         f"{dict(dec.terms)}")
+    dec8 = costmodel.decide(plans, num_words=BLOCK // 32,
+                            num_segments=BLOCKS, num_keys=M, stats=db.stats,
+                            device=dev)
+    print(f"decide, the same wave over phase 8's StoredIndex ({BLOCKS} "
+          f"segments x {BLOCK // 32} words): {dec8.backend}, stack "
+          f"{dec8.stack_uniform}; estimates {dict(dec8.estimates)}")
+    for label, q in (("one serving-mix query", mix[4]),
+                     ("the composite", composite)):
+        ex = db.explain(q)
+        print(f"explain {label}: backend {ex['backend']}, bucket "
+              f"{ex['bucket_shape']}, fallback {ex.get('fallback')}, "
+              f"est_matches {ex['est_matches']}, decision "
+              f"{ex['decision']}")
+    zero_counts()
+    rows, counts = db.query_many(wave).materialize()
+    torch.cuda.synchronize()
+    launches = read_counts("bulk_program", "bitmap_query")
+    waves = read_waves("cost model, the auto wave")
+    if not (torch.equal(rows, p3["rows"]) and torch.equal(counts,
+                                                          p3["counts"])):
+        raise SystemExit("cost model: the wave under auto differs from "
+                         "phase 3's answers")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"cost model: the auto wave launched {launches}")
+    print(f"auto wave under the measured calibration: {len(wave)} rows and "
+          f"counts bit-identical to phase 3's; launches {launches}; waves "
+          f"per backend {waves}")
+    print(json.dumps({"cost_model": {
+        "measure_s": measure_s, "platform": cal.platform,
+        "copy_bytes_per_sec": cal.copy_bytes_per_sec,
+        "profiles": {n: dataclasses.asdict(p) for n, p in cal.profiles},
+        "wave_decision": {"backend": dec.backend, "factor": dec.factor,
+                          "estimates": dict(dec.estimates)},
+        "segments_decision": {"backend": dec8.backend,
+                              "stack_uniform": dec8.stack_uniform,
+                              "estimates": dict(dec8.estimates)},
+        "auto_wave_launches": launches, "auto_wave_waves": waves}}))
+    del rows, counts
+    return db
+
+
+def _submitters(n: int, body) -> tuple[list, list, list]:
+    """``n`` threads (not started) running ``body(t, seqs, bad)``; returns
+    (threads, the resolve sequences each appends to, the failures list)."""
+    import threading
+    seqs, bad = [[] for _ in range(n)], []
+
+    def run(t):
+        try:
+            body(t, seqs[t], bad)
+        except BaseException as e:        # noqa: BLE001 — reported below
+            bad.append((t, repr(e)))
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(n)]
+    return threads, seqs, bad
+
+
+def service_path(torch, dev, db, host_blocks, wave, mix, p3, zero_counts,
+                 read_counts, read_waves, repro_torch, BitmapDB, tstep,
+                 policy, records, sync_times: dict) -> None:
+    """Phase 11 (see the module docstring)."""
+    # ---- 11a. the storm
+    svc = db.serve(max_batch=256, max_delay_ms=2.0, idle_after_ms=200.0)
+    t0 = time.perf_counter()
+    warm = svc.warmup(wave)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"service: warmup {warm} dispatches in {warm_s} s (candidates "
+          f"{repro_torch.engine.costmodel.candidates(device=dev)})")
+    p3_rows, p3_counts = p3["rows"], p3["counts"].tolist()
+
+    def storm(rounds: int) -> tuple[float, list, list]:
+        """SERVICE_THREADS submitters, ``rounds`` rounds of the wave each,
+        every future compared with phase 3's answer as it resolves and
+        then dropped; returns (seconds, resolve sequences, failures)."""
+        def body(t, seqs, bad):
+            for r in range(rounds):
+                futs = [(i, svc.submit(q)) for i, q in enumerate(wave)]
+                for i, f in futs:
+                    row, cnt = f.result(timeout=600)
+                    if not (torch.equal(row, p3_rows[i])
+                            and int(cnt) == p3_counts[i]):
+                        bad.append((t, r, i))
+                    seqs.append(f.resolve_seq)
+                del futs
+        threads, seqs, bad = _submitters(SERVICE_THREADS, body)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        if any(th.is_alive() for th in threads):
+            raise SystemExit("service storm: a submitter hung")
+        return time.perf_counter() - t0, seqs, bad
+
+    zero_counts()
+    storm_s, seqs, bad = storm(SERVICE_ROUNDS)
+    if not svc.drain(timeout=600):
+        raise SystemExit("service storm: the drain hung")
+    torch.cuda.synchronize()
+    launches = read_counts("bulk_program", "bitmap_query")
+    waves = read_waves("service storm")
+    n_q = SERVICE_THREADS * SERVICE_ROUNDS * len(wave)
+    m = svc.metrics()
+    ladder = ladder_clean(svc, "service storm")
+    if bad or m.served != n_q or any(s != sorted(s) for s in seqs):
+        raise SystemExit(f"service storm: {len(bad)} answers differ from "
+                         f"phase 3's ({bad[:5]}), served {m.served} of "
+                         f"{n_q}, or a thread's futures resolved out of "
+                         "order")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"service storm: launches {launches}")
+    for rec in records:
+        if rec["name"] in launches:
+            rec["service_launches"] = {"11a": launches[rec["name"]]}
+    print(f"service storm: {SERVICE_THREADS} threads x {SERVICE_ROUNDS} "
+          f"rounds of the {len(wave)}-query wave = {n_q} queries in "
+          f"{storm_s} s = {n_q / storm_s} queries/s; all bit-identical to "
+          f"phase 3's answers, each thread's futures in order; served "
+          f"{m.served} in {m.batches} waves (mean coalesced batch "
+          f"{m.batch_mean}, max {m.batch_max}); latency p50 "
+          f"{m.latency_p50_ms} ms, p99 {m.latency_p99_ms} ms, mean "
+          f"{m.latency_mean_ms} ms; ladder {ladder}; launches {launches}; "
+          f"waves per backend {waves}")
+    print(f"service energy (the paper's 65-nm SOTB silicon model charged "
+          f"over busy time on the H100, not the H100's energy): active "
+          f"{m.active_joules} J over {m.busy_seconds} s busy + "
+          f"{m.awake_idle_seconds} s awake idle, standby {m.standby_joules} "
+          f"J over {m.standby_seconds} s; {m.energy_per_query_j} J/query")
+    # where the time goes: one more round of every submitter, profiled
+    sec = {}
+
+    def one_round():
+        sec["s"], _, sec["bad"] = storm(1)
+    round_prof = profile(f"one storm round ({SERVICE_THREADS} x {len(wave)} "
+                         "queries through the service)",
+                         *device_profile(torch, one_round))
+    if sec["bad"] or not svc.drain(timeout=600):
+        raise SystemExit(f"service storm, profiled round: answers differ "
+                         f"from phase 3's {sec['bad'][:5]}")
+    storm_m = {"queries": n_q, "storm_s": storm_s, "round_profile":
+               round_prof,
+               "queries_per_s": n_q / storm_s, "served": m.served,
+               "batches": m.batches, "batch_mean": m.batch_mean,
+               "batch_max": m.batch_max, "p50_ms": m.latency_p50_ms,
+               "p99_ms": m.latency_p99_ms, "mean_ms": m.latency_mean_ms,
+               "warmup_dispatches": warm, "warmup_s": warm_s,
+               "launches": launches, "waves": waves, "ladder": ladder,
+               "active_j": m.active_joules, "standby_j": m.standby_joules,
+               "busy_s": m.busy_seconds,
+               "awake_idle_s": m.awake_idle_seconds}
+
+    # ---- 11b. standby, wake, and the one-shot step
+    t0 = time.perf_counter()
+    while svc.state != "standby" and time.perf_counter() - t0 < 30:
+        time.sleep(0.01)
+    m = svc.metrics()
+    if svc.state != "standby" or m.standby_entries < 1:
+        raise SystemExit(f"standby: state {svc.state}, entries "
+                         f"{m.standby_entries} after {time.perf_counter() - t0}"
+                         " s idle")
+    time.sleep(0.05)                       # accrue standby time
+    zero_counts()                          # the wake and the one-shot step
+    row, cnt = svc.submit(mix[4]).result(timeout=120)
+    m = svc.metrics()
+    if not (torch.equal(row, p3_rows[4]) and int(cnt) == p3_counts[4]) \
+            or m.wakes < 1:
+        raise SystemExit(f"wake: answer differs from phase 3's or wakes "
+                         f"{m.wakes}")
+    ladder_clean(svc, "standby")
+    svc.close(timeout=300)
+    print(f"standby: entered after the idle timer (entries "
+          f"{m.standby_entries}), woken by one submission (wakes "
+          f"{m.wakes}), its answer phase 3's; active {m.active_joules} J "
+          f"over {m.busy_seconds + m.awake_idle_seconds} s = "
+          f"{m.active_joules / (m.busy_seconds + m.awake_idle_seconds)} W, "
+          f"standby {m.standby_joules} J over {m.standby_seconds} s = "
+          f"{m.standby_joules / m.standby_seconds} W (silicon model)")
+    step = tstep.make_bitmap_query_step(db)
+    rows, counts = step(wave)
+    torch.cuda.synchronize()
+    step_launches = read_counts("bulk_program", "bitmap_query")
+    step_waves = read_waves("wake and make_bitmap_query_step")
+    step_ladder = ladder_clean(step.service, "make_bitmap_query_step")
+    if not (torch.equal(rows, p3_rows) and torch.equal(counts, p3["counts"])
+            ) or min(step_launches.values()) < 1:
+        raise SystemExit(f"make_bitmap_query_step: rows/counts differ from "
+                         f"phase 3's or launches {step_launches}")
+    step.service.close(timeout=60)
+    print(f"make_bitmap_query_step: the {len(wave)}-query wave "
+          f"bit-identical to phase 3's; ladder {step_ladder}; launches "
+          f"(with the wake) {step_launches}; waves per backend "
+          f"{step_waves}")
+    del rows, counts, step, svc, db
+    repro_torch.engine.batch._AUG_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11c. durable under service
+    n_dur = DURABLE_BLOCKS * BLOCK
+    need = (n_dur * W * 4 + 2 * DURABLE_BLOCKS * M * (BLOCK // 32) * 4
+            + (64 << 20))
+    root = tempfile.mkdtemp(prefix="chip_smoke_service-")
+    free = shutil.disk_usage(root).free
+    try:
+        if free < need:
+            raise SystemExit(f"durable service: needs {need} bytes free "
+                             f"under {root}, {free} are")
+        durable_m = _durable_service(
+            torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+            read_waves, repro_torch, BitmapDB, policy, root, records,
+            sync_times)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    durable_m.update(need_bytes=need, free_bytes=free)
+    print(json.dumps({"service_path": {"storm": storm_m,
+                                       "durable": durable_m}}))
+
+
+def _durable_service(torch, dev, host_blocks, wave, p3, zero_counts,
+                     read_counts, read_waves, repro_torch, BitmapDB, policy,
+                     root, records, sync_times: dict) -> dict:
+    import threading
+    ddb = BitmapDB(num_keys=M, path=root, spill_records=BLOCK, device=dev)
+    svc = ddb.serve(maintenance=True)
+    p3_rows = p3["rows"]
+    done = threading.Event()
+    widths = set()
+
+    def serve(t, seqs, bad):
+        last = False
+        while not last:
+            last = done.is_set()           # one more round after the ends
+            futs = [(i, svc.submit(q)) for i, q in enumerate(wave)]
+            for i, f in futs:
+                row, cnt = f.result(timeout=600)
+                nw = row.shape[0]          # the words the wave's view held
+                want = p3_rows[i][:nw]
+                if not (nw * 32 <= f._n and torch.equal(row, want)
+                        and int(cnt) == int(policy.popcount(want).sum())):
+                    bad.append((t, i, nw, f._n))
+                widths.add(nw)
+                seqs.append(f.resolve_seq)
+            del futs
+
+    threads, seqs, bad = _submitters(DURABLE_THREADS, serve)
+    zero_counts()
+    for th in threads:
+        th.start()
+    append_s = []
+    for blk in host_blocks[:DURABLE_BLOCKS]:
+        t0 = time.perf_counter()
+        ddb.append_encoded(blk)            # the spill goes to the worker
+        append_s.append(time.perf_counter() - t0)
+    done.set()
+    for th in threads:
+        th.join(900)
+    if any(th.is_alive() for th in threads) or not svc.drain(timeout=600):
+        raise SystemExit("durable service: a submitter or the drain hung")
+    if not svc._maint_ex.flush(timeout=900):
+        raise SystemExit("durable service: maintenance did not flush")
+    torch.cuda.synchronize()
+    launches = read_counts("cam_match", "bit_transpose", "bulk_program",
+                           "bitmap_query")
+    waves = read_waves("durable service")
+    m = svc.metrics()
+    st = svc._maint_ex.stats()
+    ladder = ladder_clean(svc, "durable service")
+    svc.close(timeout=600)
+    spills = st["completed"].get("spill", 0)
+    if bad or any(s != sorted(s) for s in seqs):
+        raise SystemExit(f"durable service: {len(bad)} answers differ from "
+                         f"phase 3's masked rows ({bad[:5]}) or a thread's "
+                         "futures resolved out of order")
+    if spills < 3 or st["errors"] or min(launches.values()) < 1:
+        raise SystemExit(f"durable service: {spills} spills, {st['errors']} "
+                         f"maintenance errors, launches {launches}")
+    for rec in records:
+        if rec["name"] in launches:
+            rec.setdefault("service_launches", {})["11c"] = \
+                launches[rec["name"]]
+    print(f"durable service: {DURABLE_BLOCKS} appends of {BLOCK} records "
+          f"with the spill in the background, append wall (host, "
+          f"unsynchronized) {append_s} s, beside phase 8's synchronous WAL "
+          f"append {sync_times['wal_append_s']} s and segment write + "
+          f"commit {sync_times['segment_write_commit_s']} s per block; "
+          f"{DURABLE_THREADS} submitters served {m.served} queries in "
+          f"{m.batches} waves over record counts "
+          f"{sorted(w * 32 for w in widths)}, every answer phase 3's row "
+          f"masked to its wave's count; latency p50 {m.latency_p50_ms} ms, "
+          f"p99 {m.latency_p99_ms} ms; maintenance {st['completed']}, "
+          f"{st['errors']} errors, last {st['last']}; ladder {ladder}; "
+          f"launches {launches}; waves per backend {waves}")
+    del ddb, svc
+    gc.collect()
+    t0 = time.perf_counter()
+    rdb = repro_torch.open(root, num_keys=M, device=dev)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    want = p3["packed"][:, :DURABLE_BLOCKS * BLOCK // 32]
+    if rdb.num_records != DURABLE_BLOCKS * BLOCK or not torch.equal(
+            rdb.index.packed, want):
+        raise SystemExit("durable service: the recovered index differs from "
+                         f"phase 3's first {DURABLE_BLOCKS * BLOCK} records")
+    print(f"durable service: repro_torch.open after close in {recover_s} s "
+          f"({len(rdb.store.segments)} segments): index bit-identical to "
+          f"phase 3's first {DURABLE_BLOCKS * BLOCK} records")
+    del rdb
+    gc.collect()
+    return {"append_s": append_s, "served": m.served, "batches": m.batches,
+            "p50_ms": m.latency_p50_ms, "p99_ms": m.latency_p99_ms,
+            "maintenance": st["completed"], "spills": spills,
+            "launches": launches, "waves": waves, "ladder": ladder,
+            "recover_s": recover_s,
+            "record_counts_seen": sorted(w * 32 for w in widths)}
 
 
 def main() -> int:
@@ -662,6 +1094,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
+    # phases 3-9 run on the port's "cuda" priors (no calibration file);
+    # phase 10 measures one and saves it here, through the port's env var
+    cal_dir = tempfile.mkdtemp(prefix="chip_smoke_calibration-")
+    atexit.register(shutil.rmtree, cal_dir, True)
+    os.environ["REPRO_TORCH_BITMAP_CALIBRATION"] = os.path.join(
+        cal_dir, "bitmap_calibration_torch.json")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_checks import (STACKED_CASES, any_int32_cam_inputs,
@@ -684,13 +1122,28 @@ def main() -> int:
                "bulk_program_stacked": bitmap_ops.bulk_program_stacked,
                "flash_attention_fwd": attention.flash_attention_fwd}
 
+    wave_base = {}
+
     def zero_counts():
         for fn in counted.values():
             fn.launches = 0
+        wave_base.clear()
+        wave_base.update(batch.waves_by_backend())
         torch.cuda.synchronize()
 
     def read_counts(*names):
         return {name: counted[name].launches for name in names}
+
+    def read_waves(label):
+        """The bitmap waves per resolved backend since zero_counts(); fails
+        unless there was one and every one ran on the kernels."""
+        waves = {n: v - wave_base.get(n, 0)
+                 for n, v in batch.waves_by_backend().items()
+                 if v != wave_base.get(n, 0)}
+        if set(waves) != {"cuda"}:
+            raise SystemExit(f"{label}: waves per backend {waves}; every "
+                             "wave must run on the kernels (cuda)")
+        return waves
 
     # ---- 1. device and build ------------------------------------------
     smi = subprocess.run(
@@ -879,13 +1332,15 @@ def main() -> int:
     single = db.query(mix[4])
     single_count = single.count
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    waves = read_waves("main path")
     n = db.num_records
     print(f"main path: {n} records x {M} keys, index "
           f"{tuple(db.index.packed.shape)} words; ingest {ingest_s} s "
           f"= {n / ingest_s} records/s; wave of {len(wave)} queries "
           f"{cold_ms} ms cold, {warm_ms} ms warm (mean of {WARM_WAVES}; "
           f"{len(wave) / warm_ms * 1e3} queries/s)")
-    print(f"launches on the main path: {launches}")
+    print(f"launches on the main path: {launches}; waves per backend "
+          f"{waves}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")
@@ -1254,13 +1709,26 @@ def main() -> int:
     del sv, kernel_logits, prompts, gen
     gc.collect()
     torch.cuda.empty_cache()
-    durable(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
-            kernel, records, repro_torch, BitmapDB, batch, open_index,
-            bitmap_ops, planner)
+    sync_times = durable(torch, dev, host_blocks, wave, p3, zero_counts,
+                         read_counts, read_waves, kernel, records,
+                         repro_torch, BitmapDB, batch, open_index,
+                         bitmap_ops, planner)
 
     # ---- 9. MulticoreRuntime on the card ---------------------------------
     runtime_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
-                 truntime, BICConfig, batch, policy)
+                 read_waves, truntime, BICConfig, batch, policy)
+
+    # ---- 10. the cost model on the card ----------------------------------
+    from repro_torch.engine import costmodel
+    from repro_torch.serve import step as tstep
+    sdb = cost_model_path(torch, dev, host_blocks, wave, mix, composite, p3,
+                          zero_counts, read_counts, read_waves, costmodel,
+                          BitmapDB, args.seed)
+
+    # ---- 11. the service on the card -------------------------------------
+    service_path(torch, dev, sdb, host_blocks, wave, mix, p3, zero_counts,
+                 read_counts, read_waves, repro_torch, BitmapDB, tstep,
+                 policy, records, sync_times)
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -17,6 +17,8 @@ unless the caller asks for ``device="cpu"``::
     db = rt.BitmapDB(schema, path="/data/idx")  # durable: WAL + segments
     ...                                         # crash
     db = rt.open("/data/idx")                   # the same index, recovered
+    with db.serve() as svc:                     # async coalescing service
+        svc.submit(rt.col("city") == "SF").ids
 
 Symbols resolve lazily, so importing ``repro_torch`` alone loads no
 submodule.
@@ -28,9 +30,13 @@ import importlib
 #: facade symbols re-exported at top level -> their home in repro_torch.db
 _DB_EXPORTS = ("BitmapDB", "Schema", "Column", "col", "Result", "open")
 
-_SUBMODULES = ("db", "engine", "store", "core", "kernels", "fault", "obs")
+#: serving-port symbols -> their home in repro_torch.serve.service
+_SERVE_EXPORTS = ("BitmapService", "ServiceConfig")
 
-__all__ = sorted(_DB_EXPORTS) + sorted(_SUBMODULES)
+_SUBMODULES = ("db", "engine", "store", "core", "data", "serve", "kernels",
+               "fault", "obs")
+
+__all__ = sorted(_DB_EXPORTS + _SERVE_EXPORTS) + sorted(_SUBMODULES)
 
 
 def __getattr__(name):
@@ -38,6 +44,9 @@ def __getattr__(name):
         return importlib.import_module(f"{__name__}.{name}")
     if name in _DB_EXPORTS:
         return getattr(importlib.import_module(f"{__name__}.db"), name)
+    if name in _SERVE_EXPORTS:
+        return getattr(
+            importlib.import_module(f"{__name__}.serve.service"), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -22,7 +22,9 @@ One object owns:
     execution runs through the engine's bucketed batch executors.  Results
     come back as lazy :class:`repro_torch.db.Result` handles.
   * **serving** — :meth:`serve_step` wraps the bucketed batch executor as
-    a raw ``(rows, counts)`` step function.
+    a raw ``(rows, counts)`` step function (:mod:`repro_torch.serve.step`
+    routes through it), and :meth:`serve` opens the async
+    :class:`repro_torch.serve.service.BitmapService` over the session.
 
 Read-only sessions wrap an existing index: :meth:`BitmapDB.from_index`
 accepts an in-memory :class:`repro_torch.engine.policy.BitmapIndex` or a
@@ -31,9 +33,11 @@ segment-parallel, stacked into one launch per bucket when word counts are
 uniform).
 
 The session lives on ``device`` (default ``"cuda"``; it raises when no GPU
-is present unless the caller asks for ``"cpu"``), and ``backend="auto"``
-resolves by that device.  :meth:`explain` and :meth:`serve` wait for later
-slices and raise :class:`NotImplementedError` naming the ROADMAP item.
+is present unless the caller asks for ``"cpu"``).  ``backend="auto"`` stays
+unresolved on the query path: the engine's cost model picks per wave from
+the calibration of that device type (:meth:`explain` shows the decision).
+Index creation is one fixed pass per block, so that side pins the
+device's backend (``cuda`` on the card, ``ref`` on the CPU) at once.
 """
 from __future__ import annotations
 
@@ -47,16 +51,12 @@ import torch
 from repro_torch.db import expr as expr_mod
 from repro_torch.db.result import LazyBatch, Result, ResultBatch
 from repro_torch.db.schema import Schema
-from repro_torch.engine import backends, batch as engine_batch, planner, policy
+from repro_torch.engine import (backends, batch as engine_batch, costmodel,
+                                planner, policy)
 from repro_torch.engine.runtime import StreamingIndexer
 from repro_torch.obs import metrics as obs_metrics
 
 SCHEMA_FILE = "SCHEMA.json"
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 def include_exclude_pred(include: Sequence[int] = (),
@@ -95,7 +95,12 @@ class BitmapDB:
                              f"({schema.num_keys} keys)")
         self.schema = schema
         self.device = policy.resolve_device(device)
-        self.backend = backends.resolve_backend(backend, self.device)
+        # "auto" stays UNRESOLVED: the query path hands it to the engine,
+        # where the measured cost model picks per wave.  Index creation is
+        # one fixed pass, so that side pins a concrete backend now.
+        self.backend = ("auto" if backend == "auto"
+                        else backends.resolve_backend(backend, self.device))
+        self._create_backend = backends.resolve_backend(backend, self.device)
         self.path = path
         m = schema.num_keys if schema is not None else int(num_keys)
         self._keys = torch.arange(m, dtype=torch.int32, device=self.device)
@@ -113,7 +118,8 @@ class BitmapDB:
         self._stats_cache: tuple[int, planner.KeyStats] | None = None
         self._view_cache = None            # (buf, n, BitmapIndex) snapshot
         if path is None:
-            self._si = StreamingIndexer(self._keys, backend=self.backend,
+            self._si = StreamingIndexer(self._keys,
+                                        backend=self._create_backend,
                                         capacity_words=capacity_words,
                                         device=self.device)
             return
@@ -122,12 +128,13 @@ class BitmapDB:
         self._persist_schema(path)
         if _restore:
             self._si = StreamingIndexer.restore(
-                store, self._keys, backend=self.backend,
+                store, self._keys, backend=self._create_backend,
                 capacity_words=capacity_words, flush_records=spill_records,
                 device=self.device)
             self._counts = _popcounts(self._si.index.packed)
             return
-        self._si = StreamingIndexer(self._keys, backend=self.backend,
+        self._si = StreamingIndexer(self._keys,
+                                    backend=self._create_backend,
                                     capacity_words=capacity_words,
                                     device=self.device)
         try:
@@ -271,7 +278,7 @@ class BitmapDB:
                              f"{tuple(records.shape)}")
         if records.shape[0]:
             on_card = torch.as_tensor(records).to(self.device).to(torch.int32)
-            block = backends.get_backend(self.backend).create_index(
+            block = backends.get_backend(self._create_backend).create_index(
                 on_card, self._keys)
             self._si.append_indexed(records, block)
             self._counts += _popcounts(block)
@@ -354,15 +361,18 @@ class BitmapDB:
         self._plans_by_id.clear()
         self._stats_cache = None
 
-    @staticmethod
-    def _execute(plans: Sequence, view, pad_output: bool, backend: str
-                 ) -> tuple:
+    def _execute(self, plans: Sequence, view, pad_output: bool,
+                 backend: str) -> tuple:
+        # live sessions hand their exact per-key stats to the cost model
+        # (read-only wrappers only once the caller has paid for .stats)
+        stats = self.stats if self._counts is not None else None
         if hasattr(view, "parts"):              # StoredIndex
             return engine_batch.execute_many_segments(
-                view.parts, plans, backend=backend, device=view.device)
+                view.parts, plans, backend=backend, stats=stats,
+                device=view.device)
         return engine_batch.execute_many(
             view.packed, plans, num_records=view.num_records,
-            backend=backend, pad_output=pad_output)
+            backend=backend, pad_output=pad_output, stats=stats)
 
     def _view(self):
         """Immutable snapshot the lazy batch executes against — a query
@@ -384,7 +394,67 @@ class BitmapDB:
         return self.query_many([q])[0]
 
     def explain(self, q) -> dict:
-        _later("BitmapDB.explain (needs the cost model)", "A5")
+        """How this session would run ``q`` — without running it.
+
+        Returns a plain dict: the cached plan object (``plan``), its
+        lowered pass ``program`` and canonical padded ``bucket_shape``
+        (None for composite fallbacks / contradictions), the KeyStats
+        selectivity estimate (``est_matches`` / ``est_selectivity``, None
+        without stats), the ``backend`` a dispatch would land on right
+        now, and — when the session runs ``auto`` — the full cost-model
+        ``decision``: per-candidate time ``estimates``, the chosen
+        factoring/stacking, and the model's input ``terms``.  Purely
+        observational: no device work, no cache perturbation beyond plan
+        lowering.
+        """
+        pl = self._plan_for(q)
+        view = self._view()
+        if hasattr(view, "parts"):              # StoredIndex
+            segments = len(view.parts)
+            num_words = max((p.shape[1] for p, _ in view.parts), default=0)
+        else:
+            segments = 1
+            num_words = view.packed.shape[1]
+        stats = self.stats if self._counts is not None else None
+        out: dict = {
+            "plan": pl,
+            "program": None,
+            "bucket_shape": None,
+            "num_records": self.num_records,
+            "num_words": num_words,
+            "segments": segments,
+            "est_matches": None,
+            "est_selectivity": None,
+        }
+        if isinstance(pl, planner.CompositePlan):
+            out["fallback"] = "composite"       # served via planner.execute
+        else:
+            prog, shape, _, _ = engine_batch._lowered(pl)
+            out["program"] = prog
+            out["bucket_shape"] = shape
+            if shape is None:
+                out["fallback"] = "contradiction"   # constant all-zeros
+        em = costmodel.estimate_matches([pl], stats)
+        if em is not None:
+            out["est_matches"] = em
+            out["est_selectivity"] = (em / self.num_records
+                                      if self.num_records else 0.0)
+        if self.backend == "auto":
+            decision = costmodel.decide(
+                [pl], num_words=num_words, num_segments=segments,
+                num_keys=self.num_keys, stats=stats, device=self.device)
+            out["backend"] = decision.backend
+            out["decision"] = {
+                "backend": decision.backend,
+                "factor": decision.factor,
+                "stack_uniform": decision.stack_uniform,
+                "estimates": dict(decision.estimates),
+                "terms": dict(decision.terms),
+            }
+        else:
+            out["backend"] = self.backend
+            out["decision"] = None
+        return out
 
     def query_many(self, queries: Sequence, *, pad_output: bool = False,
                    backend: str | None = None) -> ResultBatch:
@@ -422,7 +492,15 @@ class BitmapDB:
         return query_step
 
     def serve(self, **config):
-        _later("BitmapDB.serve (the async service)", "A6")
+        """Open a :class:`repro_torch.serve.service.BitmapService` over this
+        session: an async ``submit()/drain()/close()`` port whose
+        micro-batch scheduler coalesces concurrently submitted queries into
+        the bucketed executors, runs store maintenance (spill / compaction
+        / gc) on a background thread, and duty-cycles into a standby state
+        when idle.  Keyword arguments go to
+        :class:`repro_torch.serve.service.ServiceConfig`."""
+        from repro_torch.serve.service import BitmapService
+        return BitmapService.open(self, **config)
 
     def __repr__(self) -> str:
         mode = ("live" if self._si is not None and self.store is None

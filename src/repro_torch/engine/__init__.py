@@ -1,5 +1,5 @@
 """``repro_torch.engine`` — the execution layer for bitmap indexing (the
-port's twin of ``repro.engine``; the cost model waits for a later slice):
+port's twin of ``repro.engine``):
 
   * :mod:`repro_torch.engine.policy`   — padding/sentinel policy, the tail
     mask, the packed splice, and the :class:`BitmapIndex` container.
@@ -13,6 +13,9 @@ port's twin of ``repro.engine``; the cost model waits for a later slice):
     segment-parallel serving (stacked or per segment).
   * :mod:`repro_torch.engine.bulk`     — whole pass programs as fused
     sweeps (``bulk_program`` kernel on the card, plain sweep on the CPU).
+  * :mod:`repro_torch.engine.costmodel` — measured roofline cost model
+    behind ``backend="auto"``: a persisted per-device-type calibration
+    plus a per-wave decision (backend, factoring, segment stacking).
   * :mod:`repro_torch.engine.runtime`  — streaming, durable append into a
     packed index, and the multi-core runtime with its energy accounting.
 
@@ -23,7 +26,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("policy", "backends", "planner", "batch", "bulk", "runtime")
+_SUBMODULES = ("policy", "backends", "planner", "batch", "bulk",
+               "costmodel", "runtime")
 
 _EXPORTS = {
     # policy
@@ -42,6 +46,11 @@ _EXPORTS = {
     "from_include_exclude": "planner", "KeyStats": "planner",
     # batch
     "execute_many": "batch", "execute_many_segments": "batch",
+    # costmodel
+    "decide": "costmodel", "Decision": "costmodel",
+    "Calibration": "costmodel", "BackendProfile": "costmodel",
+    "get_calibration": "costmodel", "set_calibration": "costmodel",
+    "measure_calibration": "costmodel",
     # runtime
     "StreamingIndexer": "runtime", "MulticoreRuntime": "runtime",
     "multicore_create_index": "runtime",

@@ -26,10 +26,14 @@ Built-ins:
   * ``bulk`` — the plain-torch tiled sweep (whole-bucket ``run_program``).
 
 ``ref`` and ``bulk`` are plain torch on every device, so on the card they
-are the references the kernels are held against.  ``auto`` resolves by the
-device of the index: ``cuda`` on a CUDA device, ``ref`` on the CPU (the
-measured cost model of the reference is not ported yet); with no device it
-resolves for the card, like every entry point of the port.
+are the references the kernels are held against.  ``auto`` without
+workload information resolves by the device of the index: ``cuda`` on a
+CUDA device, ``ref`` on the CPU; with no device it resolves for the card,
+like every entry point of the port.  The workload-aware call sites
+(``planner.execute``, ``engine.batch``, ``repro_torch.db``) instead route
+``auto`` through the measured cost model
+(:mod:`repro_torch.engine.costmodel`), whose only candidate on a CUDA
+device is ``cuda``.
 """
 from __future__ import annotations
 

@@ -45,7 +45,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.engine import backends, planner, policy
+from repro_torch.engine import backends, costmodel, planner, policy
 from repro_torch.fault import seam as _fault_seam
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
@@ -62,6 +62,14 @@ _DISPATCHES = _obs_metrics.GLOBAL.counter(
 _BUILDS = _obs_metrics.GLOBAL.counter(
     "engine_executor_builds_total",
     "bucket executors built (cache misses)")
+#: backend name -> its waves counter (``engine_waves_<name>_total``)
+_BACKEND_WAVES: dict[str, _obs_metrics.Counter] = {}
+
+
+def waves_by_backend() -> dict[str, int]:
+    """Waves served so far in this process, per resolved backend name: on
+    the card, a wave on anything but ``cuda`` ran the plain version."""
+    return {n: c.value for n, c in sorted(_BACKEND_WAVES.items())}
 
 #: One pass: (literals tuple[(key, inverted)], post_invert).  Program:
 #: tuple of groups, each a tuple of passes.
@@ -227,6 +235,13 @@ def _to_plans(predicates: Sequence, m: int,
     return plans
 
 
+def _factored(plans: Sequence) -> list:
+    """The cost model's factoring choice applied to a wave's DNF plans."""
+    return [planner.factor(pl)
+            if isinstance(pl, planner.QueryPlan) and pl.clauses else pl
+            for pl in plans]
+
+
 def _partition(plans: Sequence, m: int, device):
     """Bucket lowered plans by canonical shape and pack the per-bucket
     selector arrays ONCE, on ``device``.
@@ -298,6 +313,11 @@ def _wave(name: str, plans: Sequence, part, run, composite, lead: tuple,
     # fault seam: an injected dispatch error aborts the whole wave here
     _fault_seam.fire("engine.dispatch", backend=name, queries=len(plans))
     _WAVES.inc()
+    waves = _BACKEND_WAVES.get(name)
+    if waves is None:                   # get-or-create: one per name
+        waves = _BACKEND_WAVES.setdefault(name, _obs_metrics.GLOBAL.counter(
+            f"engine_waves_{name}_total", f"waves served on {name}"))
+    waves.inc()
     _QUERIES.add(len(plans))
     ax = len(lead)                      # the query axis
     buckets, zeros, comp = part
@@ -374,7 +394,8 @@ def execute_many(packed: torch.Tensor,
                                             planner.CompositePlan]], *,
                  num_records: int, backend: str = "auto",
                  max_clauses: int | None = planner.DEFAULT_MAX_CLAUSES,
-                 factor: bool = False, pad_output: bool = False
+                 factor: bool = False, pad_output: bool = False,
+                 stats: planner.KeyStats | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Serve a batch of predicate trees (or pre-built plans) over one packed
     (M, Nw) index in a handful of bucket dispatches.
@@ -384,13 +405,28 @@ def execute_many(packed: torch.Tensor,
     loop of :func:`planner.execute`.  ``factor=True`` runs common-clause
     factoring on each DNF plan before lowering.  ``pad_output=True`` pads
     the query axis of BOTH outputs to ``pow2_ceil(Q)`` (rows past Q are
-    unspecified).  ``backend="auto"`` resolves by the index's device."""
+    unspecified).
+
+    ``backend="auto"`` is a *measured* per-wave choice: the lowered plans'
+    padded bucket shapes feed :func:`repro_torch.engine.costmodel.decide`
+    with the calibration of the index's device type, which picks the
+    cheapest candidate backend (on a CUDA device only ``cuda`` is one) and
+    whether common-clause factoring shrinks the streamed words.  ``stats`` (optional KeyStats) only
+    refines the cost terms — never the result bits."""
     m, nw = packed.shape
     plans = _to_plans(predicates, m, max_clauses, factor)
     if not plans:
         return (torch.zeros((0, nw), dtype=torch.int32, device=packed.device),
                 torch.zeros((0,), dtype=torch.int32, device=packed.device))
-    name = backends.resolve_backend(backend, packed.device)
+    if backend == "auto":
+        decision = costmodel.decide(plans, num_words=nw, num_keys=m,
+                                    stats=stats, allow_factor=not factor,
+                                    device=packed.device)
+        name = decision.backend
+        if decision.factor:
+            plans = _factored(plans)
+    else:
+        name = backends.resolve_backend(backend, packed.device)
     return _serve(packed, int(num_records), plans,
                   _partition(plans, m, packed.device), name, pad_output)
 
@@ -430,6 +466,7 @@ def execute_many_segments(parts: Sequence[tuple[torch.Tensor, int]],
                           planner.DEFAULT_MAX_CLAUSES,
                           factor: bool = False,
                           stack_uniform: bool | None = None,
+                          stats: planner.KeyStats | None = None,
                           device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Serve a query batch over an index stored as a chain of packed
     segments covering contiguous record ranges — the durable layout of
@@ -447,10 +484,9 @@ def execute_many_segments(parts: Sequence[tuple[torch.Tensor, int]],
     segments stack into an (S, M, Nw) tensor and each bucket serves ALL
     segments in one stacked executor call (:func:`_serve_stacked`);
     results stay bit-identical to the per-segment path.  ``None`` (the
-    default) stacks.  The port has no cost model yet, so ``backend="auto"``
-    resolves by the parts' device (``cuda`` on a CUDA device, ``ref`` on
-    the CPU) and stacks whenever word counts are uniform, as the
-    reference's explicit backends do.  ``device`` is where an empty chain's
+    default) means: stack for explicit backends, and for ``backend="auto"``
+    let the cost model weigh the stack-copy bytes against the saved
+    per-segment dispatch overheads.  ``device`` is where an empty chain's
     results go (default the card)."""
     parts = [(p, int(n)) for p, n in parts]
     if not parts:
@@ -472,10 +508,21 @@ def execute_many_segments(parts: Sequence[tuple[torch.Tensor, int]],
     if q == 0:
         return (torch.zeros((q, tw), dtype=torch.int32, device=dev),
                 torch.zeros((q,), dtype=torch.int32, device=dev))
-    name = backends.resolve_backend(backend, dev)
-    if stack_uniform is None:
-        stack_uniform = True
     max_bw = max(p.shape[1] for p, _ in parts)
+    if backend == "auto":
+        decision = costmodel.decide(plans, num_words=max_bw,
+                                    num_segments=len(parts), num_keys=m,
+                                    stats=stats, allow_factor=not factor,
+                                    device=dev)
+        name = decision.backend
+        if decision.factor:
+            plans = _factored(plans)
+        if stack_uniform is None:
+            stack_uniform = decision.stack_uniform
+    else:
+        name = backends.resolve_backend(backend, dev)
+        if stack_uniform is None:
+            stack_uniform = True
     part = _partition(plans, m, dev)
     # a fresh buffer no snapshot shares: the per-segment splices go in place
     rows = torch.zeros((q, tw + max_bw + 1), dtype=torch.int32, device=dev)

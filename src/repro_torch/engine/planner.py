@@ -462,8 +462,10 @@ def execute(packed: torch.Tensor, predicate: Union[Pred, AnyPlan], *,
 
     Returns (packed result row (Nw,) int32, matching-record count), with
     tail bits past ``num_records`` masked to zero.  ``backend="auto"``
-    resolves by the index's device (``cuda`` on the card, ``ref`` on the
-    CPU)."""
+    routes through the measured cost model
+    (:mod:`repro_torch.engine.costmodel`) of the index's device type — a
+    per-call choice of the cheapest candidate backend for this plan shape
+    and word count (on a CUDA device, always ``cuda``)."""
     if isinstance(predicate, (QueryPlan, FactoredPlan, CompositePlan)):
         pl = predicate
         mentioned = plan_key_indices(pl)
@@ -472,6 +474,13 @@ def execute(packed: torch.Tensor, predicate: Union[Pred, AnyPlan], *,
         # inside a contradictory/absorbed branch still raises
         mentioned = key_indices(predicate)
         pl = plan(predicate)
-    name = backends.resolve_backend(backend, packed.device)
+    if backend == "auto":
+        from repro_torch.engine import costmodel  # deferred: it imports us
+        name = costmodel.decide([pl], num_words=packed.shape[1],
+                                num_keys=packed.shape[0],
+                                allow_factor=False,
+                                device=packed.device).backend
+    else:
+        name = backends.resolve_backend(backend, packed.device)
     check_key_range(mentioned, packed.shape[0])
     return _run(packed, pl, int(num_records), name)

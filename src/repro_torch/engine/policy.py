@@ -42,6 +42,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def stream_sync(device) -> None:
+    """Wait for the work queued on ``device``'s current stream (nothing to
+    wait for on the CPU): the port's ``block_until_ready``, which also
+    surfaces a kernel fault in the call that queued the kernel."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def mask_tail(result: torch.Tensor, num_records: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Zero bits >= num_records of (..., nw) packed rows (they exist only

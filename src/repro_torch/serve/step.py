@@ -1,8 +1,9 @@
 """Serving steps: batched prefill (last-position logits + a KV cache padded
-to the decode horizon), single-token decode, and a batched greedy loop.
+to the decode horizon), single-token decode, a batched greedy loop, and
+batched structured retrieval over a bitmap index (the paper's query
+workload served through the engine's bucketed batch executor).
 
-The port's twin of the LM half of ``repro.serve.step``;
-``make_bitmap_query_step`` waits for the service (ROADMAP A6)."""
+The port's twin of ``repro.serve.step``."""
 from __future__ import annotations
 
 import torch
@@ -23,6 +24,56 @@ def make_decode_step(cfg: ModelConfig):
         return model_forward(params, cfg, batch["tokens"],
                              cache=batch["cache"], mode="decode")
     return decode_step
+
+
+def make_bitmap_query_step(index, *, backend: str = "auto"):
+    """Batched structured-retrieval step over a bitmap index: the returned
+    ``query_step(queries)`` serves many queries per dispatch (plan-shape
+    bucketing through the :mod:`repro_torch.db` facade) and yields
+    (rows (Q, Nw) int32, counts (Q,) int32) in request order.  Queries are
+    engine predicate trees, pre-built plans, or (when the session carries a
+    schema) ``repro_torch.db`` expressions.
+
+    A thin shim over a synchronous one-shot
+    :class:`repro_torch.serve.service.BitmapService` (``background=False``:
+    no threads, no deferred maintenance — appends keep their synchronous
+    spill semantics): each ``query_step(queries)`` call submits the batch
+    and drains it in coalesced dispatches, bit-identical to the direct
+    ``query_many`` path.  Callers that want cross-caller coalescing,
+    admission control, standby and background maintenance hold the
+    service itself — ``BitmapDB.serve()``.
+
+    ``index`` is a :class:`repro_torch.db.BitmapDB` session (served as-is),
+    an in-memory :class:`repro_torch.engine.policy.BitmapIndex`, or a
+    segment-backed :class:`repro_torch.store.StoredIndex` (served
+    segment-parallel)."""
+    from repro_torch.serve.service import BitmapService, ServiceConfig
+
+    svc = BitmapService.open(index, backend=backend,
+                             config=ServiceConfig(background=False,
+                                                  maintenance=False,
+                                                  pad_output=False,
+                                                  max_batch=1 << 20,
+                                                  max_queue=1 << 20))
+    db = svc.db
+
+    def query_step(queries):
+        futs = [svc.submit(q) for q in queries]
+        svc.drain()
+        if not futs:
+            return db.query_many([]).materialize()
+        rows, counts = futs[0]._rows, futs[0]._counts
+        if rows is not None \
+                and all(f._err is None and f._rows is rows for f in futs) \
+                and [f._qi for f in futs] == list(range(len(futs))):
+            return rows, counts        # one coalesced batch: zero-copy
+        # multiple coalesced batches — or a failed query, which .rows
+        # re-raises here exactly as the direct path does
+        return (torch.stack([f.rows for f in futs]),
+                torch.stack([f.result()[1] for f in futs]))
+
+    query_step.service = svc
+    return query_step
 
 
 def greedy_generate(params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -11,6 +11,12 @@ for bf16 inputs one bf16 ulp at the output's largest magnitude
 bf16 once) and, element by element, ``torch_checks.bf16_attn_err``: one
 bf16 ulp of the element plus 2^-12 of its row's largest magnitude, which a
 kernel that rounds P to bf16 before P V fails.
+
+The serving layer on the card: a four-thread storm through
+``BitmapDB.serve()`` over a 2^20-record index (every answer the ``ref``
+backend's, the fallback ladder never engaged, every wave on the kernels),
+a ``measure_calibration`` that must rank ``cuda`` first, and ``explain``
+on a card session.
 """
 import itertools
 
@@ -184,7 +190,19 @@ def test_stacked_segments_match_per_segment_and_ref(dev):
         assert torch.equal(got[0], other[0]) and torch.equal(got[1], other[1])
 
 
+def _waves_off_the_kernels(before: dict) -> dict:
+    """Waves since ``before`` (a ``waves_by_backend()``) that ran on a
+    backend other than the kernels'."""
+    from repro_torch.engine import batch as tbatch
+    after = tbatch.waves_by_backend()
+    return {n: v - before.get(n, 0) for n, v in after.items()
+            if n != "cuda" and v != before.get(n, 0)}
+
+
 def test_cuda_backend_matches_ref_end_to_end(dev):
+    """An auto session on the card: every wave runs on the kernels (the
+    cost model's only candidate there), bit-identical to ref."""
+    from repro_torch.engine import batch as tbatch
     rng = np.random.default_rng(9)
     db = BitmapDB(num_keys=64, device=dev)
     for n in (1000, 77, 4096):
@@ -195,10 +213,14 @@ def test_cuda_backend_matches_ref_end_to_end(dev):
     preds.append(planner.And(tuple(k(2 * i) | k(2 * i + 1)
                                    for i in range(8))))      # composite
     counts0 = (tbq.bulk_program.launches, tbq.bitmap_query.launches)
+    waves0 = tbatch.waves_by_backend()
     rows, cnt = db.query_many(preds).materialize()
+    single = db.query(preds[0]).count
+    assert _waves_off_the_kernels(waves0) == {}
     rows_ref, cnt_ref = db.query_many(preds, backend="ref").materialize()
     torch.cuda.synchronize()
     assert torch.equal(rows, rows_ref) and torch.equal(cnt, cnt_ref)
+    assert single == int(cnt_ref[0])
     assert tbq.bulk_program.launches > counts0[0]
     assert tbq.bitmap_query.launches > counts0[1]
 
@@ -326,3 +348,98 @@ def test_prefill_launches_the_kernel_once_per_layer(dev):
     torch.cuda.synchronize()
     assert out.shape == (2, 3)
     assert tfa.flash_attention_fwd.launches - before == cfg.num_layers
+
+
+# ------------------------------------------- cost model and service
+def _serving_preds(rng, m, count):
+    k = planner.key
+    out = []
+    for i in range(count):
+        a, b, c = (int(x) for x in rng.integers(0, m, 3))
+        out.append([k(a), k(a) & ~k(b), (k(a) | k(b)) & k(c),
+                    k(a) | k(b) | k(c)][i % 4])
+    out.append(planner.And(tuple(k(2 * i) | k(2 * i + 1)
+                                 for i in range(8))))        # composite
+    return out
+
+
+def test_service_storm_on_the_card(dev):
+    """Four submitter threads against BitmapDB.serve() over a 2^20-record
+    index on an auto session: every answer equals the ref backend's, no
+    wave degraded, retried, isolated or deadline-rejected, the breaker
+    closed and no fallback configured, every wave on the kernels, and the
+    coalesced waves launched the bitmap kernels."""
+    import threading
+    from repro_torch.engine import batch as tbatch
+    rng = np.random.default_rng(31)
+    db = BitmapDB(num_keys=64, device=dev)
+    db.append_encoded(rng.integers(0, 64, (1 << 20, 8), dtype=np.uint8))
+    preds = _serving_preds(rng, 64, 120)
+    want_r, want_c = db.query_many(preds, backend="ref").materialize()
+    n0 = (tbq.bulk_program.launches, tbq.bitmap_query.launches)
+    waves0 = tbatch.waves_by_backend()
+    with db.serve(max_batch=32, max_delay_ms=2.0,
+                  idle_after_ms=1000.0) as svc:
+        outs = [[] for _ in range(4)]
+
+        def caller(t):
+            for i in range(t, len(preds), 4):
+                outs[t].append((i, svc.submit(preds[i])))
+
+        threads = [threading.Thread(target=caller, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+            assert not th.is_alive()
+        assert svc.drain(timeout=120)
+        h = svc.health()
+        assert (h["degraded_waves"], h["fallback_queries"],
+                h["wave_retries"], h["isolated_failures"],
+                h["deadline_rejected"]) == (0, 0, 0, 0, 0)
+        assert h["breaker"]["state"] == "closed"
+        assert h["fallback_backend"] is None
+        assert _waves_off_the_kernels(waves0) == {}
+        for lane in outs:
+            seqs = [f.resolve_seq for _, f in lane]
+            assert seqs == sorted(seqs)
+            for i, f in lane:
+                r, c = f.result(timeout=120)
+                assert torch.equal(r, want_r[i]) and int(c) == int(want_c[i])
+    assert tbq.bulk_program.launches > n0[0]
+    assert tbq.bitmap_query.launches > n0[1]
+
+
+def test_measure_calibration_on_the_card(dev):
+    from repro_torch.engine import costmodel
+    cal = costmodel.measure_calibration(device="cuda", num_records=1 << 20,
+                                        reps=2)
+    assert (cal.platform, cal.source) == ("cuda", "measured")
+    ranked = sorted(cal.profiles, key=lambda kv: -kv[1].words_per_sec)
+    assert ranked[0][0] == "cuda", ranked
+    assert all(p.dispatch_overhead_s > 0 for _, p in cal.profiles)
+
+
+def test_explain_on_a_card_session(dev):
+    """explain on an auto session on the card: the decision of the card's
+    calibration over its one candidate, the kernels, and the one a query
+    then runs."""
+    from repro_torch.engine import costmodel
+    rng = np.random.default_rng(33)
+    db = BitmapDB(num_keys=64, device=dev)
+    db.append_encoded(rng.integers(0, 64, (1 << 20, 8), dtype=np.uint8))
+    q = planner.key(1) & ~planner.key(2)
+    ex = db.explain(q)
+    d = ex["decision"]
+    assert d is not None and d["backend"] == ex["backend"]
+    assert set(d["estimates"]) == set(costmodel.candidates(device=dev)) \
+        == {"cuda"}
+    assert d["backend"] == "cuda"
+    assert ex["num_words"] == (1 << 20) // 32 and ex["segments"] == 1
+    assert ex["est_matches"] is not None
+    want = costmodel.decide([ex["plan"]], num_words=ex["num_words"],
+                            num_keys=64, stats=db.stats, device=dev)
+    assert (want.backend, dict(want.estimates)) == (d["backend"],
+                                                    d["estimates"])
+    assert db.query(q).count == db.query_many([q], backend="ref")[0].count

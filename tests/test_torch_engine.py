@@ -3,10 +3,10 @@ against the JAX package's engine, on the CPU.
 
 Inputs are made with numpy from fixed seeds and fed to both packages; packed
 words and counts must be bit-identical (integers: no tolerance).  The JAX
-side runs its ``ref`` backend (the port's ``auto`` has no cost model, so the
-reference's measured ``auto`` is not what is compared); the port runs each
-of its backends, ``cuda`` included — on CPU tensors its kernel wrappers run
-their plain versions.
+side runs its ``ref`` backend (the cost model behind ``auto`` is held
+against the reference in ``tests/test_torch_costmodel.py``); the port runs
+each of its backends, ``cuda`` included — on CPU tensors its kernel
+wrappers run their plain versions.
 """
 import jax.numpy as jnp
 import numpy as np
