@@ -164,13 +164,42 @@ Phases (any failure exits non-zero and prints no result):
    launch counters are above 0 (``cam_match`` and ``bit_transpose`` too in
    11c).
 
+12. The shard fabric on the card (``repro_torch.fabric``): the 8 phase-3
+   blocks split by ``ShardMap.blocked(4, block_size=2^23)`` (word-aligned,
+   so the merge concatenates).  a: ``FabricClient.local`` over 4
+   ``BitmapDB(device="cuda")`` sessions in this process, each behind a
+   ``BitmapService(max_batch=256, max_delay_ms=2.0)``; phase 3's wave
+   through ``submit_many`` (the composite as its predicate tree, so every
+   shard lowers it to ``bitmap_query`` again) once cold, 3 times warm and 3
+   times count-only, then phase 11a's storm (8 threads x 4 rounds) through
+   the fabric, then one wave profiled (card busy time, idle share, top card
+   operations).  Every merged row and count must be bit-identical to phase
+   3's.  b: ``spawn_shards(4, device="cuda")`` starts 4 worker processes on
+   the one card, each ingesting its 2 blocks at spawn (uint8, cast on the
+   card); ``FabricClient.connect`` over their sockets runs the same waves
+   and storm with the same check; then one exactly-once append of block 0
+   under the next seq, the same envelope resent (it must come back
+   ``duplicate=True``), and ``info()`` must total 9 x 2^22 records; the
+   fleet is closed and every worker must have exited.  Each shard's
+   ``health()`` and ``metrics()``, read over the wire, must show the ladder
+   counters at 0 and the breaker closed; 12a's launches and waves per
+   backend are this process's (zeroed before, read after), 12b's are the
+   workers' own, reported in their ``health()`` (``process``: waves per
+   backend and launch counters, differenced over the waves and storm) and
+   must show every wave on ``cuda`` and the bitmap kernels launched, and the
+   append ``cam_match`` and ``bit_transpose`` in its worker.  Prints the
+   wave ms (full and count-only), storm queries/s, p50/p99 (submit to
+   result, as each submitter sees it), the mean coalesced batch per shard
+   and the spawn seconds.
+
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
 ragged Nw, Q past 65535, every literal inverted).  Each path (phases 3,
 8, 9) is driven with every launch counter set to 0 just before it and read
-just after; so is each of phases 10 and 11's runs (11b's wake and one-shot
-step together).  Each of those runs also fails unless every bitmap wave it
-served ran on ``cuda``, counted per backend like the launches.
+just after; so is each of phases 10, 11 and 12a's runs (11b's wake and
+one-shot step together).  Each of those runs also fails unless every
+bitmap wave it served ran on ``cuda``, counted per backend like the
+launches.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and the result JSON.
@@ -725,7 +754,13 @@ LADDER = ("degraded_waves", "fallback_queries", "wave_retries",
 def ladder_clean(svc, label: str) -> dict:
     """The service's ladder counters and breaker; fails unless every
     counter is 0 and the breaker closed."""
-    h = svc.health()
+    return ladder_of(svc.health(), label)
+
+
+def ladder_of(h: dict, label: str) -> dict:
+    """The ladder counters and breaker of one ``health()`` dict (a
+    service's, or a shard's read over the wire); fails unless every
+    counter is 0 and the breaker closed."""
     got = {k: h[k] for k in LADDER}
     got["breaker"] = h["breaker"]["state"]
     if any(got[k] for k in LADDER) or got["breaker"] != "closed":
@@ -1083,6 +1118,303 @@ def _durable_service(torch, dev, host_blocks, wave, p3, zero_counts,
             "launches": launches, "waves": waves, "ladder": ladder,
             "recover_s": recover_s,
             "record_counts_seen": sorted(w * 32 for w in widths)}
+
+
+FABRIC_SHARDS = 4           # phase 12: shards of BLOCKS / 4 blocks each
+FABRIC_WARM_WAVES = 3       # phase 12: warm fabric waves timed
+
+
+def process_delta(before: dict, after: dict, label: str) -> tuple[dict, dict]:
+    """(waves per backend, launches) of one shard's process between two
+    ``process`` records read over the wire; fails unless there was a wave
+    and every one ran on the kernels (cuda)."""
+    waves = {n: v - before["waves_by_backend"].get(n, 0)
+             for n, v in after["waves_by_backend"].items()
+             if v != before["waves_by_backend"].get(n, 0)}
+    if set(waves) != {"cuda"}:
+        raise SystemExit(f"{label}: process {after['pid']} waves per backend "
+                         f"{waves}; every wave must run on the kernels")
+    return waves, {n: v - before["launches"][n]
+                   for n, v in after["launches"].items()}
+
+
+def fabric_wave(fc, wave, p3_rows, p3_counts, label: str,
+                count_only: bool = False) -> float:
+    """One wave through the fabric, every merged row and count held
+    against phase 3's; returns its wall ms (submit to the last result)."""
+    t0 = time.perf_counter()
+    futs = fc.submit_many(wave, count_only=count_only)
+    out = [f.result(timeout=600) for f in futs]
+    ms = (time.perf_counter() - t0) * 1e3
+    bad = [i for i, (row, cnt) in enumerate(out)
+           if cnt != p3_counts[i] or not (
+               row is None if count_only
+               else row.dtype == np.uint32 and np.array_equal(row,
+                                                              p3_rows[i]))]
+    if bad:
+        raise SystemExit(f"{label}: fabric answers {bad[:5]} differ from "
+                         "phase 3's")
+    return ms
+
+
+def fabric_storm(fc, wave, p3_rows, p3_counts, label: str) -> dict:
+    """SERVICE_THREADS submitters x SERVICE_ROUNDS rounds of the wave
+    through the fabric, every merged row and count held against phase 3's;
+    latency is submit to result as each submitter sees it (it waits on its
+    futures in order)."""
+    def body(t, lat, bad):
+        for r in range(SERVICE_ROUNDS):
+            futs = [(i, time.perf_counter(), fc.submit(q))
+                    for i, q in enumerate(wave)]
+            for i, t0, f in futs:
+                row, cnt = f.result(timeout=600)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if cnt != p3_counts[i] or not np.array_equal(row,
+                                                             p3_rows[i]):
+                    bad.append((t, r, i))
+            del futs
+    before = [(m["served"], m["batches"]) for m in fc.metrics()["shards"]]
+    threads, lats, bad = _submitters(SERVICE_THREADS, body)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    if any(th.is_alive() for th in threads):
+        raise SystemExit(f"{label}: a submitter hung")
+    storm_s = time.perf_counter() - t0
+    n_q = SERVICE_THREADS * SERVICE_ROUNDS * len(wave)
+    lat = np.concatenate([np.asarray(x) for x in lats])
+    if bad or lat.size != n_q:
+        raise SystemExit(f"{label}: {len(bad)} answers differ from phase "
+                         f"3's ({bad[:5]}) or {lat.size} of {n_q} served")
+    after = [(m["served"], m["batches"]) for m in fc.metrics()["shards"]]
+    batch = [(a[0] - b[0]) / max(a[1] - b[1], 1)
+             for a, b in zip(after, before)]
+    return {"queries": n_q, "storm_s": storm_s, "queries_per_s":
+            n_q / storm_s, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "mean_batch_per_shard": batch}
+
+
+def fabric_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+                read_waves, BitmapDB, records) -> None:
+    """Phase 12 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    from repro_torch.fabric import FabricClient, ShardMap, spawn_shards
+    from repro_torch.fabric.envelope import Envelope
+    from repro_torch.serve.service import ServiceConfig
+    per = BLOCKS // FABRIC_SHARDS
+    sm = ShardMap.blocked(FABRIC_SHARDS, block_size=per * BLOCK)
+    gids = [np.arange(s * per * BLOCK, (s + 1) * per * BLOCK, dtype=np.int64)
+            for s in range(FABRIC_SHARDS)]
+    p3_rows = p3["rows"].cpu().numpy().view(np.uint32)
+    p3_counts = p3["counts"].tolist()
+    cfg = {"max_batch": 256, "max_delay_ms": 2.0}
+    bitmap = ("cam_match", "bit_transpose", "bulk_program", "bitmap_query")
+    out = {}
+
+    def waves_and_storm(fc, label: str) -> dict:
+        cold = fabric_wave(fc, wave, p3_rows, p3_counts, label)
+        warm = [fabric_wave(fc, wave, p3_rows, p3_counts, label)
+                for _ in range(FABRIC_WARM_WAVES)]
+        counts_only = [fabric_wave(fc, wave, p3_rows, p3_counts, label,
+                                   count_only=True)
+                       for _ in range(FABRIC_WARM_WAVES)]
+        r = {"wave_ms_cold": cold, "wave_ms_warm": warm,
+             "count_only_wave_ms": counts_only}
+        print(f"{label}: the {len(wave)}-query wave over {FABRIC_SHARDS} "
+              f"shards, every merged row and count bit-identical to phase "
+              f"3's: cold {cold} ms, warm {warm} ms; count-only {counts_only}"
+              " ms")
+        return r
+
+    def storm(fc, label: str) -> dict:
+        r = fabric_storm(fc, wave, p3_rows, p3_counts, label)
+        print(f"{label} storm: {SERVICE_THREADS} threads x {SERVICE_ROUNDS} "
+              f"rounds = {r['queries']} queries in {r['storm_s']} s = "
+              f"{r['queries_per_s']} queries/s, all bit-identical to phase "
+              f"3's; latency (submit to result, as each submitter sees it) "
+              f"p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms; mean coalesced "
+              f"batch per shard {r['mean_batch_per_shard']}")
+        return r
+
+    def shard_reports(fc, label: str) -> tuple[list, list]:
+        """Every shard's health and metrics over the wire, ladder-checked."""
+        health = fc.health()["shards"]
+        metrics = fc.metrics()["shards"]
+        for h, m in zip(health, metrics):
+            ladder_of(h, f"{label}, shard {h['shard_id']}")
+            ladder_of(m["health"], f"{label}, shard {m['shard_id']}")
+        return health, metrics
+
+    # ---- 12a. loopback: four card sessions in this process
+    zero_counts()
+    dbs = []
+    for s in range(FABRIC_SHARDS):
+        db = BitmapDB(num_keys=M, device=dev)
+        for blk in host_blocks[s * per:(s + 1) * per]:
+            db.append_encoded(blk)
+        dbs.append(db)
+    fc = FabricClient.local(dbs, sm, gids=gids,
+                            service_config=ServiceConfig(**cfg), **cfg)
+    try:
+        out["loopback"] = waves_and_storm(fc, "fabric loopback")
+        out["loopback"]["storm"] = storm(fc, "fabric loopback")
+        out["loopback"]["wave_profile"] = profile(
+            f"one fabric wave ({len(wave)} queries, {FABRIC_SHARDS} loopback "
+            "shards)", *device_profile(torch, lambda: fabric_wave(
+                fc, wave, p3_rows, p3_counts, "fabric loopback, profiled")))
+        torch.cuda.synchronize()
+        launches = read_counts(*bitmap)
+        waves = read_waves("fabric loopback")
+        health, metrics = shard_reports(fc, "fabric loopback")
+    finally:
+        fc.close(timeout=300)
+    if min(launches.values()) < 1:
+        raise SystemExit(f"fabric loopback: launches {launches}")
+    for rec in records:
+        if rec["name"] in launches:
+            rec["fabric_launches"] = {"12a": launches[rec["name"]]}
+    out["loopback"].update(
+        launches=launches, waves=waves,
+        process_over_the_wire=health[0]["process"],
+        shard_latency_p50_ms=[m["latency_p50_ms"] for m in metrics],
+        shard_batch_mean=[m["batch_mean"] for m in metrics])
+    print(f"fabric loopback: launches {launches} (ingest of {BLOCKS} blocks "
+          f"into {FABRIC_SHARDS} sessions, then every wave); waves per "
+          f"backend {waves}; over the wire every shard's ladder is 0 and its "
+          f"breaker closed; the process record a shard reports "
+          f"{health[0]['process']}")
+    del dbs, fc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # where a fabric wave's host time goes: one shard's reply through the
+    # codec, and the host OR of one wave's rows into the global rows
+    from repro_torch.fabric.envelope import decode, encode
+    nw = per * BLOCK // 32
+    reply = Envelope("ping").reply(
+        "result", rows=np.ascontiguousarray(p3_rows[:, :nw]),
+        counts=np.zeros(len(wave), np.int64), num_records=per * BLOCK,
+        errors=[])
+    codec = {"encode_s": [], "decode_s": [], "merge_s": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame = encode(reply)
+        codec["encode_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = decode(frame).payload["rows"]
+        codec["decode_s"].append(time.perf_counter() - t0)
+        merged = np.zeros((len(wave), BLOCKS * BLOCK // 32), np.uint32)
+        t0 = time.perf_counter()
+        for s in range(FABRIC_SHARDS):
+            for qi in range(len(wave)):
+                FabricClient._merge_row(merged[qi], back[qi], gids[s],
+                                        per * BLOCK, True)
+        codec["merge_s"].append(time.perf_counter() - t0)
+    codec["frame_bytes"] = len(frame)
+    del frame, back, merged
+    out["loopback"]["host_codec"] = codec
+    print(f"fabric host work: one shard's reply ({len(wave)} rows of {nw} "
+          f"words, {codec['frame_bytes']} bytes) encode {codec['encode_s']} "
+          f"s, decode {codec['decode_s']} s; the OR merge of one wave "
+          f"({FABRIC_SHARDS} x {len(wave)} rows) {codec['merge_s']} s")
+
+    # ---- 12b. four shard processes on the one card
+    t0 = time.perf_counter()
+    fleet = spawn_shards(
+        FABRIC_SHARDS, num_keys=M, service_config=cfg, device="cuda",
+        shard_records=[np.concatenate(host_blocks[s * per:(s + 1) * per])
+                       for s in range(FABRIC_SHARDS)])
+    spawn_s = time.perf_counter() - t0
+    print(f"fabric processes: spawn_shards({FABRIC_SHARDS}, device=cuda) up "
+          f"in {spawn_s} s, each worker having ingested its {per} blocks "
+          f"(uint8, cast on the card); pids {[p.pid for p in fleet.procs]}")
+    try:
+        fc = FabricClient.connect(fleet.addresses, sm, gids=gids, **cfg)
+        try:
+            before, _ = shard_reports(fc, "fabric processes, after spawn")
+            ingest = [{k: b["process"]["launches"][k]
+                       for k in ("cam_match", "bit_transpose")}
+                      for b in before]
+            if min(min(d.values()) for d in ingest) < 1:
+                raise SystemExit(f"fabric processes: the ingest at spawn "
+                                 f"launched {ingest}")
+            out["processes"] = waves_and_storm(fc, "fabric processes")
+            out["processes"]["storm"] = storm(fc, "fabric processes")
+            health, metrics = shard_reports(fc, "fabric processes")
+            per_shard = [process_delta(b["process"], h["process"],
+                                       f"fabric processes, shard {s}")
+                         for s, (b, h) in enumerate(zip(before, health))]
+            launches = {n: sum(d[1][n] for d in per_shard) for n in bitmap}
+            if min(launches[n] for n in ("bulk_program", "bitmap_query")) < 1:
+                raise SystemExit(f"fabric processes: launches {launches}")
+            for s, (w, n) in enumerate(per_shard):
+                print(f"fabric processes, shard {s} (pid "
+                      f"{health[s]['process']['pid']}): waves per backend "
+                      f"{w}; launches {n}; ladder "
+                      f"{ladder_of(health[s], 'fabric processes')}; "
+                      f"service p50 {metrics[s]['latency_p50_ms']} ms, "
+                      f"batch mean {metrics[s]['batch_mean']}")
+            # one exactly-once append: block 0 again under the next seq,
+            # then the same envelope resent, which must be a duplicate
+            shard = int(sm.route(host_blocks[0][:1],
+                                 start_gid=fc.num_records)[0])
+            t0 = time.perf_counter()
+            n = fc.append_encoded(host_blocks[0])
+            append_s = time.perf_counter() - t0
+            seq = fc._next_seq[shard]
+            dup = fc._shard_request(shard, Envelope("append", payload={
+                "stream": fc._stream, "seq": seq,
+                "records": np.asarray(host_blocks[0], np.int32)}),
+                hedge=False)
+            total = sum(p["num_records"] for p in fc.info())
+            want = (BLOCKS + 1) * BLOCK
+            if not dup.payload["duplicate"] or n != want or total != want:
+                raise SystemExit(f"fabric processes: exactly-once append: "
+                                 f"duplicate {dup.payload}, client {n}, "
+                                 f"shards {total}, want {want}")
+            after = fc.health()["shards"]
+            ladder_of(after[shard], "fabric processes, append")
+            app = {k: after[shard]["process"]["launches"][k]
+                   - health[shard]["process"]["launches"][k]
+                   for k in ("cam_match", "bit_transpose")}
+            if min(app.values()) < 1:
+                raise SystemExit(f"fabric processes: the append launched "
+                                 f"{app}")
+            # every worker's counters started at 0 when it spawned
+            lifetime = {n: sum(h["process"]["launches"][n] for h in after)
+                        for n in bitmap}
+            for rec in records:
+                if rec["name"] in lifetime:
+                    rec.setdefault("fabric_launches", {})["12b"] = \
+                        lifetime[rec["name"]]
+            print(f"fabric processes: exactly-once append of block 0 to "
+                  f"shard {shard} (seq {seq}) in {append_s} s, the resent "
+                  f"seq acknowledged duplicate={dup.payload['duplicate']}; "
+                  f"info() totals {total} records = {BLOCKS + 1} x {BLOCK}; "
+                  f"the append launched {app} in that worker; the workers' "
+                  f"launches since spawn (ingest {ingest}, waves, storm, "
+                  f"append) {lifetime}")
+        finally:
+            fc.close(timeout=300)
+    finally:
+        fleet.close(timeout=120)
+    alive = [p.pid for p in fleet.procs if p.is_alive()]
+    if alive:
+        raise SystemExit(f"fabric processes: workers {alive} did not exit")
+    print(f"fabric processes: the fleet closed, all {FABRIC_SHARDS} workers "
+          f"exited (codes {[p.exitcode for p in fleet.procs]})")
+    out["processes"].update(
+        spawn_s=spawn_s, launches=launches, append_s=append_s,
+        ingest_launches=ingest, lifetime_launches=lifetime,
+        per_shard=[{"waves": w, "launches": n} for w, n in per_shard],
+        shard_latency_p50_ms=[m["latency_p50_ms"] for m in metrics],
+        shard_batch_mean=[m["batch_mean"] for m in metrics])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"fabric: phase 12 took {out['phase_s']} s")
+    print(json.dumps({"fabric_path": out}))
 
 
 def main() -> int:
@@ -1729,6 +2061,10 @@ def main() -> int:
     service_path(torch, dev, sdb, host_blocks, wave, mix, p3, zero_counts,
                  read_counts, read_waves, repro_torch, BitmapDB, tstep,
                  policy, records, sync_times)
+
+    # ---- 12. the shard fabric on the card ---------------------------------
+    fabric_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+                read_waves, BitmapDB, records)
 
     print(json.dumps({"kernels": records}))
     print(smi)

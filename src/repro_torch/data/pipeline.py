@@ -18,11 +18,6 @@ deterministic restart (the sampler state is part of the checkpoint), and
 ``store_dir=`` durability (per-shard ``BitmapDB`` stores reload
 CRC-verified instead of re-indexing the corpus).  The shard sessions and
 the batches live on the dataset's ``device`` (default the card).
-
-The one query plane over every shard (:meth:`BitmapIndexedDataset.fabric`,
-:meth:`~BitmapIndexedDataset.select_global`) needs the shard fabric, which
-is not ported yet: both raise :class:`NotImplementedError` naming ROADMAP
-A7.
 """
 from __future__ import annotations
 
@@ -43,11 +38,6 @@ ATTR_WORDS = 8        # attribute words per document "record"
 #: a selection query: a typed repro_torch.db expression or a raw predicate
 #: tree
 Query = Union[Expr, Pred]
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +119,7 @@ class BitmapIndexedDataset:
         self.store_dir = store_dir
         self._shards: dict[int, tuple[np.ndarray, "object"]] = {}
         self._services: dict[int, "object"] = {}
+        self._fabric: "object | None" = None
 
     def _shard_path(self, shard_id: int) -> str:
         return os.path.join(self.store_dir, f"shard-{shard_id:04d}")
@@ -242,20 +233,46 @@ class BitmapIndexedDataset:
 
     # ------------------------------------------------------- fabric plane
     def fabric(self, **kw):
-        """ONE query plane over every corpus shard (the reference's
-        loopback ``FabricClient`` over the per-shard sessions, document
-        gid = ``shard_id * docs_per_shard + local_id``): needs the shard
-        fabric, which is not ported yet."""
-        _later("BitmapIndexedDataset.fabric (the shard fabric)", "A7")
+        """ONE query plane over every corpus shard: a loopback
+        :class:`repro_torch.fabric.client.FabricClient` whose shard map
+        blocks the global document-ordinal space by shard (document gid =
+        ``shard_id * docs_per_shard + local_id``).  A selection submitted
+        here scatters to every per-shard session, executes coalesced on
+        each shard's service scheduler, and merges back OR-spliced on the
+        host — the same ``submit()``/future surface as one
+        :class:`~repro_torch.serve.service.BitmapService`, so callers route
+        unchanged (and the same client drives REAL worker processes via
+        ``FabricClient.connect``).  Don't ingest through it: the corpus
+        shards are append-complete by construction."""
+        if self._fabric is None:
+            from repro_torch.fabric import FabricClient, ShardMap
+            c = self.cfg
+            dbs = [self._ensure_db(s)[1] for s in range(c.num_shards)]
+            sm = ShardMap.blocked(c.num_shards,
+                                  block_size=c.docs_per_shard)
+            gids = [np.arange(s * c.docs_per_shard,
+                              (s + 1) * c.docs_per_shard, dtype=np.int64)
+                    for s in range(c.num_shards)]
+            kw.setdefault("max_delay_ms", 1.0)
+            self._fabric = FabricClient.local(dbs, sm, gids=gids, **kw)
+        return self._fabric
 
     def select_global(self, wheres: Sequence[Query]) -> list[np.ndarray]:
-        """GLOBAL document ids across the whole corpus through
-        :meth:`fabric` (not ported yet)."""
-        _later("BitmapIndexedDataset.select_global (the shard fabric)",
-               "A7")
+        """GLOBAL document ids (gid = shard * docs_per_shard + local)
+        matching each query, across the whole corpus in one
+        scatter/merge per micro-batch wave — equal to concatenating
+        :meth:`select` over shards with the shard offsets added."""
+        fc = self.fabric()
+        futs = fc.submit_many(list(wheres))
+        fc.drain()
+        return [np.asarray(f.ids) for f in futs]
 
     def close(self) -> None:
-        """Close every shard service (drains in-flight selections)."""
+        """Close the fabric and every shard service (drains in-flight
+        selections)."""
+        if self._fabric is not None:
+            self._fabric.close()
+            self._fabric = None
         for svc in self._services.values():
             svc.close()
         self._services.clear()

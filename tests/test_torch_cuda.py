@@ -443,3 +443,50 @@ def test_explain_on_a_card_session(dev):
     assert (want.backend, dict(want.estimates)) == (d["backend"],
                                                     d["estimates"])
     assert db.query(q).count == db.query_many([q], backend="ref")[0].count
+
+
+def test_fabric_host_rows_on_the_card(dev):
+    """The fabric over card sessions: ServiceHost's one-copy row path
+    (the live rows stacked on the card, copied once, viewed as uint32)
+    equals the rows copied one future at a time, a failed query's slot
+    is a zero row, and a blocked two-shard loopback fabric answers
+    bit-identically to one card session with every wave on the kernels."""
+    from repro_torch.fabric import FabricClient, ShardMap
+    from repro_torch.fabric.protocol import _result_payload
+    rng = np.random.default_rng(35)
+    recs = rng.integers(0, 64, (1 << 20, 8), dtype=np.uint8)
+    db = BitmapDB(num_keys=64, device=dev)
+    db.append_encoded(recs)
+    preds = _serving_preds(rng, 64, 40) + [planner.key(10_000)]
+    with db.serve(max_batch=64, max_delay_ms=2.0) as svc:
+        futs = [svc.submit(p) for p in preds]
+        assert svc.drain(timeout=120)
+        out = _result_payload(futs, count_only=False)
+    for qi, f in enumerate(futs[:-1]):
+        r, c = f.result(timeout=120)
+        want = r.cpu().numpy().view(np.uint32)
+        assert np.array_equal(out["rows"][qi, :want.shape[0]], want)
+        assert out["counts"][qi] == int(c)
+    assert not out["rows"][-1].any() and len(out["errors"]) == 1
+    half = 1 << 19
+    shards = []
+    for s in range(2):
+        sdb = BitmapDB(num_keys=64, device=dev)
+        sdb.append_encoded(recs[s * half:(s + 1) * half])
+        shards.append(sdb)
+    gids = [np.arange(s * half, (s + 1) * half, dtype=np.int64)
+            for s in range(2)]
+    from repro_torch.engine import batch as tbatch
+    waves0 = tbatch.waves_by_backend()
+    with FabricClient.local(shards, ShardMap.blocked(2, block_size=half),
+                            gids=gids) as fc:
+        ffuts = fc.submit_many(preds[:-1])
+        assert fc.drain(timeout=120)
+        for f, (r, c) in zip(ffuts, (g.result() for g in futs[:-1])):
+            row, count = f.result(timeout=120)
+            assert np.array_equal(row, r.cpu().numpy().view(np.uint32))
+            assert count == int(c)
+        proc = fc.health()["shards"][0]["process"]
+    assert _waves_off_the_kernels(waves0) == {}
+    assert proc["waves_by_backend"].get("cuda", 0) >= 1
+    assert proc["launches"]["bulk_program"] >= 1

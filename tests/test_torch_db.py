@@ -144,28 +144,48 @@ def _stored(s, tmp_path):
         open_index(SegmentStore(str(tmp_path / "st")), device="cpu"))
 
 
-def _dataset(tmp_path, durable: bool):
-    from repro_torch.data import BitmapIndexedDataset, DataConfig
-    cfg = DataConfig(vocab_size=64, seq_len=8, docs_per_shard=64,
-                     num_shards=2, num_attributes=32)
-    return BitmapIndexedDataset(
-        cfg, store_dir=str(tmp_path / "ds") if durable else None,
-        device="cpu")
+def _dataset(pkg, tmp_path, durable: bool):
+    pipe = __import__(f"{pkg}.data.pipeline", fromlist=["x"])
+    cfg = pipe.DataConfig(vocab_size=64, seq_len=8, docs_per_shard=64,
+                          num_shards=2, num_attributes=32)
+    kw = {"device": "cpu"} if pkg == "repro_torch" else {}
+    return pipe.BitmapIndexedDataset(
+        cfg, store_dir=str(tmp_path / pkg / "ds") if durable else None,
+        **kw)
+
+
+def _fabric_ids(ds, **kw):
+    """Global ids of key(0) through the dataset's fabric client."""
+    fc = ds.fabric(**kw)
+    fut = fc.submit(tplanner.key(0))
+    assert fc.drain(timeout=60)
+    return fut.ids
 
 
 @pytest.mark.parametrize("call", [
-    lambda p: _dataset(p, False).fabric(),
-    lambda p: _dataset(p, False).select_global([tplanner.key(0)]),
-    lambda p: _dataset(p, True).fabric(),
-    lambda p: _dataset(p, True).select_global([tplanner.key(0)]),
-    lambda p: _dataset(p, False).fabric(max_delay_ms=1.0),
-])
-def test_later_slices_raise_not_implemented(call, tmp_path):
-    """The shard fabric (A7) is not ported yet: the data pipeline's one
-    query plane over every shard raises, in memory and durable, with or
-    without the fabric's keywords."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        call(tmp_path)
+    lambda ds: _fabric_ids(ds),
+    lambda ds: ds.select_global([tplanner.key(0)])[0],
+    lambda ds: _fabric_ids(ds),
+    lambda ds: ds.select_global([tplanner.key(0)])[0],
+    lambda ds: _fabric_ids(ds, max_delay_ms=1.0),
+], ids=["fabric", "select_global", "durable-fabric",
+        "durable-select_global", "fabric-kw"])
+def test_pipeline_fabric_plane_matches_reference(call, tmp_path, request):
+    """The data pipeline's one query plane over every shard, in memory
+    and durable, with and without the fabric's keywords: the ids equal
+    the reference pipeline's ``select_global``."""
+    durable = request.node.callspec.id.startswith("durable")
+    ds = _dataset("repro_torch", tmp_path, durable)
+    jds = _dataset("repro", tmp_path, durable)
+    from repro.engine.planner import key as jkey
+    try:
+        got = call(ds)
+        want = jds.select_global([jkey(0)])[0]
+        np.testing.assert_array_equal(got, want)
+        assert got.size and ds.fabric() is ds.fabric()
+    finally:
+        ds.close()
+        jds.close()
 
 
 def test_read_only_session_rejects_appends():
@@ -323,3 +343,22 @@ def test_bitmapdb_end_to_end_acceptance(tmp_path):
     for q, r in zip(jqueries[:50], res):
         want = np.flatnonzero(jtests._ref_eval(q, enc_all, jschema))
         np.testing.assert_array_equal(r.ids, want)
+
+
+def test_quickstart_twin_runs_on_the_cpu():
+    """``examples/quickstart_torch.py --device cpu`` runs to its end (its
+    brute-force and recovery checks are asserts) in a fresh interpreter,
+    importing neither JAX nor the JAX package."""
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "examples", "quickstart_torch.py")
+    code = ("import runpy, sys; sys.argv = [sys.argv[1], '--device', 'cpu']; "
+            "runpy.run_path(sys.argv[0], run_name='__main__'); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')); assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "fabric: 3 hash shards" in out.stdout
+    assert out.stdout.rstrip().endswith("quickstart OK")
