@@ -58,6 +58,38 @@
 //   0).  Queries past S are neither loaded nor stored, keys past S are
 //   loaded as zeros and masked.  The output is acc / max(d, 1e-37), rounded
 //   once to the output type.
+//
+// Both forward kernels also write lse (B, H, S) fp32 = m + ln(l), the
+// natural-log normalizer of the scaled scores, when the caller passes a
+// pointer (training); prefill passes null and writes nothing more.
+//
+// flash_attention_bwd: dq, dk, dv of the same attention from (q, k, v, o,
+// lse, dout), in q's dtype with fp32 accumulation.  Not a TPU kernel: it
+// replaces the plain-JAX backward of flash_attention_vjp
+// (src/repro/models/flash.py::_flash_bwd_dense, under custom_vjp), and
+// computes what it computes: delta = rowsum(dout * o) from o as stored,
+// p = exp(s - lse) recomputed from q * scale and k, dv = p^T dout,
+// ds = p (dout v^T - delta), dq = ds k * scale, dk = ds^T (q * scale).
+// Bound on Hopper: operations.  At the training path's shape (B = 4,
+// S = 2048, H = 28, KV = 4, hd = 128, causal, bf16) it needs five products
+// of the causal half, 2.5x the forward's flops (~3.0e11): 0.30 ms on the
+// tensor cores, against ~0.2 GB of q, k, v, o, dout, lse, dq, dk, dv.
+// Design, simple and deterministic: two launches, fp32 FMAs on the CUDA
+// cores (67 TFLOP/s peak, so ~4.5 ms at best), no floating-point atomics,
+// so two runs are bit-identical.  flash_bwd_dq_kernel: one 256-thread block
+// per (b, h, 64-query tile), longest causal tiles first; it stages q * scale
+// and dout in shared memory as fp32, computes delta of its rows (and writes
+// it for the second launch), then walks the key tiles up to the diagonal:
+// S and dP = dout V^T in 4 x 4 register tiles (the forward's float4 layout),
+// dS through shared memory, dQ += dS K into a 4 x hd/16 accumulator.
+// flash_bwd_dkdv_kernel: one block per (b, KV head, 64-key tile), K and V
+// staged once; it walks the g query heads of the group and, for each, the
+// query tiles from the diagonal down, recomputing S, P and dS per tile as
+// above and adding dV += P^T dout and dK += dS^T (q * scale) into its keys'
+// accumulators, so the GQA sum over the group stays inside one block.
+// Fully masked causal tiles are skipped on both sides; elements past S or
+// above the diagonal have p = 0.  head_dim 256 takes 32 x 32 tiles to fit
+// shared memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,8 +124,9 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
 template <typename T, int HD, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KV, int nq, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int KV, int nq,
+                 int causal, float scale) {
   constexpr int QS = HD + 4;           // padded row strides, 16-byte aligned
   constexpr int VS = HD;
   constexpr int PS = BK + 4;
@@ -245,13 +278,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = tx + 16 * j;
       if (HD >= 16 || c < HD) store1(ob + r * qstride + c, acc[i][j] / den);
     }
+    // natural-log lse of the scaled scores, as the backward recomputes p
+    if (lse != nullptr && tx == 0) lse[bh * S + r] = m[i] + logf(den);
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, long long B,
-           long long S, long long H, long long KV, long long causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           long long B, long long S, long long H, long long KV,
+           long long causal, cudaStream_t stream) {
   constexpr int BK = HD <= 64 ? 64 : 32;
   const size_t smem = sizeof(float) * (size_t)(BQ * (HD + 4) + BK * (HD + 4)
                                                + BK * HD + BQ * (BK + 4));
@@ -263,22 +298,22 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
   const long long blocks = B * H * nq;
   if (blocks > 0x7fffffffLL || S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)S, (int)H, (int)KV,
-      (int)nq, (int)causal, (float)(1.0 / sqrt((double)HD)));
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, (int)S, (int)H,
+      (int)KV, (int)nq, (int)causal, (float)(1.0 / sqrt((double)HD)));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              long long B, long long S, long long H, long long KV,
              long long hd, long long causal, cudaStream_t st) {
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, o, B, S, H, KV, causal, st);
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, causal, st);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, st);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, causal, st);
+    case 8: return launch<T, 8>(q, k, v, o, lse, B, S, H, KV, causal, st);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, KV, causal, st);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, KV, causal, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KV, causal, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, H, KV, causal, st);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, H, KV, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -488,8 +523,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int S, int H, int KV, int BH,
-                int nq, int causal, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+                int H, int KV, int BH, int nq, int causal, float scale_log2) {
   using L = TcLayout<HD>;
   constexpr int NO = HD / 2;           // O accumulators per thread
   constexpr int NS = TC_BK / 2;        // score accumulators per thread
@@ -660,6 +695,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(FULL, l1, off);
   }
   const float r0 = 1.f / fmaxf(l0, 1e-37f), r1 = 1.f / fmaxf(l1, 1e-37f);
+  // natural-log lse of the scaled scores: m is in the log2 domain
+  if (lse != nullptr && (lane & 3) == 0) {
+    constexpr float LN2 = 0.69314718055994531f;
+    float* lb = lse + (long long)bh * S;
+    if (qrow < S) lb[qrow] = m0 * LN2 + logf(fmaxf(l0, 1e-37f));
+    if (qrow + 8 < S) lb[qrow + 8] = m1 * LN2 + logf(fmaxf(l1, 1e-37f));
+  }
   const long long ostride = (long long)H * HD;
   __nv_bfloat16* ob = o + ((long long)b * S * H + h) * HD + ccol;
 #pragma unroll
@@ -718,8 +760,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, long long B, long long S,
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 long long B, long long S, long long H, long long KV,
-                 long long causal, cudaStream_t stream) {
+                 float* lse, long long B, long long S, long long H,
+                 long long KV, long long causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, S, H, HD, TC_BQ)
       || !tensor_map(&tk, k, B, S, KV, HD, TC_BK)
@@ -736,28 +778,399 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)HD));
   kernel<<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, (int)S, (int)H, (int)KV, (int)(B * H),
-      (int)nq, (int)causal, scale_log2);
+      tq, tk, tv, (__nv_bfloat16*)o, lse, (int)S, (int)H, (int)KV,
+      (int)(B * H), (int)nq, (int)causal, scale_log2);
   return (int)cudaGetLastError();
+}
+
+// ---- flash backward: flash_bwd_dq_kernel, flash_bwd_dkdv_kernel ---------
+
+// s[i][j] = A[rows ty*RQ + i] . B[rows tx + 16 j] over HD columns (row
+// stride QS), in fp32 FMAs: the thread's RQ x RK tile of A B^T.
+template <int HD, int QS, int RQ, int RK>
+__device__ __forceinline__ void tile_dot(const float* A, const float* Bm,
+                                         int ty, int tx, float (&s)[RQ][RK]) {
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 a[RQ], c[RK];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) a[i] = load4(A + (ty * RQ + i) * QS + d);
+#pragma unroll
+    for (int j = 0; j < RK; ++j) c[j] = load4(Bm + (tx + 16 * j) * QS + d);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        float t = s[i][j];
+        t = fmaf(a[i].x, c[j].x, t);
+        t = fmaf(a[i].y, c[j].y, t);
+        t = fmaf(a[i].z, c[j].z, t);
+        t = fmaf(a[i].w, c[j].w, t);
+        s[i][j] = t;
+      }
+  }
+}
+
+// rows [r0, r0 + R) of a (B, S, heads, HD) tensor at ``base`` (position
+// stride ``stride``) into shared memory as fp32 times ``mul``, rows past S
+// as zeros.
+template <typename T, int HD, int QS, int R>
+__device__ __forceinline__ void stage(float* dst, const T* base,
+                                      long long stride, int r0, int S,
+                                      float mul, int tid) {
+  constexpr int H4 = HD / 4;
+  for (int i = tid; i < R * H4; i += THREADS) {
+    const int r = i / H4, c = (i % H4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) {
+      x = load4(base + (r0 + r) * stride + c);
+      x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
+    }
+    *reinterpret_cast<float4*>(dst + r * QS + c) = x;
+  }
+}
+
+// p of one score element: exp(s - lse), 0 where masked (a query or key
+// past S, or a key after its query under the causal mask).
+__device__ __forceinline__ float prob(float s, float lse, int row, int col,
+                                      int S, int causal) {
+  const bool masked = row >= S || col >= S || (causal && col > row);
+  return masked ? 0.f : expf(s - lse);
+}
+
+// One block per (b, h, query tile of TQ): delta of its rows (written for
+// the dK/dV launch), then dQ over the key tiles up to the diagonal.
+template <typename T, int HD, int TQ, int TK>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const float* __restrict__ lse, const T* __restrict__ dout,
+                    T* __restrict__ dq, float* __restrict__ delta, int S,
+                    int H, int KV, int nq, int causal, float scale) {
+  constexpr int QS = HD + 4, PS = TK + 4;
+  constexpr int RQ = TQ / 16, RK = TK / 16, NJ = (HD + 15) / 16;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // TQ x QS, q * scale
+  float* Ds = Qs + TQ * QS;                      // TQ x QS, dout
+  float* Ks = Ds + TQ * QS;                      // TK x QS
+  float* Vs = Ks + TK * QS;                      // TK x QS
+  float* Ss = Vs + TK * QS;                      // TQ x PS, dS
+  float* Ls = Ss + TQ * PS;                      // TQ lse
+  float* Es = Ls + TQ;                           // TQ delta
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long BH = (long long)gridDim.x / nq;
+  const long long bh = blockIdx.x % BH;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / BH)) * TQ;   // longest first
+  const long long b = bh / H;
+  const int h = (int)(bh % H);
+  const int kvh = h / (H / KV);
+  const long long qstride = (long long)H * HD, kstride = (long long)KV * HD;
+  const long long qoff = (b * S * H + h) * HD, koff = (b * S * KV + kvh) * HD;
+
+  stage<T, HD, QS, TQ>(Qs, q + qoff, qstride, q0, S, scale, tid);
+  stage<T, HD, QS, TQ>(Ds, dout + qoff, qstride, q0, S, 1.f, tid);
+  __syncthreads();
+  // delta = rowsum(dout * out), out as stored; 16 threads share a row
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int r = ty * RQ + i;
+    float acc = 0.f;
+    if (q0 + r < S)
+      for (int c = 4 * tx; c < HD; c += 64) {
+        const float4 a = load4(o + qoff + (q0 + r) * qstride + c);
+        const float4 d = load4(Ds + r * QS + c);
+        acc = fmaf(a.x, d.x, acc);
+        acc = fmaf(a.y, d.y, acc);
+        acc = fmaf(a.z, d.z, acc);
+        acc = fmaf(a.w, d.w, acc);
+      }
+#pragma unroll
+    for (int off = 8; off >= 1; off >>= 1)
+      acc += __shfl_xor_sync(FULL, acc, off);
+    if (tx == 0) {
+      const bool in = q0 + r < S;
+      Es[r] = acc;
+      Ls[r] = in ? lse[bh * S + q0 + r] : 0.f;
+      if (in) delta[bh * S + q0 + r] = acc;
+    }
+  }
+
+  float acc[RQ][NJ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+
+  const int kend = causal ? min(S, q0 + TQ) : S;
+  for (int k0 = 0; k0 < kend; k0 += TK) {
+    __syncthreads();                   // last tile's K, V, dS reads are done
+    stage<T, HD, QS, TK>(Ks, k + koff, kstride, k0, S, 1.f, tid);
+    stage<T, HD, QS, TK>(Vs, v + koff, kstride, k0, S, 1.f, tid);
+    __syncthreads();
+    float s[RQ][RK], dp[RQ][RK];
+    tile_dot<HD, QS, RQ, RK>(Qs, Ks, ty, tx, s);
+    tile_dot<HD, QS, RQ, RK>(Ds, Vs, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int r = ty * RQ + i;
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const float p = prob(s[i][j], Ls[r], q0 + r, k0 + tx + 16 * j, S,
+                             causal);
+        Ss[r * PS + tx + 16 * j] = p * (dp[i][j] - Es[r]);
+      }
+    }
+    __syncthreads();
+    // dQ += dS K
+#pragma unroll 2
+    for (int kk = 0; kk < TK; kk += 4) {
+      float4 pa[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) pa[i] = load4(Ss + (ty * RQ + i) * PS + kk);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = tx + 16 * j;
+        if (HD >= 16 || c < HD) {
+          const float k0v = Ks[(kk + 0) * QS + c], k1v = Ks[(kk + 1) * QS + c];
+          const float k2v = Ks[(kk + 2) * QS + c], k3v = Ks[(kk + 3) * QS + c];
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) {
+            float t = acc[i][j];
+            t = fmaf(pa[i].x, k0v, t);
+            t = fmaf(pa[i].y, k1v, t);
+            t = fmaf(pa[i].z, k2v, t);
+            t = fmaf(pa[i].w, k3v, t);
+            acc[i][j] = t;
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int r = q0 + ty * RQ + i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = tx + 16 * j;
+      if (HD >= 16 || c < HD)
+        store1(dq + qoff + r * qstride + c, acc[i][j] * scale);
+    }
+  }
+}
+
+// One block per (b, KV head, key tile of TK): dK and dV of its keys, summed
+// over the g query heads of the group and every query tile at or below the
+// diagonal, in that fixed order (no atomics: two runs are bit-identical).
+template <typename T, int HD, int TQ, int TK>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const T* __restrict__ dout, T* __restrict__ dk,
+                      T* __restrict__ dv, int S, int H, int KV, int nk,
+                      int causal, float scale) {
+  constexpr int QS = HD + 4, PS = TK + 4;
+  constexpr int RQ = TQ / 16, RK = TK / 16, NJ = (HD + 15) / 16;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // TQ x QS, q * scale
+  float* Ds = Qs + TQ * QS;                      // TQ x QS, dout
+  float* Ks = Ds + TQ * QS;                      // TK x QS
+  float* Vs = Ks + TK * QS;                      // TK x QS
+  float* Ps = Vs + TK * QS;                      // TQ x PS, P
+  float* Ss = Ps + TQ * PS;                      // TQ x PS, dS
+  float* Ls = Ss + TQ * PS;                      // TQ lse
+  float* Es = Ls + TQ;                           // TQ delta
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long BKV = (long long)gridDim.x / nk;
+  const long long bkv = blockIdx.x % BKV;
+  const int k0 = (int)(blockIdx.x / BKV) * TK;   // causal: longest first
+  const long long b = bkv / KV;
+  const int kvh = (int)(bkv % KV), g = H / KV;
+  const long long qstride = (long long)H * HD, kstride = (long long)KV * HD;
+  const long long koff = (b * S * KV + kvh) * HD;
+
+  stage<T, HD, QS, TK>(Ks, k + koff, kstride, k0, S, 1.f, tid);
+  stage<T, HD, QS, TK>(Vs, v + koff, kstride, k0, S, 1.f, tid);
+
+  float dka[RK][NJ], dva[RK][NJ];
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  const int qstart = causal ? k0 / TQ * TQ : 0;
+  for (int gi = 0; gi < g; ++gi) {
+    const int h = kvh * g + gi;
+    const long long bh = b * H + h;
+    const long long qoff = (b * S * H + h) * HD;
+    for (int q0 = qstart; q0 < S; q0 += TQ) {
+      __syncthreads();                 // last tile's Q, dO, P, dS reads done
+      stage<T, HD, QS, TQ>(Qs, q + qoff, qstride, q0, S, scale, tid);
+      stage<T, HD, QS, TQ>(Ds, dout + qoff, qstride, q0, S, 1.f, tid);
+      for (int r = tid; r < TQ; r += THREADS) {
+        const bool in = q0 + r < S;
+        Ls[r] = in ? lse[bh * S + q0 + r] : 0.f;
+        Es[r] = in ? delta[bh * S + q0 + r] : 0.f;
+      }
+      __syncthreads();
+      float s[RQ][RK], dp[RQ][RK];
+      tile_dot<HD, QS, RQ, RK>(Qs, Ks, ty, tx, s);
+      tile_dot<HD, QS, RQ, RK>(Ds, Vs, ty, tx, dp);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const int r = ty * RQ + i;
+#pragma unroll
+        for (int j = 0; j < RK; ++j) {
+          const int c = tx + 16 * j;
+          const float p = prob(s[i][j], Ls[r], q0 + r, k0 + c, S, causal);
+          Ps[r * PS + c] = p;
+          Ss[r * PS + c] = p * (dp[i][j] - Es[r]);
+        }
+      }
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T (q * scale): this thread's keys
+      // ty*RK .. + RK - 1, columns tx + 16 j
+#pragma unroll 2
+      for (int r = 0; r < TQ; ++r) {
+        float pr[RK], sr[RK];
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          pr[i] = Ps[r * PS + ty * RK + i];
+          sr[i] = Ss[r * PS + ty * RK + i];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c = tx + 16 * j;
+          if (HD >= 16 || c < HD) {
+            const float dov = Ds[r * QS + c], qv = Qs[r * QS + c];
+#pragma unroll
+            for (int i = 0; i < RK; ++i) {
+              dva[i][j] = fmaf(pr[i], dov, dva[i][j]);
+              dka[i][j] = fmaf(sr[i], qv, dka[i][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int r = k0 + ty * RK + i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = tx + 16 * j;
+      if (HD >= 16 || c < HD) {
+        store1(dk + koff + r * kstride + c, dka[i][j]);
+        store1(dv + koff + r * kstride + c, dva[i][j]);
+      }
+    }
+  }
+}
+
+// Both backward launches: dQ (and delta) first, then dK / dV, which read
+// delta.  Tiles of 64 x 64 (32 x 32 at head_dim 256, for shared memory).
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const float* lse, const void* dout, void* dq, void* dk,
+               void* dv, float* delta, long long B, long long S, long long H,
+               long long KV, long long causal, cudaStream_t stream) {
+  constexpr int TB = HD > 128 ? 32 : 64;
+  constexpr int QS = HD + 4, PS = TB + 4;
+  const size_t smem_dq = sizeof(float) * ((size_t)4 * TB * QS + TB * PS
+                                          + 2 * TB);
+  const size_t smem_kv = sizeof(float) * ((size_t)4 * TB * QS + 2 * TB * PS
+                                          + 2 * TB);
+  auto kdq = flash_bwd_dq_kernel<T, HD, TB, TB>;
+  auto kkv = flash_bwd_dkdv_kernel<T, HD, TB, TB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  const long long nt = (S + TB - 1) / TB;
+  if (B * H * nt > 0x7fffffffLL || S > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  kdq<<<(unsigned)(B * H * nt), THREADS, smem_dq, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, lse,
+      (const T*)dout, (T*)dq, delta, (int)S, (int)H, (int)KV, (int)nt,
+      (int)causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kkv<<<(unsigned)(B * KV * nt), THREADS, smem_kv, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, lse, delta, (const T*)dout,
+      (T*)dk, (T*)dv, (int)S, (int)H, (int)KV, (int)nt, (int)causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
+                 const float* lse, const void* dout, void* dq, void* dk,
+                 void* dv, float* delta, long long B, long long S, long long H,
+                 long long KV, long long hd, long long causal,
+                 cudaStream_t st) {
+  switch (hd) {
+#define BWD(HD)                                                             \
+  case HD:                                                                  \
+    return launch_bwd<T, HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, \
+                             H, KV, causal, st);
+    BWD(8) BWD(16) BWD(32) BWD(64) BWD(128) BWD(256)
+#undef BWD
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" int flash_attention_fwd_launch(
-    const void* q, const void* k, const void* v, void* o, long long B,
-    long long S, long long H, long long KV, long long hd, long long causal,
-    long long bf16, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long B, long long S, long long H, long long KV, long long hd,
+    long long causal, long long bf16, void* stream) {
   if (B == 0 || S == 0 || H == 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;              // (B, H, S) fp32, or null: not written
   // both kernels read 16-byte pieces (TMA boxes, float4 / 8-byte loads)
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   // bf16 at head_dim 64 / 128 goes to the tensor cores
   if (bf16 && hd == 128)
-    return launch_wgmma<128>(q, k, v, o, B, S, H, KV, causal, st);
+    return launch_wgmma<128>(q, k, v, o, l, B, S, H, KV, causal, st);
   if (bf16 && hd == 64)
-    return launch_wgmma<64>(q, k, v, o, B, S, H, KV, causal, st);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal, st)
-              : dispatch<float>(q, k, v, o, B, S, H, KV, hd, causal, st);
+    return launch_wgmma<64>(q, k, v, o, l, B, S, H, KV, causal, st);
+  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd, causal,
+                                        st)
+              : dispatch<float>(q, k, v, o, l, B, S, H, KV, hd, causal, st);
+}
+
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* delta, long long B, long long S, long long H, long long KV,
+    long long hd, long long causal, long long bf16, void* stream) {
+  if (B == 0 || S == 0 || H == 0) return (int)cudaGetLastError();
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  // the kernels read 16-byte (fp32) or 8-byte (bf16) pieces
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o
+       | (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv
+       | (uintptr_t)lse | (uintptr_t)delta) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  float* e = (float*)delta;
+  return bf16 ? dispatch_bwd<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, e,
+                                            B, S, H, KV, hd, causal, st)
+              : dispatch_bwd<float>(q, k, v, o, l, dout, dq, dk, dv, e, B, S,
+                                    H, KV, hd, causal, st);
 }

@@ -43,14 +43,18 @@ SIGNATURES = {
                              (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _P)),
     "flash_attention_fwd": ("flash_attention_fwd_launch",
-                            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+                            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P)),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            (_P,) * 10 + (_I,) * 7 + (_P,)),
 }
 
 #: which source file holds each kernel
 SOURCES = {"cam_match": "cam_match.cu", "bit_transpose": "bit_transpose.cu",
            "bitmap_query": "bitmap_ops.cu", "bulk_program": "bitmap_ops.cu",
            "bulk_program_stacked": "bitmap_ops.cu",
-           "flash_attention_fwd": "attention.cu"}
+           "flash_attention_fwd": "attention.cu",
+           "flash_attention_bwd": "attention.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}       # source file -> loaded library

@@ -1,5 +1,6 @@
-"""Flash-attention forward: the ``flash_attention_fwd`` CUDA kernel
-(``csrc/attention.cu``) and its plain-torch version.
+"""Flash attention on the card: the ``flash_attention_fwd`` and
+``flash_attention_bwd`` CUDA kernels (``csrc/attention.cu``), each beside
+its plain-torch version.
 
 Online-softmax attention, causal or full, scale 1/sqrt(hd), fp32
 accumulation, output in q's dtype.  Two layouts, one entry point:
@@ -16,8 +17,17 @@ copies, P carried as a bf16 hi + lo pair); fp32 inputs and the other head
 dims run on the CUDA cores (``flash_fwd_kernel``: fp32 FMAs, which keep
 fp32 within the reference test's atol of 2e-5).
 
-Replaces ``src/repro/kernels/attention.py::flash_attention_fwd``; the source
-note in the ``.cu`` file gives the kernels' bound and design.
+The forward also returns lse (B, H, S) fp32, the natural-log normalizer of
+the scaled scores, when asked (``return_lse=True``: the training path).  The
+backward takes (q, k, v, out, lse, dout) in the model layout and returns
+dq, dk, dv in q's dtype (fp32 accumulation, two launches, no atomics, so
+bit-identical from run to run).
+
+The forward replaces ``src/repro/kernels/attention.py::flash_attention_fwd``;
+the backward replaces the plain-JAX backward of
+``repro.models.flash.flash_attention_vjp`` (``_flash_bwd_dense``), which is
+no TPU kernel.  The source note in the ``.cu`` file gives each kernel's
+bound and design.
 """
 from __future__ import annotations
 
@@ -41,10 +51,12 @@ def _model_layout(q, k, v):
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *, causal: bool = True
-                              ) -> torch.Tensor:
+                              v: torch.Tensor, *, causal: bool = True,
+                              return_lse: bool = False):
     """The plain-torch version: per query head, fp32
-    ``softmax(q k^T * scale + mask) v``, the mask at ``NEG_INF``."""
+    ``softmax(q k^T * scale + mask) v``, the mask at ``NEG_INF``; with
+    ``return_lse``, also the logsumexp of each masked score row, (B, H, S)
+    fp32 ((BH, S) for 3-D inputs)."""
     q4, k4, v4, flat = _model_layout(q, k, v)
     B, S, H, hd = q4.shape
     g = H // k4.shape[2]
@@ -53,19 +65,35 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     if causal:
         keep = keep.tril()
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     for h in range(H):
         qh = q4[:, :, h].float() * scale
         s = qh @ k4[:, :, h // g].float().transpose(1, 2)
-        p = torch.softmax(s.masked_fill(~keep, NEG_INF), dim=-1)
-        out[:, :, h] = (p @ v4[:, :, h // g].float()).to(q.dtype)
-    return out[:, :, 0] if flat else out
+        s = s.masked_fill(~keep, NEG_INF)
+        out[:, :, h] = (torch.softmax(s, dim=-1)
+                        @ v4[:, :, h // g].float()).to(q.dtype)
+        lse[:, h] = torch.logsumexp(s, dim=-1)
+    if flat:
+        out, lse = out[:, :, 0], lse[:, 0]
+    return (out, lse) if return_lse else out
+
+
+def _card_checks(name: str, hd: int, tensors) -> None:
+    """What the kernels take beyond the plain version: a head_dim they are
+    instantiated for, contiguous and 16-byte aligned tensors."""
+    _build.require(name, hd in HEAD_DIMS,
+                   f"head_dim {hd} not in {HEAD_DIMS}")
+    _build.require(name, all(t.is_contiguous() for t in tensors),
+                   "inputs must be contiguous")
+    _build.require(name, all(t.data_ptr() % 16 == 0 for t in tensors),
+                   "inputs must be 16-byte aligned")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, block_q: int = 256,
-                        block_k: int = 256) -> torch.Tensor:
+                        block_k: int = 256, return_lse: bool = False):
     """Launch the kernel on CUDA tensors; run the plain version on CPU
-    tensors.  Takes q/k/v of one dtype (fp32 or bf16), either (BH, S, hd)
+    tensors.  Returns the output, or (output, lse) with ``return_lse``.  Takes q/k/v of one dtype (fp32 or bf16), either (BH, S, hd)
     each or q (B, S, H, hd) with k/v (B, S, KV, hd); on the card they must be
     contiguous and 16-byte aligned, with hd in :data:`HEAD_DIMS`.
     ``block_q``/``block_k`` are the reference kernel's tile sizes: checked,
@@ -91,21 +119,105 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    and KV >= 1 and H % KV == 0,
                    f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if not card:
-        return flash_attention_fwd_plain(q, k, v, causal=causal)
-    _build.require(name, hd in HEAD_DIMS,
-                   f"head_dim {hd} not in {HEAD_DIMS}")
-    _build.require(name, q.is_contiguous() and k.is_contiguous()
-                   and v.is_contiguous(), "q/k/v must be contiguous")
-    _build.require(name, all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-                   "q/k/v must be 16-byte aligned")
+        return flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         return_lse=return_lse)
+    _card_checks(name, hd, (q, k, v))
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = _build.library(name)
     _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                    _build.ptr(out), B, S, H, KV, hd, int(causal),
-                    int(q.dtype == torch.bfloat16),
+                    _build.ptr(out),
+                    None if lse is None else _build.ptr(lse), B, S, H, KV,
+                    hd, int(causal), int(q.dtype == torch.bfloat16),
                     _build.stream(q.device)), name)
     flash_attention_fwd.launches += 1
-    return out
+    if not return_lse:
+        return out
+    return out, (lse[:, 0] if q.dim() == 3 else lse)
 
 
 flash_attention_fwd.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True, kv_chunk: int = 512):
+    """The plain-torch version: the chunked twin of the reference's
+    ``_flash_bwd_dense`` in fp32, ``kv_chunk`` keys at a time (memory
+    O(S * kv_chunk) per head).  delta = rowsum(dout * out), p = exp(q k^T *
+    scale - lse) masked, dv = p^T dout, ds = p (dp - delta), dq = ds k *
+    scale, dk = ds^T q * scale; dq, dk, dv in q's, k's and v's dtypes."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qs = q.float().reshape(B, S, KV, g, hd) * scale
+    do = dout.float().reshape(B, S, KV, g, hd)
+    delta = torch.einsum("bqkgh,bqkgh->bkgq", do,
+                         out.float().reshape(B, S, KV, g, hd))
+    lse_ = lse.float().reshape(B, KV, g, S)
+    q_pos = torch.arange(S, device=q.device)
+    dq = torch.zeros((B, S, KV, g, hd), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, S, KV, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for k0 in range(0, S, kv_chunk):
+        kj = k[:, k0:k0 + kv_chunk].float()
+        vj = v[:, k0:k0 + kv_chunk].float()
+        s = torch.einsum("bqkgh,bckh->bkgqc", qs, kj)
+        p = torch.exp(s - lse_[..., None])
+        if causal:
+            k_pos = k0 + torch.arange(kj.shape[1], device=q.device)
+            p = p.masked_fill(k_pos[None, :] > q_pos[:, None], 0.0)
+        dv[:, k0:k0 + kv_chunk] = torch.einsum("bkgqc,bqkgh->bckh", p, do)
+        dp = torch.einsum("bqkgh,bckh->bkgqc", do, vj)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bkgqc,bckh->bqkgh", ds, kj)
+        dk[:, k0:k0 + kv_chunk] = torch.einsum("bkgqc,bqkgh->bckh", ds, qs)
+    dq = (dq * scale).reshape(B, S, H, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True):
+    """dq, dk, dv of :func:`flash_attention_fwd` in the model layout: q, out,
+    dout (B, S, H, hd), k/v (B, S, KV, hd) of one dtype, lse (B, H, S) fp32
+    as the forward returned it.  Launches the kernel on CUDA tensors (both
+    of its launches count as one), runs the plain version on CPU tensors."""
+    name = "flash_attention_bwd"
+    card = _build.on_card(name, q, k, v, out, lse, dout)
+    _build.require(name, q.dtype in DTYPES and all(
+        t.dtype == q.dtype for t in (k, v, out, dout)),
+                   f"q/k/v/out/dout must share one dtype of {DTYPES}")
+    _build.require(name, lse.dtype == torch.float32, "lse must be fp32")
+    _build.require(name, q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
+                   and out.shape == q.shape and dout.shape == q.shape,
+                   f"want q/out/dout (B, S, H, hd) and k/v (B, S, KV, hd), "
+                   f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                   f"{tuple(out.shape)}, {tuple(dout.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    _build.require(name, k.shape[:2] == (B, S) and k.shape[3] == hd
+                   and KV >= 1 and H % KV == 0 and lse.shape == (B, H, S),
+                   f"k/v {tuple(k.shape)} or lse {tuple(lse.shape)} do not "
+                   f"fit q {tuple(q.shape)}")
+    if not card:
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal)
+    _card_checks(name, hd, (q, k, v, out, lse, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    fn = _build.library(name)
+    _build.check(fn(*(_build.ptr(t) for t in (q, k, v, out, lse, dout, dq, dk,
+                                              dv, delta)),
+                    B, S, H, KV, hd, int(causal),
+                    int(q.dtype == torch.bfloat16),
+                    _build.stream(q.device)), name)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,5 +1,5 @@
 """The dense decoder: schema-driven parameters as ``nn.Module``s, and the
-forward in prefill and decode mode.
+forward in train, prefill and decode mode.
 
 The port's twin of ``repro.models.model``.  Parameter names are the schema's
 keys: ``embed``, ``final_norm``, ``lm_head`` at the top and ``layers.<i>.<key>``
@@ -13,20 +13,30 @@ fp32, so this computes the same thing at half the memory).
 Prefill attention runs the flash kernel (``models.flash``); decode writes the
 new position into the KV cache in place (saving a copy of the whole cache per
 step, where the reference returns an updated copy) and attends with the plain
-``decode_attention``.  Ported: the dense families with ``qkv_bias``,
-``qk_norm``, ``parallel_block``, ``logit_softcap``, tied and untied heads,
-silu/geglu/gelu.  MoE, SSM, hybrid, enc-dec, VLM, sliding windows and the
-training mode raise ``NotImplementedError`` naming their ROADMAP item; the
-sharding constraints of the reference are identities on one card and are
-dropped.
+``decode_attention``.  Training (``mode="train"``, autograd on) runs
+attention through ``flash_attention_vjp`` (the forward and backward kernels)
+and, unless ``cfg.remat == "none"``, each layer under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): ``"full"``
+saves each layer's input only, ``"dots"`` also the weight products' outputs
+(a selective-checkpoint policy on ``aten.mm``).  Training holds fp32 master
+weights (``init_params(..., dtype=torch.float32)``), cast to the compute
+dtype at use as the reference does; serving keeps bf16 storage.  Ported: the
+dense families with ``qkv_bias``, ``qk_norm``, ``parallel_block``,
+``logit_softcap``, tied and untied heads, silu/geglu/gelu.  MoE, SSM,
+hybrid, enc-dec, VLM and sliding windows raise ``NotImplementedError``
+naming their ROADMAP item; the sharding constraints of the reference are
+identities on one card and are dropped (``param_logical`` keeps their names).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.engine.policy import resolve_device
 from repro_torch.models import flash
@@ -34,6 +44,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnMask, apply_rope,
                                        decode_attention, mlp, rms_norm,
                                        rope_angles)
+from repro_torch.models.loss import fused_ce_loss
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -63,6 +74,24 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ----------------------------------------------------------------- schema
+#: the reference's logical axis names per parameter (per-layer tensors lead
+#: with the stacked L axis, None): on one card every sharding constraint they
+#: drive is an identity, so they serve parity only (:func:`param_logical`)
+LOGICAL = {
+    "embed": ("vocab", "fsdp"), "final_norm": (None,),
+    "lm_head": ("fsdp", "vocab"), "ln1": (None, None), "ln2": (None, None),
+    "wq": (None, "fsdp", "heads", "head_dim"),
+    "wk": (None, "fsdp", "kv_heads", "head_dim"),
+    "wv": (None, "fsdp", "kv_heads", "head_dim"),
+    "wo": (None, "heads", "head_dim", "fsdp"),
+    "bq": (None, "heads", "head_dim"), "bk": (None, "kv_heads", "head_dim"),
+    "bv": (None, "kv_heads", "head_dim"),
+    "q_norm": (None, None), "k_norm": (None, None),
+    "w_gate": (None, "fsdp", "mlp"), "w_in": (None, "fsdp", "mlp"),
+    "w_out": (None, "mlp", "fsdp"),
+}
+
+
 def _schema(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], float]]:
     """name -> (shape, init scale) of the dense decoder.  Per-layer tensors
     are stacked on a leading L axis, as in the reference's schema."""
@@ -139,13 +168,18 @@ class DecoderLayer(nn.Module):
             cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
             out = decode_attention(q, cache_k, cache_v,
                                    AttnMask(True, None, pos, pos + 1))
+        elif mode == "train":
+            skip = cfg.flash_block_skip
+            out = self.attn_core(q, k, v, causal=True, train=True,
+                                 block_skip=skip,
+                                 kv_chunk=512 if skip else 1024)
         else:
             out = self.attn_core(q, k, v, causal=True)
             cache_k[:, :S] = k.to(cache_k.dtype)
             cache_v[:, :S] = v.to(cache_v.dtype)
         return out.reshape(B * S, H * hd) @ self.wo.to(dt).reshape(H * hd, d)
 
-    def forward(self, x, angles, mode, cache_k, cache_v, pos):
+    def forward(self, x, angles, mode, cache_k=None, cache_v=None, pos=0):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         mix = self._attention(h, angles, mode, cache_k, cache_v,
@@ -183,7 +217,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     """A :class:`Model` with the reference's init rule (normal * scale, zero
     where the scale is 0) drawn from a ``torch.Generator`` on ``device``
     seeded with ``seed``, on ``device`` (the card unless the caller asks for
-    the CPU).  The numbers differ from ``jax.random``'s."""
+    the CPU).  The numbers differ from ``jax.random``'s.  ``dtype`` is the
+    storage of matrices, embedding and biases (default the compute dtype;
+    training passes ``torch.float32`` for fp32 master weights)."""
     dev = resolve_device(device)
     dtype = COMPUTE_DTYPE if dtype is None else dtype
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -218,6 +254,55 @@ def params_from_numpy(cfg: ModelConfig, params: dict, *, device="cuda",
     return Model(cfg, tensors)
 
 
+def stack_layers(cfg: ModelConfig, named: dict) -> dict[str, torch.Tensor]:
+    """Tensors keyed by :class:`Model` parameter name (``embed``,
+    ``layers.<i>.<key>``) -> the reference's flat names, per-layer tensors
+    stacked on a leading L axis (a copy, on their device)."""
+    out = {}
+    for name in _schema(cfg):
+        if name in GLOBAL_KEYS:
+            out[name] = named[name]
+        else:
+            out[name] = torch.stack([named[f"layers.{i}.{name}"]
+                                     for i in range(cfg.num_layers)])
+    return out
+
+
+def unstack_layers(cfg: ModelConfig, flat: dict) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`stack_layers`: the reference's flat names ->
+    :class:`Model` parameter names (per-layer views of the stacked
+    tensors)."""
+    out = {}
+    for name in _schema(cfg):
+        if name in GLOBAL_KEYS:
+            out[name] = flat[name]
+        else:
+            for i in range(cfg.num_layers):
+                out[f"layers.{i}.{name}"] = flat[name][i]
+    return out
+
+
+def params_to_numpy(params: Model) -> dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_numpy`: the reference's flat
+    parameter dict, fp32 numpy arrays with per-layer tensors stacked on the
+    L axis."""
+    named = {n: p.detach() for n, p in params.named_parameters()}
+    return {name: t.float().cpu().numpy()
+            for name, t in stack_layers(params.cfg, named).items()}
+
+
+def abstract_params(cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """fp32 tensors on the meta device in the reference's flat, stacked
+    layout: shapes and dtypes, no allocation."""
+    return {name: torch.empty(shape, dtype=torch.float32, device="meta")
+            for name, (shape, _) in _schema(cfg).items()}
+
+
+def param_logical(cfg: ModelConfig) -> dict[str, tuple]:
+    """The reference's logical axis names per parameter (:data:`LOGICAL`)."""
+    return {name: LOGICAL[name] for name in _schema(cfg)}
+
+
 # ------------------------------------------------------------------ caches
 def _empty_caches(cfg: ModelConfig, batch: int, length: int,
                   device) -> dict[str, torch.Tensor]:
@@ -238,45 +323,114 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 # ----------------------------------------------------------------- forward
+def _remat_context(cfg: ModelConfig):
+    """``context_fn`` of ``torch.utils.checkpoint`` for ``cfg.remat``:
+    ``"full"`` saves nothing inside the layer (the default contexts);
+    ``"dots"`` saves the outputs of the weight products (``aten.mm``, the
+    reference's ``dots_with_no_batch_dims_saveable``) and recomputes the
+    rest, attention included."""
+    if cfg.remat != "dots":
+        return torch_checkpoint.noop_context_fn
+    policy_cls = torch_checkpoint.CheckpointPolicy
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (policy_cls.MUST_SAVE if op in saved
+                else policy_cls.PREFER_RECOMPUTE)
+    return functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts, policy)
+
+
+def _train_layers(params: Model, cfg: ModelConfig, x, angles):
+    """The layer stack with autograd on, each layer under
+    ``torch.utils.checkpoint`` unless ``cfg.remat == "none"``."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got "
+                         f"{cfg.remat!r}")
+    for layer in params.layers:
+        if cfg.remat == "none":
+            x = layer(x, angles, "train")
+        else:
+            x = torch_checkpoint.checkpoint(
+                layer, x, angles, "train", use_reentrant=False,
+                context_fn=_remat_context(cfg))
+    return x
+
+
 def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
                   mode: str, cache: dict | None = None,
-                  max_len: int | None = None):
+                  max_len: int | None = None, return_hidden: bool = False):
     """Returns (logits, new_cache).
 
+    train   : tokens (B, S) -> logits (B, S, Vp), cache None, with autograd;
+              ``return_hidden`` returns the final-norm hidden states
+              (B, S, d) in their place (the fused loss takes those)
     prefill : tokens (B, S) -> last-position logits (B, 1, Vp) + a cache
               padded to ``max_len`` positions
     decode  : tokens (B, 1) + cache -> logits (B, 1, Vp) + the same cache,
               updated in place, with ``pos`` advanced
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} belongs to the training "
-                                  "slice (ROADMAP A10)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got "
+                         f"{mode!r}")
+    if mode == "train" and cache is not None:
+        raise ValueError("mode='train' takes no cache")
     check_supported(cfg)
     B, S = tokens.shape
     dt = COMPUTE_DTYPE
     dev = params.embed.device
-    with torch.no_grad():
+    with contextlib.nullcontext() if mode == "train" else torch.no_grad():
         if mode == "decode":
             pos0 = int(cache["pos"])
             caches = cache
         else:
             pos0 = 0
-            caches = _empty_caches(cfg, B, max(S, max_len or S), dev)
+            caches = (None if mode == "train" else
+                      _empty_caches(cfg, B, max(S, max_len or S), dev))
         x = params.embed[tokens.long()].to(dt)
         angles = None
         if cfg.rope == "rope":
             positions = (pos0 + torch.arange(S, device=dev))[None].expand(B, S)
             angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        if mode == "train":
+            x = rms_norm(_train_layers(params, cfg, x, angles),
+                         params.final_norm, cfg.norm_eps)
+            return (x if return_hidden else _head_logits(params, cfg, x)), None
         for i, layer in enumerate(params.layers):
             x = layer(x, angles, mode, caches["k"][i], caches["v"][i], pos0)
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         if mode == "prefill":
             x = x[:, -1:]
-        head = params.embed.T if cfg.tie_embeddings else params.lm_head
-        logits = x @ head.to(dt)
-        if cfg.logit_softcap:
-            c = cfg.logit_softcap
-            logits = torch.tanh(logits / c) * c
+        logits = _head_logits(params, cfg, x)
     new_cache = dict(caches)
     new_cache["pos"] = pos0 + 1 if mode == "decode" else S
     return logits, new_cache
+
+
+def _head_logits(params: Model, cfg: ModelConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = x @ head.to(x.dtype)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+# -------------------------------------------------------------------- loss
+def lm_loss(params: Model, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy through the fused chunked loss (full
+    (B, S, V) logits are never materialized; see ``models.loss``).  batch:
+    ``tokens`` and ``labels`` (B, S), label -1 masked.  Returns (loss,
+    {"loss", "tokens"}), differentiable in the parameters."""
+    extra = {"visual", "mrope_positions", "frames"} & set(batch)
+    if extra:
+        raise NotImplementedError(f"{sorted(extra)} inputs (VLM, enc-dec) "
+                                  "are not ported yet (ROADMAP A10.3)")
+    hidden, _ = model_forward(params, cfg, batch["tokens"], mode="train",
+                              return_hidden=True)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    loss, tokens = fused_ce_loss(hidden, head.to(hidden.dtype),
+                                 batch["labels"], valid_vocab=cfg.vocab_size)
+    return loss, {"loss": loss, "tokens": tokens}

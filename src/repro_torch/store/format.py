@@ -103,19 +103,41 @@ def write_json_atomic(path: str, obj: Any) -> None:
 
 
 # ----------------------------------------------------------------- array file
-def _array_entry(name: str, arr: np.ndarray) -> dict:
-    return {"name": name, "dtype": str(arr.dtype),
+#: dtype names numpy may not know (``bfloat16`` comes from ``ml_dtypes``,
+#: which JAX brings and this package does not need): such arrays travel as
+#: their raw bits in an unsigned integer of the same width
+RAW_BITS = {"bfloat16": np.uint16}
+
+
+def _np_dtype(name: str) -> np.dtype:
+    try:
+        return np.dtype(name)
+    except TypeError:
+        if name in RAW_BITS:
+            return np.dtype(RAW_BITS[name])
+        raise
+
+
+def _array_entry(name: str, arr: np.ndarray, dtype: str | None = None
+                 ) -> dict:
+    return {"name": name, "dtype": dtype or str(arr.dtype),
             "shape": list(arr.shape), "nbytes": arr.nbytes,
             "crc32": crc32(arr.tobytes())}
 
 
 def write_array_file(path: str, arrays: dict[str, np.ndarray],
-                     meta: dict | None = None) -> None:
-    """Atomically write named arrays + meta as one checksummed file."""
+                     meta: dict | None = None,
+                     dtype_names: dict[str, str] | None = None) -> None:
+    """Atomically write named arrays + meta as one checksummed file.
+    ``dtype_names`` names the dtype stored for some arrays in place of
+    their own: a bf16 array handed over as its ``uint16`` bits is stored
+    as ``bfloat16``, the name the JAX package writes."""
     arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    names = dtype_names or {}
     header = json.dumps(
         {"meta": meta or {},
-         "arrays": [_array_entry(k, v) for k, v in arrays.items()]},
+         "arrays": [_array_entry(k, v, names.get(k))
+                    for k, v in arrays.items()]},
         sort_keys=True).encode()
     buf = io.BytesIO()
     buf.write(ARRAY_MAGIC)
@@ -131,7 +153,8 @@ def write_array_file(path: str, arrays: dict[str, np.ndarray],
 def read_array_file(path: str, *, verify: bool = True
                     ) -> tuple[dict[str, np.ndarray], dict]:
     """Read back (arrays, meta); raises :class:`CorruptFileError` on any
-    magic/version/CRC mismatch or truncation."""
+    magic/version/CRC mismatch or truncation.  An array of a dtype numpy
+    does not know (:data:`RAW_BITS`) comes back as its raw bits."""
     with open(path, "rb") as f:
         data = f.read()
     act = seam.fire("format.read", path=path, data=data)
@@ -166,7 +189,7 @@ def read_array_file(path: str, *, verify: bool = True
             raise CorruptFileError(f"{path}: payload CRC mismatch for "
                                    f"{ent['name']!r}")
         arrays[ent["name"]] = np.frombuffer(
-            raw, dtype=np.dtype(ent["dtype"])).reshape(ent["shape"])
+            raw, dtype=_np_dtype(ent["dtype"])).reshape(ent["shape"])
         off = end
     return arrays, directory["meta"]
 

@@ -10,7 +10,13 @@ for bf16 inputs one bf16 ulp at the output's largest magnitude
 (2^-7 * max|plain|: kernel and plain version each round an fp32 result to
 bf16 once) and, element by element, ``torch_checks.bf16_attn_err``: one
 bf16 ulp of the element plus 2^-12 of its row's largest magnitude, which a
-kernel that rounds P to bf16 before P V fails.
+kernel that rounds P to bf16 before P V fails.  The backward kernel is held
+against its plain version on the forward kernel's own output and lse at
+phase 2's shapes of ``chip_smoke.py``: atol 2e-4 for fp32 (the reference's
+gradient tolerance), one bf16 ulp at each output's largest magnitude plus
+that atol for bf16; two launches must be bit-identical, and a train step
+must launch the forward kernel twice and the backward kernel once per
+layer.
 
 The serving layer on the card: a four-thread storm through
 ``BitmapDB.serve()`` over a 2^20-record index (every answer the ``ref``
@@ -30,8 +36,9 @@ from repro_torch.kernels import bit_transpose as tbt
 from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
-from torch_checks import (STACKED_CASES, any_int32_cam_inputs,
-                          bf16_attn_err, stacked_program_inputs)
+from torch_checks import (FLASH_BWD_CASES, STACKED_CASES,
+                          any_int32_cam_inputs, bf16_attn_err, bwd_tol,
+                          flash_bwd_inputs, stacked_program_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -333,6 +340,81 @@ def test_flash_attention_kernel_rejects_before_launch(dev, bad):
     with pytest.raises(ValueError, match="flash_attention_fwd"):
         tfa.flash_attention_fwd(q, k, v)
     assert tfa.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("s,hd,g,causal,dtype", FLASH_BWD_CASES)
+def test_flash_backward_kernel(dev, hd, s, g, causal, dtype):
+    """dq, dk, dv against the plain backward on the kernel's own forward
+    output and lse; the lse against the plain logsumexp (atol 1e-5); two
+    launches on the same inputs bit-identical."""
+    rng = np.random.default_rng(s * g + hd)
+    q, k, v, dout = flash_bwd_inputs(rng, s, hd, g, dtype, dev)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _, want_lse = tfa.flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), causal=causal, return_lse=True)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    want = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                         out.float(), lse, dout.float(),
+                                         causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = float((a.float() - b).abs().max())
+        assert err <= bwd_tol(b, dtype), (name, err)
+
+
+def test_flash_attention_vjp_on_the_card_runs_the_kernels(dev):
+    """The autograd route launches the forward kernel (with lse) and the
+    backward kernel, never the plain backward; its gradients are the plain
+    route's within the kernel check's tolerance."""
+    from repro_torch.models import flash
+    rng = np.random.default_rng(9)
+    q, k, v = (x.requires_grad_() for x in _attn_inputs(
+        rng, 2, 300, 8, 2, 128, torch.bfloat16, dev))
+    f0, b0 = tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd.launches
+    out = flash.flash_attention_vjp(q, k, v, causal=True)
+    dout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == f0 + 1
+    assert tfa.flash_attention_bwd.launches == b0 + 1
+    _, lse = tfa.flash_attention_fwd_plain(q.detach().float(),
+                                           k.detach().float(),
+                                           v.detach().float(), causal=True,
+                                           return_lse=True)
+    want = tfa.flash_attention_bwd_plain(
+        q.detach().float(), k.detach().float(), v.detach().float(),
+        out.detach().float(), lse, dout.float(), causal=True)
+    for a, b in zip(grads, want):
+        assert float((a.float() - b).abs().max()) <= bwd_tol(
+            b, torch.bfloat16)
+
+
+def test_train_step_launches_the_kernels(dev):
+    """One smoke-config train step under remat="full": the forward kernel
+    twice per layer (forward and recompute), the backward kernel once."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.shapes import demo_batch
+    from repro_torch.models import model
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = get_smoke_config("qwen2_7b")
+    params = model.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    opt = init_opt_state(params, OptimConfig())
+    batch = demo_batch(cfg, "train", 2, 64,
+                       torch.Generator(device=dev).manual_seed(0))
+    f0, b0 = tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd.launches
+    params, opt, m = make_train_step(cfg, TrainConfig())(params, opt, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"]) and int(opt["step"]) == 1
+    assert tfa.flash_attention_fwd.launches - f0 == 2 * cfg.num_layers
+    assert tfa.flash_attention_bwd.launches - b0 == cfg.num_layers
 
 
 def test_prefill_launches_the_kernel_once_per_layer(dev):

@@ -373,11 +373,14 @@ def test_unported_configs_raise(arch):
 
 
 def test_unported_modes_and_options_raise():
+    """Training runs (``tests/test_torch_train.py``); training an unported
+    family (the MoE smoke config) still raises."""
     cfg = get_smoke_config("qwen2_7b")
     model = tmodel.init_params(cfg, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmodel.model_forward(model, cfg, tokens, mode="train")
+    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP A10"):
+        tmodel.lm_loss(model, get_smoke_config("qwen2_moe_a2_7b"),
+                       {"tokens": tokens, "labels": tokens})
     windowed = dataclasses.replace(cfg, sliding_window=8)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         tmodel.model_forward(model, windowed, tokens, mode="prefill")

@@ -2,6 +2,8 @@
 ``chip_smoke.py``.  numpy and torch only (no JAX), so the card's tests and
 the smoke script import it too.
 """
+import itertools
+
 import numpy as np
 import torch
 
@@ -46,6 +48,34 @@ def bf16_attn_err(got: torch.Tensor, want: torch.Tensor) -> float:
     tol = bf16_spacing(want) + BF16_ROW_SLACK * want.abs().amax(
         -1, keepdim=True)
     return float(((got.float() - want).abs() / tol).max())
+
+
+#: flash backward kernel cases (S, head_dim, H/KV, causal, dtype): ragged
+#: and one-token sequences, both head dims, no GQA and Qwen2-7B's 7 query
+#: heads a KV head.  Shared by the card tests and chip_smoke.py.
+FLASH_BWD_CASES = tuple(itertools.product(
+    (1, 63, 2048), (64, 128), (1, 7), (True, False),
+    (torch.float32, torch.bfloat16)))
+
+
+def flash_bwd_inputs(rng, s: int, hd: int, g: int, dtype, dev):
+    """q, k, v, dout of a :data:`FLASH_BWD_CASES` case: batch 2, 2 KV heads
+    and 2 g query heads, standard normal."""
+    def one(heads):
+        return torch.from_numpy(rng.standard_normal((2, s, heads, hd))
+                                .astype(np.float32)).to(dev, dtype)
+    return one(2 * g), one(2), one(2), one(2 * g)
+
+
+def bwd_tol(want: torch.Tensor, dtype) -> float:
+    """Tolerance of the flash backward kernel against its plain version
+    (fp32 on the same inputs), per output: the reference's gradient atol
+    2e-4 for fp32 inputs; for bf16, one bf16 ulp at the output's largest
+    magnitude plus that atol (where an output is near 0 the two fp32 sums
+    differ by their own rounding before either rounds to bf16)."""
+    if dtype == torch.float32:
+        return 2e-4
+    return 2.0 ** -7 * float(want.float().abs().max()) + 2e-4
 
 
 #: stacked ``bulk_program`` cases (S, M, Nw, (Q, G, P, L), literals):
