@@ -68,28 +68,80 @@
 // replaces the plain-JAX backward of flash_attention_vjp
 // (src/repro/models/flash.py::_flash_bwd_dense, under custom_vjp), and
 // computes what it computes: delta = rowsum(dout * o) from o as stored,
-// p = exp(s - lse) recomputed from q * scale and k, dv = p^T dout,
-// ds = p (dout v^T - delta), dq = ds k * scale, dk = ds^T (q * scale).
+// p = exp(s - lse) recomputed from q, k and the fp32 scale, dv = p^T dout,
+// ds = p (dout v^T - delta), dq = ds k * scale, dk = ds^T q * scale.
 // Bound on Hopper: operations.  At the training path's shape (B = 4,
 // S = 2048, H = 28, KV = 4, hd = 128, causal, bf16) it needs five products
 // of the causal half, 2.5x the forward's flops (~3.0e11): 0.30 ms on the
 // tensor cores, against ~0.2 GB of q, k, v, o, dout, lse, dq, dk, dv.
-// Design, simple and deterministic: two launches, fp32 FMAs on the CUDA
-// cores (67 TFLOP/s peak, so ~4.5 ms at best), no floating-point atomics,
-// so two runs are bit-identical.  flash_bwd_dq_kernel: one 256-thread block
-// per (b, h, 64-query tile), longest causal tiles first; it stages q * scale
-// and dout in shared memory as fp32, computes delta of its rows (and writes
-// it for the second launch), then walks the key tiles up to the diagonal:
-// S and dP = dout V^T in 4 x 4 register tiles (the forward's float4 layout),
-// dS through shared memory, dQ += dS K into a 4 x hd/16 accumulator.
-// flash_bwd_dkdv_kernel: one block per (b, KV head, 64-key tile), K and V
-// staged once; it walks the g query heads of the group and, for each, the
-// query tiles from the diagonal down, recomputing S, P and dS per tile as
-// above and adding dV += P^T dout and dK += dS^T (q * scale) into its keys'
-// accumulators, so the GQA sum over the group stays inside one block.
-// Fully masked causal tiles are skipped on both sides; elements past S or
-// above the diagonal have p = 0.  head_dim 256 takes 32 x 32 tiles to fit
-// shared memory.
+// Both pairs below are two launches with no floating-point atomics: every
+// output element is summed by one thread in a fixed order, and the GQA sum
+// over a group stays inside one CTA, so two runs are bit-identical.  Both
+// launches recompute S and dP: seven products of the causal half where
+// five are needed.  The C entry picks the pair by type and shape, as the
+// forward's does; a failure of either is returned, never retried on the
+// other.
+//
+// * flash_bwd_dq_wgmma + flash_bwd_dkdv_wgmma (bf16, head_dim 64 or 128).
+//   The products run on the tensor cores.  CTAs of 384 threads: two
+//   consumer warpgroups and a producer warpgroup, one warp of which issues
+//   TMA copies (128-byte swizzle, mbarrier completion) into a ring of
+//   BW_STAGES = 3 tiles; setmaxnreg hands the producer's registers to the
+//   consumers (240 a thread; ptxas sizes three warpgroups at 168, where the
+//   dK/dV kernel spilled and serialized its wgmmas).  Keys and queries
+//   past S are zero-filled by the copies and get p = 0; only diagonal and
+//   ragged tiles are masked, and a warpgroup skips a tile wholly above its
+//   diagonal.
+//   dq: one CTA per (b, h, 128-query tile), the longest causal tiles first;
+//   each consumer warpgroup owns 64 query rows.  It computes delta of its
+//   rows from o and dout (and writes it for the second launch); the Q and
+//   dO tiles are copied once, 64-key K and V tiles stream through the ring
+//   up to the diagonal.  Per tile S = Q K^T, then dP = dO V^T, as wgmma
+//   m64n64k16 with both operands in shared memory (K-major); P = exp2(S
+//   scale log2 e - lse log2 e) is computed while dP's product runs (the
+//   scale multiplies the fp32 scores, never bf16 q); dS = P (dP - delta);
+//   dQ += dS K takes dS from registers as wgmma's A operand against K read
+//   MN-major, as the forward's P V reads V.
+//   dkdv: one CTA per (b, KV head, 128-key tile), K and V copied once and
+//   kept; each consumer warpgroup owns 64 keys.  The producer streams the
+//   64-query Q and dO tiles of the g query heads of the group, each head's
+//   from the diagonal down, and its lanes write each tile's lse (times
+//   log2 e) and delta rows beside them.  The consumers compute transposed:
+//   S^T = K Q^T, then dP^T = V dO^T, from shared memory; P^T and dS^T in
+//   registers (lse and delta per column); dV += P^T dO and dK += dS^T Q
+//   with A from registers, dO and Q read MN-major; dK is scaled once at
+//   the end.  Load balance: at the training shape the grid is 4 x 4 x 16 =
+//   256 CTAs for 132 SMs, and key tile 0 carries 16x the query tiles of
+//   key tile 15; the grid runs key tile 0 first (longest first) rather
+//   than taking 64-key CTAs, which would stream each Q and dO tile once
+//   per warpgroup instead of once per two.
+//   Precision: no operand is split: P and dS enter their products as
+//   bf16 alone, where the reference multiplies them in fp32.  As bf16
+//   alone every FLASH_BWD_CASES case stays within bwd_tol: the worst
+//   err/tol of chip_smoke.py's phase 2 check reads 0.653 at head_dim 128
+//   and 0.630 at 64 (H100 80GB HBM3, 700 W).  Carried as bf16 hi + lo
+//   pairs, as the forward carries P (an earlier build of these kernels,
+//   since removed), it read 0.449 and 0.384, but the dQ, dV and dK
+//   products doubled and the pair took 1.27 ms instead of 1.06 at the
+//   training shape; a tolerance that ever needs the split can bring it
+//   back in to_frags and mma_rs_k64.
+// * flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (fp32 inputs, and bf16 at
+//   head_dim 8/16/32/256): fp32 FMAs on the CUDA cores (67 TFLOP/s peak, so
+//   ~4.5 ms at best at the shape above), which keeps fp32 within the
+//   reference's gradient atol of 2e-4.  flash_bwd_dq_kernel: one 256-thread
+//   block per (b, h, 64-query tile), longest causal tiles first; it stages
+//   q * scale and dout in shared memory as fp32, computes delta of its rows
+//   (and writes it for the second launch), then walks the key tiles up to
+//   the diagonal: S and dP = dout V^T in 4 x 4 register tiles (the
+//   forward's float4 layout), dS through shared memory, dQ += dS K into a
+//   4 x hd/16 accumulator.  flash_bwd_dkdv_kernel: one block per (b, KV
+//   head, 64-key tile), K and V staged once; it walks the g query heads of
+//   the group and, for each, the query tiles from the diagonal down,
+//   recomputing S, P and dS per tile as above and adding dV += P^T dout and
+//   dK += dS^T (q * scale) into its keys' accumulators.  Fully masked
+//   causal tiles are skipped on both sides; elements past S or above the
+//   diagonal have p = 0.  head_dim 256 takes 32 x 32 tiles to fit shared
+//   memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -384,8 +436,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Pin registers an async wgmma reads or writes at this point of the
@@ -610,7 +664,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // scale to the log2 domain; mask only the diagonal and ragged tiles
@@ -684,7 +738,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_pv<HD>(acc, hi, dv);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(empty(st));
   }
@@ -738,6 +792,17 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Make the primary context of the runtime's current device current in this
+// thread, as encoding a tensor map needs: a thread that has made no CUDA
+// call (autograd's, a fresh Python thread) has no current context.  The
+// wrapper sets the device before the call (kernels/_build.py::launch), and
+// cudaSetDevice makes that device's primary context current (CUDA 12).
+cudaError_t bind_context() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
 // A bf16 (B, S, heads, hd) tensor as a 4-D TMA map whose box is `rows`
 // positions x one head x 64 columns (128 bytes), 128-byte swizzled; rows
 // past S read as zeros.
@@ -762,16 +827,18 @@ template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, long long B, long long S, long long H,
                  long long KV, long long causal, cudaStream_t stream) {
+  const size_t smem = TcLayout<HD>::SMEM;
+  auto kernel = flash_fwd_wgmma<HD>;
+  cudaError_t err = bind_context();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, S, H, HD, TC_BQ)
       || !tensor_map(&tk, k, B, S, KV, HD, TC_BK)
       || !tensor_map(&tv, v, B, S, KV, HD, TC_BK))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = TcLayout<HD>::SMEM;
-  auto kernel = flash_fwd_wgmma<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const long long nq = (S + TC_BQ - 1) / TC_BQ;
   const long long blocks = B * H * nq;
   if (blocks > 0x7fffffffLL || S > 0x7fffffffLL)
@@ -1131,6 +1198,541 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+// ---- flash backward on the tensor cores: flash_bwd_dq_wgmma and
+// flash_bwd_dkdv_wgmma (bf16, head_dim 64 and 128) ------------------------
+
+constexpr int BW_Q = 128;              // dq: queries per CTA, 2 x 64
+constexpr int BW_K = 64;               // dq: keys per K/V tile
+constexpr int BW_KEYS = 128;           // dkdv: keys per CTA, 2 x 64
+constexpr int BW_QT = 64;              // dkdv: queries per Q/dO tile
+constexpr int BW_STAGES = 3;           // ring depth of both kernels
+constexpr float LOG2E = 1.4426950408889634f;
+// Both kernels run two consumer warpgroups and a producer warpgroup of
+// which one warp works: ptxas sizes registers for 3 warpgroups (168 a
+// thread), and setmaxnreg hands the producer's to the consumers, which
+// would spill at 168 (the accumulators alone take 128 at head_dim 128).
+constexpr int BW_THREADS = TC_CONSUMERS + 128;
+constexpr int BW_PRODUCER_REGS = 24;   // setmaxnreg: the producer warpgroup
+constexpr int BW_CONSUMER_REGS = 240;  // and each consumer thread
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (64 x 16, smem), both
+// K-major, 128-byte swizzled; accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64) = A B^T over HD columns: A's 64 rows at a, B's 64 rows at b,
+// each HD/64 boxes of 128-byte rows (box strides abox, bbox), K-major.
+template <int HD>
+__device__ __forceinline__ void mma_ss_hd(float (&d)[32], uint32_t a,
+                                          uint32_t abox, uint32_t b,
+                                          uint32_t bbox) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss_n64(d, sw128_desc(a + (kk >> 2) * abox + off, 16, 1024),
+                 sw128_desc(b + (kk >> 2) * bbox + off, 16, 1024), kk > 0);
+  }
+}
+
+// A 64 x 64 accumulator tile (this thread: rows r and r + 8) as the bf16
+// A fragments of a product whose k runs over its 64 columns: [2n + i]
+// holds row r + 8i, columns 8n + ccol and + 1.
+__device__ __forceinline__ void to_frags(const float (&x)[32],
+                                         uint32_t (&f)[16]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(x[4 * n + 2 * i], x[4 * n + 2 * i + 1]);
+      f[2 * n + i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+}
+
+// D (64 x HD) += A (64 x 64, the fragments f) * B (64 x HD): B's 64 rows at
+// b, HD/64 boxes of 64 rows x 128 bytes (box stride ``box``), read
+// MN-major, 16 rows (2048 bytes) a step.
+template <int HD>
+__device__ __forceinline__ void mma_rs_k64(float (&d)[HD / 2],
+                                           const uint32_t (&f)[16],
+                                           uint32_t b, uint32_t box) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
+                           f[4 * kk + 3]};
+    wgmma_pv<HD>(d, a, sw128_desc(b + kk * 16 * 128, box, 1024));
+  }
+}
+
+// acc plus the dot product of two 16-byte words of 8 bf16 values each
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 u = __bfloat1622float2(a[j]), w = __bfloat1622float2(c[j]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+// Shared memory of both kernels (offsets from a 1024-byte aligned base).
+// dq: the Q and dO tiles (HD/64 boxes of BW_Q rows x 128 bytes each), then
+// BW_STAGES x (K tile, V tile) of HD/64 boxes of BW_K rows, then the
+// mbarriers: Q/dO full, per stage full and empty.  dkdv: the K and V tiles
+// (boxes of BW_KEYS rows), then BW_STAGES x (Q tile, dO tile) of boxes of
+// BW_QT rows, then BW_STAGES x (lse * log2 e, delta) rows of BW_QT floats,
+// then the mbarriers: K/V full, per stage full and empty.
+template <int HD>
+struct BwLayout {
+  static constexpr int NB = HD / BOX;
+  static constexpr uint32_t QBOX = BW_Q * 128, KBOX = BW_K * 128;
+  static constexpr uint32_t DQ_Q = NB * QBOX, DQ_KV = NB * KBOX;
+  static constexpr uint32_t DQ_BARS = 2 * DQ_Q + BW_STAGES * 2 * DQ_KV;
+  static constexpr size_t DQ_SMEM = 1024 + DQ_BARS + 8 * (1 + 2 * BW_STAGES);
+  static constexpr uint32_t KVBOX = BW_KEYS * 128, QTBOX = BW_QT * 128;
+  static constexpr uint32_t KV_KV = NB * KVBOX, KV_Q = NB * QTBOX;
+  static constexpr uint32_t KV_ROWS = 2 * KV_KV + BW_STAGES * 2 * KV_Q;
+  static constexpr uint32_t KV_BARS = KV_ROWS + BW_STAGES * 2 * BW_QT * 4;
+  static constexpr size_t KV_SMEM = 1024 + KV_BARS + 8 * (1 + 2 * BW_STAGES);
+};
+
+// One CTA per (b, h, BW_Q-query tile), the longest causal tiles first:
+// delta of its rows (written for the dK/dV launch), then dQ over the key
+// tiles up to the diagonal.
+template <int HD>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                   int S, int H, int KV, int BH, int nq, int causal,
+                   float scale, float scale_log2) {
+  using L = BwLayout<HD>;
+  constexpr int NA = HD / 2;           // dQ accumulators per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + L::DQ_Q;
+  const uint32_t bars = sq + L::DQ_BARS;
+  const uint32_t qfull = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + BW_STAGES + s); };
+  auto kbuf = [&](int s) { return sq + 2u * L::DQ_Q + 2u * s * L::DQ_KV; };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / BH)) * BW_Q;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int kend = causal ? min(S, q0 + BW_Q) : S;
+  const int nk = (kend + BW_K - 1) / BW_K;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), TC_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= TC_CONSUMERS) {           // the producer: one thread works
+    setmaxnreg_dec<BW_PRODUCER_REGS>();
+    if (tid == TC_CONSUMERS) {
+      mbar_expect_tx(qfull, 2 * L::DQ_Q);
+      for (int c = 0; c < L::NB; ++c) {
+        tma_load(sq + c * L::QBOX, &tq, qfull, c * BOX, h, q0, b);
+        tma_load(sdo + c * L::QBOX, &tdo, qfull, c * BOX, h, q0, b);
+      }
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % BW_STAGES;
+        if (it >= BW_STAGES) mbar_wait(empty(s), ((it / BW_STAGES) - 1) & 1);
+        const uint32_t kb = kbuf(s), vb = kb + L::DQ_KV;
+        mbar_expect_tx(full(s), 2 * L::DQ_KV);
+        for (int c = 0; c < L::NB; ++c) {
+          tma_load(kb + c * L::KBOX, &tk, full(s), c * BOX, kvh, it * BW_K, b);
+          tma_load(vb + c * L::KBOX, &tv, full(s), c * BOX, kvh, it * BW_K, b);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<BW_CONSUMER_REGS>();
+    // consumers: warpgroup wg owns query rows q0 + 64*wg .. + 63; this thread
+    // holds rows qrow and qrow + 8, columns 8n + ccol and + 1 of each 8-block
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int qrow = q0 + 64 * wg + 16 * warp + (lane >> 2);
+    const int ccol = 2 * (lane & 3);
+    const long long qstride = (long long)H * HD;
+    const long long qoff = ((long long)b * S * H + h) * HD;
+    // delta = rowsum(dout * out) of rows qrow and qrow + 8 (out as stored):
+    // the 4 threads of a row take a quarter of its columns each
+    float dl[2], l2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = qrow + 8 * i;
+      float acc = 0.f;
+      if (row < S) {
+        const long long at = qoff + row * qstride + (lane & 3) * (HD / 4);
+#pragma unroll
+        for (int j = 0; j < HD / 32; ++j)
+          acc = dot8(__ldg(reinterpret_cast<const uint4*>(o + at) + j),
+                     __ldg(reinterpret_cast<const uint4*>(dout + at) + j), acc);
+      }
+      acc += __shfl_xor_sync(FULL, acc, 1);
+      acc += __shfl_xor_sync(FULL, acc, 2);
+      dl[i] = acc;
+      l2[i] = row < S ? lse[(long long)bh * S + row] * LOG2E : 0.f;
+      if ((lane & 3) == 0 && row < S) delta[(long long)bh * S + row] = acc;
+    }
+
+    const uint32_t qa = sq + wg * 64 * 128, da = sdo + wg * 64 * 128;
+    float acc[NA], s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(qfull, 0);
+
+    for (int it = 0; it < nk; ++it) {
+      const int st = it % BW_STAGES;
+      const uint32_t ph = (it / BW_STAGES) & 1;
+      const uint32_t kb = kbuf(st), vb = kb + L::DQ_KV;
+      const int k0 = it * BW_K;
+      mbar_wait(full(st), ph);
+      if (causal && k0 > q0 + 64 * wg + 63) {   // past this warpgroup's rows
+        mbar_arrive(empty(st));
+        continue;
+      }
+      // S = Q K^T, then dP = dO V^T (both operands in shared memory): P is
+      // computed while dP's product runs
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_ss_hd<HD>(s, qa, L::QBOX, kb, L::KBOX);
+      wgmma_commit();
+      mma_ss_hd<HD>(dp, da, L::QBOX, vb, L::KBOX);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P = exp2(S scale log2 e - lse log2 e) in place of S, masked on the
+      // diagonal and ragged tiles only; then dS = P (dP - delta) in place
+      // of dP
+      const bool edge = k0 + BW_K > S || q0 + 64 * wg + 64 > S
+                        || (causal && k0 + BW_K - 1 > q0 + 64 * wg);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[4 * n + e], scale_log2, -l2[e >> 1]));
+          if (edge) {
+            const int col = k0 + 8 * n + ccol + (e & 1);
+            const int row = qrow + 8 * (e >> 1);
+            if (col >= S || row >= S || (causal && col > row)) p = 0.f;
+          }
+          s[4 * n + e] = p;
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]);
+
+      // dQ += dS K: dS from registers, K read MN-major
+      uint32_t ds[16];
+      to_frags(dp, ds);
+      fence_regs(acc);
+      fence_regs(ds);
+      wgmma_fence();
+      mma_rs_k64<HD>(acc, ds, kb, L::KBOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ds);
+      mbar_arrive(empty(st));
+    }
+
+    __nv_bfloat16* qb = dq + qoff + ccol;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = qrow + 8 * i;
+      if (row >= S) continue;
+      __nv_bfloat16* dst = qb + row * qstride;
+#pragma unroll
+      for (int n = 0; n < NA / 4; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
+            acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+    }
+  }
+}
+
+// One CTA per (b, KV head, BW_KEYS-key tile), key tile 0 (the longest under
+// the causal mask) first: dK and dV of its keys, summed over the g query
+// heads of the group and their query tiles from the diagonal down, in that
+// fixed order, inside the CTA (no atomics: two runs are bit-identical).
+template <int HD>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
+                     int BKV, int causal, float scale, float scale_log2) {
+  using L = BwLayout<HD>;
+  constexpr int NA = HD / 2;           // dK and dV accumulators per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sv = sk + L::KV_KV;
+  float* rows = reinterpret_cast<float*>(
+      smem_raw + (sk + L::KV_ROWS - smem_u32(smem_raw)));
+  const uint32_t bars = sk + L::KV_BARS;
+  const uint32_t kvfull = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + BW_STAGES + s); };
+  auto qbuf = [&](int s) { return sk + 2u * L::KV_KV + 2u * s * L::KV_Q; };
+
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.x % BKV;
+  const int k0 = (int)(blockIdx.x / BKV) * BW_KEYS;
+  const int b = bkv / KV, kvh = bkv % KV, g = H / KV;
+  const int qstart = causal ? k0 / BW_QT * BW_QT : 0;
+  const int ntq = (S - qstart + BW_QT - 1) / BW_QT;   // query tiles a head
+  const int n_it = g * ntq;
+
+  if (tid == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(full(s), 1 + 32);      // the copies, and each producer lane
+      mbar_init(empty(s), TC_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= TC_CONSUMERS) {           // the producer: its first warp works
+    setmaxnreg_dec<BW_PRODUCER_REGS>();
+    if (tid < TC_CONSUMERS + 32) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        mbar_expect_tx(kvfull, 2 * L::KV_KV);
+        for (int c = 0; c < L::NB; ++c) {
+          tma_load(sk + c * L::KVBOX, &tk, kvfull, c * BOX, kvh, k0, b);
+          tma_load(sv + c * L::KVBOX, &tv, kvfull, c * BOX, kvh, k0, b);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % BW_STAGES;
+        const int h = kvh * g + it / ntq, q0 = qstart + (it % ntq) * BW_QT;
+        const long long bh = (long long)b * H + h;
+        if (it >= BW_STAGES) mbar_wait(empty(s), ((it / BW_STAGES) - 1) & 1);
+        if (lane == 0) {
+          const uint32_t qb = qbuf(s), db = qb + L::KV_Q;
+          mbar_expect_tx(full(s), 2 * L::KV_Q);
+          for (int c = 0; c < L::NB; ++c) {
+            tma_load(qb + c * L::QTBOX, &tq, full(s), c * BOX, h, q0, b);
+            tma_load(db + c * L::QTBOX, &tdo, full(s), c * BOX, h, q0, b);
+          }
+        }
+        // the tile's lse (log2 domain) and delta rows, zero past S
+        float* lr = rows + s * 2 * BW_QT;
+        for (int j = lane; j < BW_QT; j += 32) {
+          const int r = q0 + j;
+          lr[j] = r < S ? lse[bh * S + r] * LOG2E : 0.f;
+          lr[BW_QT + j] = r < S ? delta[bh * S + r] : 0.f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    setmaxnreg_inc<BW_CONSUMER_REGS>();
+    // consumers: warpgroup wg owns keys k0 + 64*wg .. + 63 (kmin ..); this
+    // thread holds keys krow and krow + 8, query columns 8n + ccol and + 1
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int kmin = k0 + 64 * wg;
+    const int krow = kmin + 16 * warp + (lane >> 2);
+    const int ccol = 2 * (lane & 3);
+    const uint32_t ka = sk + wg * 64 * 128, va = sv + wg * 64 * 128;
+    float dka[NA], dva[NA], s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(kvfull, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % BW_STAGES;
+      const uint32_t ph = (it / BW_STAGES) & 1;
+      const uint32_t qb = qbuf(st), db = qb + L::KV_Q;
+      const int q0 = qstart + (it % ntq) * BW_QT;
+      mbar_wait(full(st), ph);
+      if (causal && q0 + BW_QT - 1 < kmin) {    // every query before every key
+        mbar_arrive(empty(st));
+        continue;
+      }
+      // S^T = K Q^T, then dP^T = V dO^T (both operands in shared memory):
+      // P^T is computed while dP^T's product runs
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_ss_hd<HD>(s, ka, L::KVBOX, qb, L::QTBOX);
+      wgmma_commit();
+      mma_ss_hd<HD>(dp, va, L::KVBOX, db, L::QTBOX);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P^T = exp2(S^T scale log2 e - lse log2 e) in place of S^T, then
+      // dS^T = P^T (dP^T - delta) in place of dP^T; lse and delta are per
+      // column (query), from the tile's rows in shared memory
+      const float* lr = rows + st * 2 * BW_QT;
+      const bool edge = q0 + BW_QT > S || kmin + 64 > S
+                        || (causal && kmin + 63 > q0);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * n + ccol);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1;
+          float p = exp2f(fmaf(s[4 * n + e], scale_log2, -(c ? l2.y : l2.x)));
+          if (edge) {
+            const int col = q0 + 8 * n + ccol + c, row = krow + 8 * (e >> 1);
+            if (col >= S || row >= S || (causal && row > col)) p = 0.f;
+          }
+          s[4 * n + e] = p;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(lr + BW_QT + 8 * n + ccol);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * n + e] =
+              s[4 * n + e] * (dp[4 * n + e] - (e & 1 ? d2.y : d2.x));
+      }
+
+      // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q read
+      // MN-major
+      uint32_t pf[16], sf[16];
+      to_frags(s, pf);
+      to_frags(dp, sf);
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pf);
+      fence_regs(sf);
+      wgmma_fence();
+      mma_rs_k64<HD>(dva, pf, db, L::QTBOX);
+      mma_rs_k64<HD>(dka, sf, qb, L::QTBOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pf);
+      fence_regs(sf);
+      mbar_arrive(empty(st));
+    }
+
+    const long long kstride = (long long)KV * HD;
+    const long long koff = ((long long)b * S * KV + kvh) * HD + ccol;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = krow + 8 * i;
+      if (row >= S) continue;
+      __nv_bfloat16* dkr = dk + koff + row * kstride;
+      __nv_bfloat16* dvr = dv + koff + row * kstride;
+#pragma unroll
+      for (int n = 0; n < NA / 4; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * n) = __floats2bfloat162_rn(
+            dka[4 * n + 2 * i] * scale, dka[4 * n + 2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * n) = __floats2bfloat162_rn(
+            dva[4 * n + 2 * i], dva[4 * n + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// Both tensor-core backward launches: dQ (and delta), then dK / dV.
+template <int HD>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const float* lse, const void* dout,
+                     void* dq, void* dk, void* dv, float* delta, long long B,
+                     long long S, long long H, long long KV, long long causal,
+                     cudaStream_t stream) {
+  using L = BwLayout<HD>;
+  auto kdq = flash_bwd_dq_wgmma<HD>;
+  auto kkv = flash_bwd_dkdv_wgmma<HD>;
+  cudaError_t err = bind_context();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::KV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tdo, tk, tv, tk2, tv2, tq2, tdo2;
+  if (!tensor_map(&tq, q, B, S, H, HD, BW_Q)
+      || !tensor_map(&tdo, dout, B, S, H, HD, BW_Q)
+      || !tensor_map(&tk, k, B, S, KV, HD, BW_K)
+      || !tensor_map(&tv, v, B, S, KV, HD, BW_K)
+      || !tensor_map(&tk2, k, B, S, KV, HD, BW_KEYS)
+      || !tensor_map(&tv2, v, B, S, KV, HD, BW_KEYS)
+      || !tensor_map(&tq2, q, B, S, H, HD, BW_QT)
+      || !tensor_map(&tdo2, dout, B, S, H, HD, BW_QT))
+    return (int)cudaErrorInvalidValue;
+  const long long nq = (S + BW_Q - 1) / BW_Q;
+  const long long nkt = (S + BW_KEYS - 1) / BW_KEYS;
+  if (B * H * nq > 0x7fffffffLL || S > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const double scale = 1.0 / sqrt((double)HD);
+  const float scale_log2 = (float)(1.4426950408889634 * scale);
+  kdq<<<(unsigned)(B * H * nq), BW_THREADS, L::DQ_SMEM, stream>>>(
+      tq, tdo, tk, tv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
+      lse, (__nv_bfloat16*)dq, delta, (int)S, (int)H, (int)KV, (int)(B * H),
+      (int)nq, (int)causal, (float)scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kkv<<<(unsigned)(B * KV * nkt), BW_THREADS, L::KV_SMEM, stream>>>(
+      tk2, tv2, tq2, tdo2, lse, delta, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, (int)S, (int)H, (int)KV, (int)(B * KV),
+      (int)causal, (float)scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_attention_fwd_launch(
@@ -1169,6 +1771,13 @@ extern "C" int flash_attention_bwd_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* e = (float*)delta;
+  // bf16 at head_dim 64 / 128 goes to the tensor cores
+  if (bf16 && hd == 128)
+    return launch_bwd_wgmma<128>(q, k, v, o, l, dout, dq, dk, dv, e, B, S, H,
+                                 KV, causal, st);
+  if (bf16 && hd == 64)
+    return launch_bwd_wgmma<64>(q, k, v, o, l, dout, dq, dk, dv, e, B, S, H,
+                                KV, causal, st);
   return bf16 ? dispatch_bwd<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, e,
                                             B, S, H, KV, hd, causal, st)
               : dispatch_bwd<float>(q, k, v, o, l, dout, dq, dk, dv, e, B, S,

@@ -9,7 +9,8 @@ is rebuilt and a stale build is never loaded.  :func:`build_all` starts one
 sum).
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
-returns ``cudaGetLastError()`` after the launch; :func:`check` turns a
+returns ``cudaGetLastError()`` after the launch; wrappers call it through
+:func:`launch`, which sets the tensors' device around the call and turns a
 non-zero code into an exception.  Nothing here is imported or built when a
 module is imported: the CPU test suite imports every module on a machine
 without ``nvcc``.
@@ -139,6 +140,19 @@ def check(rc: int, kernel: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if rc != 0:
         raise KernelError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+def launch(kernel: str, device, *args) -> None:
+    """Call ``kernel``'s C entry with ``args`` and the current stream of
+    ``device``, under ``device`` (the runtime's current device for the
+    call, so the C side works on the device its pointers and stream belong
+    to, in any thread), then raise on a CUDA error.  Every wrapper launches
+    through here."""
+    import torch
+    fn = library(kernel)
+    with torch.cuda.device(device):
+        rc = fn(*args, stream(device))
+    check(rc, kernel)
 
 
 def stream(device) -> ctypes.c_void_p:

@@ -21,7 +21,15 @@ The forward also returns lse (B, H, S) fp32, the natural-log normalizer of
 the scaled scores, when asked (``return_lse=True``: the training path).  The
 backward takes (q, k, v, out, lse, dout) in the model layout and returns
 dq, dk, dv in q's dtype (fp32 accumulation, two launches, no atomics, so
-bit-identical from run to run).
+bit-identical from run to run).  Its C entry picks by the same rule: bf16
+at head_dim 64 or 128 runs on the tensor cores (``flash_bwd_dq_wgmma``, one
+CTA per 128-query tile streaming 64-key K/V tiles, which also writes delta;
+then ``flash_bwd_dkdv_wgmma``, one CTA per (batch, KV head, 128-key tile)
+streaming the group's 64-query Q/dO tiles, so the GQA sum stays in the CTA;
+a TMA producer warp and a 3-deep ring each, P and dS as bf16 A operands
+from registers); fp32 and the other head dims on the CUDA cores
+(``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``).  A failure of either
+raises; neither falls back to the other.
 
 The forward replaces ``src/repro/kernels/attention.py::flash_attention_fwd``;
 the backward replaces the plain-JAX backward of
@@ -125,12 +133,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    fn = _build.library(name)
-    _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                    _build.ptr(out),
-                    None if lse is None else _build.ptr(lse), B, S, H, KV,
-                    hd, int(causal), int(q.dtype == torch.bfloat16),
-                    _build.stream(q.device)), name)
+    _build.launch(name, q.device, _build.ptr(q), _build.ptr(k),
+                  _build.ptr(v), _build.ptr(out),
+                  None if lse is None else _build.ptr(lse), B, S, H, KV, hd,
+                  int(causal), int(q.dtype == torch.bfloat16))
     flash_attention_fwd.launches += 1
     if not return_lse:
         return out
@@ -210,12 +216,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _card_checks(name, hd, (q, k, v, out, lse, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    fn = _build.library(name)
-    _build.check(fn(*(_build.ptr(t) for t in (q, k, v, out, lse, dout, dq, dk,
-                                              dv, delta)),
-                    B, S, H, KV, hd, int(causal),
-                    int(q.dtype == torch.bfloat16),
-                    _build.stream(q.device)), name)
+    _build.launch(name, q.device,
+                  *(_build.ptr(t) for t in (q, k, v, out, lse, dout, dq, dk,
+                                            dv, delta)),
+                  B, S, H, KV, hd, int(causal), int(q.dtype == torch.bfloat16))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -33,9 +33,8 @@ def bit_transpose(packed: torch.Tensor) -> torch.Tensor:
     r, cw = packed.shape
     out = torch.empty((cw * ref.PACK, ref.num_words(r)), dtype=torch.int32,
                       device=packed.device)
-    fn = _build.library(name)
-    _build.check(fn(_build.ptr(packed), _build.ptr(out), r, cw,
-                    _build.stream(packed.device)), name)
+    _build.launch(name, packed.device, _build.ptr(packed), _build.ptr(out),
+                  r, cw)
     bit_transpose.launches += 1
     return out
 

@@ -50,10 +50,8 @@ def bitmap_query(rows: torch.Tensor, invert: torch.Tensor
     k, nw = rows.shape
     out = torch.empty((nw,), dtype=torch.int32, device=rows.device)
     count = torch.zeros((1,), dtype=torch.int32, device=rows.device)
-    fn = _build.library(name)
-    _build.check(fn(_build.ptr(rows), _build.ptr(invert), _build.ptr(out),
-                    _build.ptr(count), k, nw, _build.stream(rows.device)),
-                 name)
+    _build.launch(name, rows.device, _build.ptr(rows), _build.ptr(invert),
+                  _build.ptr(out), _build.ptr(count), k, nw)
     bitmap_query.launches += 1
     return out, count[0]
 
@@ -131,10 +129,9 @@ def bulk_program(aug: torch.Tensor, sels: torch.Tensor, invs: torch.Tensor,
     m1, nw = aug.shape
     q, g, p, l = sels.shape
     out = torch.empty((q, nw), dtype=torch.int32, device=aug.device)
-    fn = _build.library(name)
-    _build.check(fn(_build.ptr(aug), _build.ptr(sels), _build.ptr(invs),
-                    _build.ptr(post), _build.ptr(out), m1, nw, q, g, p, l,
-                    _build.stream(aug.device)), name)
+    _build.launch(name, aug.device, _build.ptr(aug), _build.ptr(sels),
+                  _build.ptr(invs), _build.ptr(post), _build.ptr(out), m1, nw,
+                  q, g, p, l)
     bulk_program.launches += 1
     return out
 
@@ -182,10 +179,9 @@ def bulk_program_stacked(aug: torch.Tensor, nrecs: torch.Tensor,
     s, m1, nw = aug.shape
     q, g, p, l = sels.shape
     out = torch.empty((s, q, nw), dtype=torch.int32, device=aug.device)
-    fn = _build.library(name)
-    _build.check(fn(_build.ptr(aug), _build.ptr(nrecs), _build.ptr(sels),
-                    _build.ptr(invs), _build.ptr(post), _build.ptr(out), s,
-                    m1, nw, q, g, p, l, _build.stream(aug.device)), name)
+    _build.launch(name, aug.device, _build.ptr(aug), _build.ptr(nrecs),
+                  _build.ptr(sels), _build.ptr(invs), _build.ptr(post),
+                  _build.ptr(out), s, m1, nw, q, g, p, l)
     bulk_program_stacked.launches += 1
     return out
 

@@ -38,9 +38,8 @@ def cam_match(records: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     (m,) = keys.shape
     out = torch.empty((n, ref.num_words(m)), dtype=torch.int32,
                       device=records.device)
-    fn = _build.library(name)
-    _build.check(fn(_build.ptr(records), _build.ptr(keys), _build.ptr(out),
-                    n, w, m, _build.stream(records.device)), name)
+    _build.launch(name, records.device, _build.ptr(records),
+                  _build.ptr(keys), _build.ptr(out), n, w, m)
     cam_match.launches += 1
     return out
 

@@ -307,6 +307,37 @@ def test_flash_attention_launches_the_named_kernel(dev):
         assert len(names) == 1 and want in names[0], (dtype, hd, names)
 
 
+def test_flash_backward_launches_the_named_kernels(dev):
+    """The profiler sees the backward pair the C entry picks: the
+    tensor-core pair for bf16 at head_dim 64 and 128, the CUDA-core pair for
+    fp32 and for bf16 at the other head dims; one launch of each of the
+    pair's two kernels and none of the other pair's."""
+    from torch.profiler import ProfilerActivity, profile
+    tensor = ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+    cuda = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    rng = np.random.default_rng(6)
+    for dtype, hd, want in (
+            (torch.bfloat16, 128, tensor),
+            (torch.bfloat16, 64, tensor),
+            (torch.float32, 128, cuda),
+            (torch.float32, 64, cuda),
+            (torch.bfloat16, 32, cuda),
+            (torch.bfloat16, 256, cuda)):
+        q, k, v, dout = flash_bwd_inputs(rng, 200, hd, 7, dtype, dev)
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                           return_lse=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tfa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if "flash_bwd" in e.key}
+        got = {name: sum(n for key, n in seen.items() if name in key)
+               for name in tensor + cuda}
+        assert got == {name: int(name in want) for name in tensor + cuda}, (
+            dtype, hd, seen)
+
+
 def test_flash_attention_kernel_reference_layout(dev):
     rng = np.random.default_rng(3)
     q, k, v = (torch.from_numpy(rng.standard_normal((3, 300, 32))
@@ -394,6 +425,34 @@ def test_flash_attention_vjp_on_the_card_runs_the_kernels(dev):
     for a, b in zip(grads, want):
         assert float((a.float() - b).abs().max()) <= bwd_tol(
             b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_kernels_launch_from_a_fresh_thread(dev, hd):
+    """The tensor-core kernels encode TMA tensor maps, which need the
+    device's context current in the calling thread: forward and backward
+    launched from a thread that has made no CUDA call (as autograd's may
+    be) run, and give the main thread's results bit for bit."""
+    import threading
+    rng = np.random.default_rng(hd)
+    q, k, v, dout = flash_bwd_inputs(rng, 200, hd, 4, torch.bfloat16, dev)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    got = []
+
+    def run():
+        o, l_ = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                        return_lse=True)
+        got.append((o, l_, tfa.flash_attention_bwd(q, k, v, o, l_, dout,
+                                                   causal=True)))
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert got, "the launches raised in the thread"
+    o, l_, g = got[0]
+    assert torch.equal(o, out) and torch.equal(l_, lse)
+    assert all(torch.equal(a, b) for a, b in zip(g, grads))
 
 
 def test_train_step_launches_the_kernels(dev):

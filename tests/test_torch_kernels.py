@@ -390,3 +390,32 @@ def test_wrappers_check_arguments_and_never_count_plain_runs():
                                       device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         tcm.cam_match(rec, keys.to("meta"))
+
+
+def test_launch_calls_the_entry_under_the_tensors_device(monkeypatch):
+    """``_build.launch`` is every wrapper's way to its C entry: it calls the
+    entry with the device's stream last while that device is current, and
+    raises on a non-zero return code."""
+    import contextlib
+    from repro_torch.kernels import _build
+    current, calls = [None], []
+
+    @contextlib.contextmanager
+    def device(d):
+        current[0] = d
+        yield
+        current[0] = None
+
+    def entry(*args):
+        calls.append((current[0], args))
+        return calls[-1][1][0]
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(_build, "library", lambda kernel: entry)
+    monkeypatch.setattr(_build, "stream", lambda d: ("stream", d))
+    card = torch.device("cuda", 1)
+    _build.launch("cam_match", card, 0, 7)
+    assert calls == [(card, (0, 7, ("stream", card)))]
+    assert current[0] is None
+    with pytest.raises(_build.KernelError, match="cam_match.*error 3"):
+        _build.launch("cam_match", card, 3)

@@ -160,6 +160,33 @@ def test_flash_backward_wrapper_on_cpu_is_the_plain_version():
         attention.flash_attention_bwd(q, k, v, out, lse[:, :3], dout)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unit_rms_dout_scales_the_gradients_exactly(dtype):
+    """The card's layer check feeds the backward ``unit_rms(dout)``, the
+    step's small dout times a power of two: the gradients are the ones of
+    dout times that power, bit for bit, so the check holds the step's own
+    gradients at a scale where ``bwd_tol``'s ulp term rules."""
+    from repro_torch.kernels import attention
+    from torch_checks import unit_rms
+    rng = np.random.default_rng(5)
+    q = t(rng.standard_normal((2, 40, 4, 16)).astype(np.float32)).to(dtype)
+    k, v = (t(rng.standard_normal((2, 40, 2, 16)).astype(np.float32))
+            .to(dtype) for _ in range(2))
+    dout = t(1e-5 * rng.standard_normal((2, 40, 4, 16)).astype(np.float32)
+             ).to(dtype)
+    out, lse = attention.flash_attention_fwd(q, k, v, causal=True,
+                                             return_lse=True)
+    unit = unit_rms(dout)
+    scale = float(unit.float().abs().max() / dout.float().abs().max())
+    assert scale == 2.0 ** round(np.log2(scale)) and scale > 1e4
+    assert 0.5 < float(unit.float().pow(2).mean().sqrt()) < 2
+    small = attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=True)
+    big = attention.flash_attention_bwd(q, k, v, out, lse, unit, causal=True)
+    for a, b in zip(small, big):
+        assert b.dtype == dtype and torch.equal(b, a * scale)
+
+
 # ------------------------------------------------------- fused CE loss
 @pytest.mark.parametrize("chunk", [5, 1024])
 def test_fused_ce_loss_matches_reference(chunk):

@@ -3,6 +3,7 @@
 the smoke script import it too.
 """
 import itertools
+import math
 
 import numpy as np
 import torch
@@ -51,20 +52,35 @@ def bf16_attn_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 #: flash backward kernel cases (S, head_dim, H/KV, causal, dtype): ragged
-#: and one-token sequences, both head dims, no GQA and Qwen2-7B's 7 query
-#: heads a KV head.  Shared by the card tests and chip_smoke.py.
+#: and one-token sequences, S = 200 across two 128-row tiles raggedly, S =
+#: 1000 whose last 128-row tile is cut inside its second 64-row half (the
+#: tensor-core kernels tile 128 queries or keys a CTA and 64 a step), both
+#: head dims, no GQA and Qwen2-7B's 7 query heads a KV head.  Shared by the
+#: card tests and chip_smoke.py.
 FLASH_BWD_CASES = tuple(itertools.product(
-    (1, 63, 2048), (64, 128), (1, 7), (True, False),
+    (1, 63, 200, 1000, 2048), (64, 128), (1, 7), (True, False),
     (torch.float32, torch.bfloat16)))
 
 
-def flash_bwd_inputs(rng, s: int, hd: int, g: int, dtype, dev):
-    """q, k, v, dout of a :data:`FLASH_BWD_CASES` case: batch 2, 2 KV heads
-    and 2 g query heads, standard normal."""
+def flash_bwd_inputs(rng, s: int, hd: int, g: int, dtype, dev, *,
+                     batch: int = 2, kv: int = 2):
+    """q, k, v, dout of a :data:`FLASH_BWD_CASES` case: ``batch`` (2)
+    sequences, ``kv`` (2) KV heads and ``kv`` g query heads, standard
+    normal."""
     def one(heads):
-        return torch.from_numpy(rng.standard_normal((2, s, heads, hd))
+        return torch.from_numpy(rng.standard_normal((batch, s, heads, hd))
                                 .astype(np.float32)).to(dev, dtype)
-    return one(2 * g), one(2), one(2), one(2 * g)
+    return one(kv * g), one(kv), one(kv), one(kv * g)
+
+
+def unit_rms(t: torch.Tensor) -> torch.Tensor:
+    """``t`` times the power of two that brings its RMS nearest 1.  The
+    product is exact in any float type, and dq, dk, dv are linear in dout,
+    so a backward fed ``unit_rms(dout)`` gives its gradients times that
+    power, exactly: what a gradient check sees at a scale where
+    :func:`bwd_tol`'s ulp term, not its absolute floor, rules."""
+    rms = float(t.float().pow(2).mean().sqrt())
+    return t * 2.0 ** -round(math.log2(rms)) if rms > 0 else t
 
 
 def bwd_tol(want: torch.Tensor, dtype) -> float:
