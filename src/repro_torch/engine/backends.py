@@ -19,9 +19,9 @@ Built-ins:
 
   * ``cuda`` — the hand-written kernels: ``create_index`` is ``cam_match``
     then ``bit_transpose``, ``query`` is ``bitmap_query``, ``run_program`` is
-    ``bulk_program`` then the tail mask, ``run_program_stacked`` is the
-    stacked ``bulk_program`` launch (tails masked per segment in the
-    kernel).  On CPU tensors each kernel wrapper runs its plain version.
+    the counted ``bulk_program`` launch, ``run_program_stacked`` the stacked
+    counted launch (tail masks and popcounts in the kernel's epilogue).
+    On CPU tensors each kernel wrapper runs its plain version.
   * ``ref`` — the plain-torch oracle (per-pass bucket body).
   * ``bulk`` — the plain-torch tiled sweep (whole-bucket ``run_program``).
 

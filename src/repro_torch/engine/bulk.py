@@ -7,14 +7,16 @@ operand row once, and the AND over literals, the De-Morgan xor, the AND
 over passes and the OR over groups fold before the result rows are written;
 tail masking + popcount follow once per query.
 
-:func:`run_program` goes through the ``bulk_program`` wrapper
-(:func:`repro_torch.kernels.bitmap_ops.bulk_program`), which decides the
-route by the device of the tensors (the reference switches on
-``jax.default_backend()`` instead): a CUDA tensor launches the kernel, a
-CPU tensor runs the plain sweep, which chunks the QUERY axis whenever the
-``(Q, G, P, Nw)`` accumulator would outgrow
-:data:`~repro_torch.kernels.bitmap_ops.SWEEP_BUDGET_BYTES`, and any other
-device raises.
+:func:`run_program` goes through the counted ``bulk_program`` wrapper
+(:func:`repro_torch.kernels.bitmap_ops.bulk_program_counted`), which
+decides the route by the device of the tensors (the reference switches on
+``jax.default_backend()`` instead): a CUDA tensor launches the kernel,
+whose epilogue masks the tail and popcounts, so no plain-torch pass
+follows it on the card; a CPU tensor runs the plain sweep, which chunks
+the QUERY axis whenever the ``(Q, G, P, Nw)`` accumulator would outgrow
+:data:`~repro_torch.kernels.bitmap_ops.SWEEP_BUDGET_BYTES`, then the tail
+mask and popcount; any other device raises.  :func:`run_program_stacked`
+does the same through the stacked counted launch.
 
 :func:`run_program_plain` runs the plain sweep on any device: the ``bulk``
 backend uses it, so that on the card it stays a plain-torch reference
@@ -83,10 +85,11 @@ def run_program(aug: torch.Tensor, num_records: int, sels: torch.Tensor,
     """Whole-bucket executor (the ``Backend.run_program`` hook): aug
     (M+1, Nw) with the all-ones identity row at M, selector arrays
     (Q, G, P, L), post xor masks (Q, G, P) -> (rows (Q, Nw), counts (Q,))
-    with tails masked past ``num_records``.  The ``bulk_program`` kernel on
-    a CUDA tensor, the plain sweep on a CPU tensor; raises elsewhere."""
-    return policy.mask_tail(bitmap_ops.bulk_program(aug, sels, invs, post),
-                            num_records)
+    with tails masked past ``num_records``.  One counted ``bulk_program``
+    launch on a CUDA tensor (mask and popcount in its epilogue), the plain
+    sweep then ``mask_tail`` on a CPU tensor; raises elsewhere."""
+    return bitmap_ops.bulk_program_counted(aug, num_records, sels, invs,
+                                           post)
 
 
 def run_program_plain(aug: torch.Tensor, num_records: int,
@@ -105,8 +108,8 @@ def run_program_stacked(aug: torch.Tensor, nrecs, sels: torch.Tensor,
     ``Backend.run_program_stacked`` hook): aug (S, M+1, Nw), ``nrecs`` S
     record counts, selector arrays shared by every segment -> (rows
     (S, Q, Nw) with each segment's tail masked past its own count, counts
-    (S, Q)).  One stacked ``bulk_program`` launch on a CUDA tensor, its
-    plain version on a CPU tensor."""
+    (S, Q)).  One stacked counted ``bulk_program`` launch on a CUDA tensor
+    (mask and popcount in its epilogue), its plain version on a CPU
+    tensor."""
     n = torch.tensor(list(nrecs), dtype=torch.int32).to(aug.device)
-    rows = bitmap_ops.bulk_program_stacked(aug, n, sels, invs, post)
-    return rows, policy.popcount(rows).sum(dim=-1, dtype=torch.int32)
+    return bitmap_ops.bulk_program_stacked_counted(aug, n, sels, invs, post)

@@ -39,10 +39,10 @@ SIGNATURES = {
     "bit_transpose": ("bit_transpose_launch", (_P, _P, _I, _I, _P)),
     "bitmap_query": ("bitmap_query_launch", (_P, _P, _P, _P, _I, _I, _P)),
     "bulk_program": ("bulk_program_launch",
-                     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "bulk_program_stacked": ("bulk_program_stacked_launch",
-                             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _P)),
+                     (_P,) * 7 + (_I,) * 8 + (_P,)),
+    "bulk_program_stacked": ("bulk_program_launch",
+                             (_P,) * 7 + (_I,) * 8 + (_P,)),
+    "bulk_program_plan": ("bulk_program_plan", (_I,) * 7 + (_P,)),
     "flash_attention_fwd": ("flash_attention_fwd_launch",
                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P)),
@@ -54,6 +54,7 @@ SIGNATURES = {
 SOURCES = {"cam_match": "cam_match.cu", "bit_transpose": "bit_transpose.cu",
            "bitmap_query": "bitmap_ops.cu", "bulk_program": "bitmap_ops.cu",
            "bulk_program_stacked": "bitmap_ops.cu",
+           "bulk_program_plan": "bitmap_ops.cu",
            "flash_attention_fwd": "attention.cu",
            "flash_attention_bwd": "attention.cu"}
 

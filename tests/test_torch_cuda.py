@@ -36,9 +36,12 @@ from repro_torch.kernels import bit_transpose as tbt
 from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
-from torch_checks import (FLASH_BWD_CASES, STACKED_CASES,
-                          any_int32_cam_inputs, bf16_attn_err, bwd_tol,
-                          flash_bwd_inputs, stacked_program_inputs)
+from torch_checks import (COUNTED_CASES, FLASH_BWD_CASES,
+                          STACKED_CASES, any_int32_cam_inputs, bf16_attn_err,
+                          bulk_counted_inputs, bulk_plan_route,
+                          bulk_routes_seen, bwd_tol,
+                          flash_bwd_inputs, record_cuts,
+                          stacked_program_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -173,6 +176,125 @@ def test_bulk_program_stacked_kernel(dev, s, m, nw, shape, literals):
     assert tbq.bulk_program_stacked.launches == n0 + 1
     assert got.shape == (s, shape[0], nw)
     assert torch.equal(got, tbq.bulk_program_stacked_plain(*args))
+
+
+@pytest.mark.parametrize("m,nw,shape,literals", COUNTED_CASES)
+def test_bulk_program_counted_kernel(dev, m, nw, shape, literals):
+    """The 2-D counted form against its plain version at record counts of
+    0, 1, 32 Nw - 5, 32 Nw and mid-word; the unmasked form on the same
+    inputs; launches counted on ``bulk_program``; both forms take the route
+    of the C entry's plan (held against its mirror), and the profiler sees
+    no kernel of the other route."""
+    rng = np.random.default_rng(m * 7 + nw)
+    aug, sels, invs, post = (torch.from_numpy(a).to(dev) for a in
+                             bulk_counted_inputs(rng, m, nw, shape, literals))
+    for n in record_cuts(nw):
+        n0 = tbq.bulk_program.launches
+        got_r, got_c = tbq.bulk_program_counted(aug, n, sels, invs, post)
+        want_r, want_c = tbq.bulk_program_counted_plain(aug, n, sels, invs,
+                                                        post)
+        torch.cuda.synchronize()
+        assert tbq.bulk_program.launches == n0 + 1
+        assert got_c.shape == (shape[0],) and got_c.dtype == torch.int32
+        assert torch.equal(got_r, want_r) and torch.equal(got_c, want_c)
+    got = tbq.bulk_program(aug, sels, invs, post)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tbq.bulk_program_plain(aug, sels, invs, post))
+    route = bulk_plan_route(1, m, nw, shape, stacked=False, counted=True)
+    assert route == bulk_plan_route(1, m, nw, shape, stacked=False,
+                                    counted=False)
+    seen = bulk_routes_seen(lambda: (
+        tbq.bulk_program(aug, sels, invs, post),
+        tbq.bulk_program_counted(aug, 32 * nw - 5, sels, invs, post)), 2)
+    assert seen[route] <= 2 and not any(
+        n for r, n in seen.items() if r != route)
+
+
+@pytest.mark.parametrize("s,m,nw,shape,literals", STACKED_CASES)
+def test_bulk_program_stacked_counted_kernel(dev, s, m, nw, shape, literals):
+    """The stacked counted form against its plain version; the uncounted
+    stacked form on the same inputs; both take the route of the C entry's
+    plan (held against its mirror), and the profiler sees no kernel of the
+    other route."""
+    rng = np.random.default_rng(s * 1000 + nw + 1)
+    args = [torch.from_numpy(a).to(dev) for a in stacked_program_inputs(
+        rng, s, m, nw, shape, literals)]
+    n0 = tbq.bulk_program_stacked.launches
+    got_r, got_c = tbq.bulk_program_stacked_counted(*args)
+    got = tbq.bulk_program_stacked(*args)
+    want_r, want_c = tbq.bulk_program_stacked_counted_plain(*args)
+    torch.cuda.synchronize()
+    assert tbq.bulk_program_stacked.launches == n0 + 2
+    assert got_c.shape == (s, shape[0])
+    assert torch.equal(got_r, want_r) and torch.equal(got_c, want_c)
+    assert torch.equal(got, want_r)
+    route = bulk_plan_route(s, m, nw, shape, stacked=True, counted=True)
+    assert route == bulk_plan_route(s, m, nw, shape, stacked=True,
+                                    counted=False)
+    seen = bulk_routes_seen(lambda: (tbq.bulk_program_stacked_counted(*args),
+                                 tbq.bulk_program_stacked(*args)), 2)
+    assert seen[route] <= 2 and not any(
+        n for r, n in seen.items() if r != route)
+
+
+def test_bulk_program_counted_launches_are_bit_identical(dev):
+    """Two launches of each counted form give the same rows and counts
+    (count partials are summed by integer atomics), on a bucket whose
+    queries share rows."""
+    rng = np.random.default_rng(33)
+    assert all(bulk_plan_route(s, 256, 8192, (64, 4, 2, 4), stacked=s > 1,
+                               counted=True) == "staged" for s in (1, 2))
+    aug, sels, invs, post = (torch.from_numpy(a).to(dev) for a in
+                             bulk_counted_inputs(rng, 256, 8192,
+                                                 (64, 4, 2, 4)))
+    runs = [tbq.bulk_program_counted(aug, 8192 * 32 - 77, sels, invs, post)
+            for _ in range(2)]
+    stack = torch.stack([aug, aug.flip(1)])          # row M stays all ones
+    nrecs = torch.tensor([8192 * 32, 4000], dtype=torch.int32, device=dev)
+    runs_s = [tbq.bulk_program_stacked_counted(stack, nrecs, sels, invs,
+                                               post) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in (runs, runs_s):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(runs[0][1], tbq.bulk_program_counted_plain(
+        aug, 8192 * 32 - 77, sels, invs, post)[1])
+
+
+def test_bucket_executors_on_the_card_run_no_plain_mask(dev, monkeypatch):
+    """``run_program`` and ``run_program_stacked`` on CUDA tensors reach the
+    counted kernels: the plain tail mask and popcount never run (they are
+    made to raise), one launch each."""
+    from repro_torch.engine import bulk as tbulk
+    from repro_torch.engine import policy
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(34)
+    aug, nrecs, sels, invs, post = (
+        torch.from_numpy(a).to(dev) for a in stacked_program_inputs(
+            rng, 3, 40, 4099, (8, 2, 2, 4), "mixed"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("plain tail mask/popcount on the card")
+
+    for mod in (policy, ref):
+        monkeypatch.setattr(mod, "popcount", plain)
+        monkeypatch.setattr(mod, "tail_mask", plain)
+    monkeypatch.setattr(policy, "mask_tail", plain)
+    counts0 = (tbq.bulk_program.launches, tbq.bulk_program_stacked.launches)
+    n = int(nrecs[1])
+    rows, counts = tbulk.run_program(aug[1].contiguous(), n, sels, invs,
+                                     post)
+    rows_s, counts_s = tbulk.run_program_stacked(aug, nrecs.tolist(), sels,
+                                                 invs, post)
+    torch.cuda.synchronize()
+    assert (tbq.bulk_program.launches - counts0[0],
+            tbq.bulk_program_stacked.launches - counts0[1]) == (1, 1)
+    monkeypatch.undo()
+    want = tbq.bulk_program_counted_plain(aug[1], n, sels, invs, post)
+    want_s = tbq.bulk_program_stacked_counted_plain(aug, nrecs, sels, invs,
+                                                    post)
+    assert torch.equal(rows, want[0]) and torch.equal(counts, want[1])
+    assert torch.equal(rows_s, want_s[0]) and torch.equal(counts_s,
+                                                          want_s[1])
 
 
 def test_stacked_segments_match_per_segment_and_ref(dev):

@@ -95,8 +95,10 @@ def bwd_tol(want: torch.Tensor, dtype) -> float:
 
 
 #: stacked ``bulk_program`` cases (S, M, Nw, (Q, G, P, L), literals):
-#: one, three and eight segments, ragged Nw, Q past grid.y's 65535, and
-#: every literal inverted.  Shared by the card tests and chip_smoke.py.
+#: one, three and eight segments, ragged Nw, Q past grid.y's 65535, every
+#: literal inverted, and queries of 512 literals over M = 500, past the
+#: staged route's 351 rows (the gather route).  Shared by the card tests
+#: and chip_smoke.py.
 STACKED_CASES = (
     (1, 13, 1001, (8, 4, 2, 4), "mixed"),
     (3, 13, 1001, (8, 4, 2, 4), "mixed"),
@@ -104,6 +106,7 @@ STACKED_CASES = (
     (8, 13, 33, (4, 2, 2, 8), "mixed"),
     (3, 5, 33, (65536, 1, 1, 1), "mixed"),
     (3, 13, 300, (4, 2, 2, 8), "all inverted"),
+    (2, 500, 130, (4, 8, 2, 32), "mixed"),
 )
 
 
@@ -122,3 +125,140 @@ def stacked_program_inputs(rng, s: int, m: int, nw: int, shape, literals):
             else rng.integers(0, 2, shape).astype(np.int32))
     post = np.where(rng.random(shape[:3]) < 0.3, -1, 0).astype(np.int32)
     return aug.view(np.int32), nrecs, sels, invs, post
+
+
+# The staged bulk_program route's constants and plan, mirrored from
+# src/repro_torch/csrc/bitmap_ops.cu, which owns them.  The model test in
+# tests/test_torch_bulk.py holds the schedule they give against the
+# reference; the card tests and chip_smoke.py hold the mirror against the
+# C entry's own plan (bulk_plan_route) and that route against the kernel
+# the profiler sees launched.
+BULK_THREADS, BULK_GATHER_WPT = 256, 4
+BULK_STAGES, BULK_TW_LG, BULK_RING_BYTES = 2, 9, 88 << 10
+BULK_DCAP = BULK_RING_BYTES // (BULK_STAGES * 32 * 4) - 1
+BULK_HBITS, BULK_PROG_LITS, BULK_QCAP, BULK_QPI = 10, 4096, 1024, 4
+
+
+def bulk_staged_plan(s: int, m: int, nw: int, q: int, gpl: int, ctas: int):
+    """(chunk queries qc, chunks, strips) of the staged route for ``ctas``
+    resident CTAs, or None when the bucket takes the gather route."""
+    if gpl > BULK_PROG_LITS:
+        return None
+    cap = min(BULK_QCAP, BULK_PROG_LITS // gpl)
+    tiles = -(-nw // (1 << BULK_TW_LG))
+    chunks = -(-q // cap)
+    if s * tiles * chunks < ctas:
+        want = -(-ctas // (s * tiles))
+        chunks = max(want, chunks) if want < q else q
+    qc = -(-q // chunks)
+    nchunks = -(-q // qc)
+    nstrips = min(-(-ctas // (s * nchunks)), tiles)
+    return (qc, nchunks, nstrips) if min(qc * gpl, m) <= BULK_DCAP else None
+
+
+#: the kernel of each ``bulk_program`` route, as the profiler names it
+BULK_KERNELS = {"staged": "bulk_staged_kernel",
+                "gather": "bulk_gather_kernel"}
+
+
+def bulk_routes_seen(fn, launches: int) -> dict:
+    """Launches of each ``bulk_program`` route's kernel that the profiler
+    sees over one call of ``fn`` on the card, which makes ``launches``
+    launches: {"staged": n, "gather": n}.  The profiler can miss a
+    session's first kernel, so a session starts with a marker kernel
+    (``torch.cuda._sleep``'s); it now and then misses more, up to all of
+    them: up to three calls, until it sees them all.  It never sees a
+    launch that was not made, so a kernel seen was launched, while a count
+    below ``launches`` shows nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        seen = {route: sum(ev.count for ev in prof.key_averages()
+                           if name in ev.key)
+                for route, name in BULK_KERNELS.items()}
+        if sum(seen.values()) >= launches:
+            break
+    return seen
+
+
+def bulk_plan_route(s: int, m: int, nw: int, shape, *, stacked: bool,
+                    counted: bool) -> str:
+    """The route that ``bitmap_ops.bulk_program_plan`` gives for a bucket
+    on the current card, after holding the mirror :func:`bulk_staged_plan`
+    (at the resident CTAs the C entry plans for) against its schedule."""
+    from repro_torch.kernels import bitmap_ops
+    plan = bitmap_ops.bulk_program_plan(s, m, nw, shape, stacked=stacked,
+                                        counted=counted)
+    q, g, p, l = shape
+    mirror = bulk_staged_plan(s if stacked else 1, m, nw, q, g * p * l,
+                              plan["ctas"])
+    want = ((plan["qc"], plan["chunks"], plan["strips"])
+            if plan["route"] == "staged" else None)
+    if mirror != want:
+        raise AssertionError(f"bulk_staged_plan {mirror} disagrees with the "
+                             f"C entry's plan {plan} at S={s} M={m} Nw={nw} "
+                             f"{tuple(shape)}")
+    return plan["route"]
+
+
+def bulk_staged_route(s: int, m: int, nw: int, shape, ctas: int) -> str:
+    """The route a bucket of program shape (Q, G, P, L) takes."""
+    q, g, p, l = shape
+    return ("staged" if bulk_staged_plan(s, m, nw, q, g * p * l, ctas)
+            else "gather")
+
+
+def bulk_tile_words(d: int, nw: int) -> int:
+    """The staged route's tile width for ``d`` distinct rows (a stage holds
+    them and an all-ones row)."""
+    lg = BULK_TW_LG
+    while lg > 5 and BULK_STAGES * (d + 1) * (4 << lg) > BULK_RING_BYTES:
+        lg -= 1
+    while lg > 5 and (1 << (lg - 1)) >= nw:
+        lg -= 1
+    return 1 << lg
+
+
+def bulk_counted_inputs(rng, m: int, nw: int, shape, literals="mixed"):
+    """numpy int32 inputs of a 2-D ``bulk_program``: aug (M+1, Nw) with the
+    all-ones identity row at M and a random program over [0, M] (sels,
+    invs, post).  ``literals``: "mixed" inversions, "all inverted", or
+    "every row" (mixed, and every row of aug selected at least once)."""
+    aug = rng.integers(0, 2 ** 32, (m + 1, nw), dtype=np.uint32)
+    aug[m] = 0xFFFFFFFF
+    if literals == "every row":
+        size = int(np.prod(shape))
+        assert size >= m + 1
+        sels = rng.permutation(np.resize(np.arange(m + 1), size))
+        sels = sels.reshape(shape).astype(np.int32)
+    else:
+        sels = rng.integers(0, m + 1, shape).astype(np.int32)
+    invs = (np.ones(shape, np.int32) if literals == "all inverted"
+            else rng.integers(0, 2, shape).astype(np.int32))
+    post = np.where(rng.random(shape[:3]) < 0.3, -1, 0).astype(np.int32)
+    return aug.view(np.int32), sels, invs, post
+
+
+#: counted ``bulk_program`` cases (M, Nw, (Q, G, P, L), literals): the 2-D
+#: card cases, Nw % 4 != 0, Q past grid.y's 65535, every literal inverted,
+#: and M = 4096 with every row selected by queries of 4096 literals, past
+#: the staged route's 351 rows (the gather route).  Shared by the card
+#: tests and chip_smoke.py.
+COUNTED_CASES = (
+    (13, 1001, (8, 4, 2, 4), "mixed"),
+    (256, 4096, (16, 2, 1, 4), "mixed"),
+    (5, 33, (65536, 1, 1, 1), "mixed"),
+    (13, 300, (2, 128, 1, 64), "mixed"),
+    (13, 1002, (4, 2, 2, 8), "all inverted"),
+    (4096, 129, (2, 32, 1, 128), "every row"),
+)
+
+
+def record_cuts(nw: int) -> tuple:
+    """Record counts that cut a row of ``nw`` words: none, one record, 5
+    short of full, full, and mid-word."""
+    return (0, 1, 32 * nw - 5, 32 * nw, 16 * nw + 7)
