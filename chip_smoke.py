@@ -265,6 +265,33 @@ Phases (any failure exits non-zero and prints no result):
    all three printed); the card's last checkpoint (parameters, moments and
    step) must restore into ``repro_torch`` on the CPU bit for bit.
 
+14. The static analysis and the runtime lock witness
+   (``repro_torch.analysis``), after phase 13 has freed its model (phase
+   3's rows, counts and index wait on the host meanwhile).  a:
+   ``repro_torch.analysis.run`` over this checkout must leave no finding
+   outside the committed baseline and no stale baseline entry; the
+   findings per checker are printed.  b: ``repro_torch.analysis.witness``
+   is installed, then fresh objects are built (a lock made before the
+   install stays unwrapped): a ``BitmapDB(num_keys=256, device="cuda")``
+   takes the 8 phase-3 blocks and ``serve(max_batch=256,
+   max_delay_ms=2.0)`` answers 8 submitters x 1 round of the wave; 11c's
+   durable session runs again (4 blocks appended while 4 threads submit,
+   at least 3 background spills, recovery, the free disk checked first);
+   ``FabricClient.local`` over 4 shards of 2^23 records serves the wave
+   once, then takes one exactly-once append and its resend (acknowledged
+   ``duplicate=True``).  Every answer must be phase 3's (cut to the
+   records its wave saw), the ladder counters 0, every wave on ``cuda``
+   and the bitmap kernels' launch counters above 0 in each run.  After
+   ``uninstall()`` the witness must hold no violation of the rank table of
+   ``src/repro_torch/analysis/TABLES.md``; every observed (outer, inner)
+   pair is printed with its first site.  The run fails if the witness was
+   vacuous: each of ``WITNESS_LOCKS`` must be a wrapped lock carrying its
+   id, and some ``FabricClient`` lock must have been held while a
+   shard-side lock (``SHARD_LOCKS``) was taken (the loopback transport
+   runs the host handler on the calling thread).  c: the phase's wall
+   time, and the storm's queries/s under the witness beside phase 11a's;
+   no timed phase runs under the witness.
+
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
 ragged Nw, Q past 65535, every literal inverted, D past the staged
@@ -1107,8 +1134,9 @@ def _submitters(n: int, body) -> tuple[list, list, list]:
 
 def service_path(torch, dev, db, host_blocks, wave, mix, p3, zero_counts,
                  read_counts, read_waves, repro_torch, BitmapDB, tstep,
-                 policy, records, sync_times: dict) -> None:
-    """Phase 11 (see the module docstring)."""
+                 policy, records, sync_times: dict) -> dict:
+    """Phase 11 (see the module docstring); returns 11a's storm
+    metrics."""
     # ---- 11a. the storm
     svc = db.serve(max_batch=256, max_delay_ms=2.0, idle_after_ms=200.0)
     t0 = time.perf_counter()
@@ -1247,6 +1275,21 @@ def service_path(torch, dev, db, host_blocks, wave, mix, p3, zero_counts,
     torch.cuda.empty_cache()
 
     # ---- 11c. durable under service
+    durable_m = durable_service(torch, dev, host_blocks, wave, p3,
+                                zero_counts, read_counts, read_waves,
+                                repro_torch, BitmapDB, policy, records,
+                                sync_times)
+    print(json.dumps({"service_path": {"storm": storm_m,
+                                       "durable": durable_m}}))
+    return storm_m
+
+
+def durable_service(torch, dev, host_blocks, wave, p3, zero_counts,
+                    read_counts, read_waves, repro_torch, BitmapDB, policy,
+                    records, sync_times: dict, label: str = "durable service",
+                    keep: dict | None = None) -> dict:
+    """Phase 11c (and 14b's durable session) in a temporary directory,
+    after checking its free disk; ``keep`` receives the session's locks."""
     n_dur = DURABLE_BLOCKS * BLOCK
     need = (n_dur * W * 4 + 2 * DURABLE_BLOCKS * M * (BLOCK // 32) * 4
             + (64 << 20))
@@ -1254,22 +1297,22 @@ def service_path(torch, dev, db, host_blocks, wave, mix, p3, zero_counts,
     free = shutil.disk_usage(root).free
     try:
         if free < need:
-            raise SystemExit(f"durable service: needs {need} bytes free "
-                             f"under {root}, {free} are")
-        durable_m = _durable_service(
+            raise SystemExit(f"{label}: needs {need} bytes free under "
+                             f"{root}, {free} are")
+        out = _durable_service(
             torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
             read_waves, repro_torch, BitmapDB, policy, root, records,
-            sync_times)
+            sync_times, label, keep)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    durable_m.update(need_bytes=need, free_bytes=free)
-    print(json.dumps({"service_path": {"storm": storm_m,
-                                       "durable": durable_m}}))
+    out.update(need_bytes=need, free_bytes=free)
+    return out
 
 
 def _durable_service(torch, dev, host_blocks, wave, p3, zero_counts,
                      read_counts, read_waves, repro_torch, BitmapDB, policy,
-                     root, records, sync_times: dict) -> dict:
+                     root, records, sync_times: dict, label: str,
+                     keep: dict | None) -> dict:
     import threading
     ddb = BitmapDB(num_keys=M, path=root, spill_records=BLOCK, device=dev)
     svc = ddb.serve(maintenance=True)
@@ -1306,30 +1349,35 @@ def _durable_service(torch, dev, host_blocks, wave, p3, zero_counts,
     for th in threads:
         th.join(900)
     if any(th.is_alive() for th in threads) or not svc.drain(timeout=600):
-        raise SystemExit("durable service: a submitter or the drain hung")
+        raise SystemExit(f"{label}: a submitter or the drain hung")
     if not svc._maint_ex.flush(timeout=900):
-        raise SystemExit("durable service: maintenance did not flush")
+        raise SystemExit(f"{label}: maintenance did not flush")
     torch.cuda.synchronize()
     launches = read_counts("cam_match", "bit_transpose", "bulk_program",
                            "bitmap_query")
-    waves = read_waves("durable service")
+    waves = read_waves(label)
     m = svc.metrics()
     st = svc._maint_ex.stats()
-    ladder = ladder_clean(svc, "durable service")
+    ladder = ladder_clean(svc, label)
+    if keep is not None:
+        keep.update({"MaintenanceExecutor._cv": svc._maint_ex._cv,
+                     "StreamingIndexer._mu": ddb._si._mu,
+                     "SegmentStore._flush_lock": ddb.store._flush_lock,
+                     "SegmentStore._lock": ddb.store._lock})
     svc.close(timeout=600)
     spills = st["completed"].get("spill", 0)
     if bad or any(s != sorted(s) for s in seqs):
-        raise SystemExit(f"durable service: {len(bad)} answers differ from "
+        raise SystemExit(f"{label}: {len(bad)} answers differ from "
                          f"phase 3's masked rows ({bad[:5]}) or a thread's "
                          "futures resolved out of order")
     if spills < 3 or st["errors"] or min(launches.values()) < 1:
-        raise SystemExit(f"durable service: {spills} spills, {st['errors']} "
+        raise SystemExit(f"{label}: {spills} spills, {st['errors']} "
                          f"maintenance errors, launches {launches}")
     for rec in records:
         if rec["name"] in launches:
             rec.setdefault("service_launches", {})["11c"] = \
                 launches[rec["name"]]
-    print(f"durable service: {DURABLE_BLOCKS} appends of {BLOCK} records "
+    print(f"{label}: {DURABLE_BLOCKS} appends of {BLOCK} records "
           f"with the spill in the background, append wall (host, "
           f"unsynchronized) {append_s} s, beside phase 8's synchronous WAL "
           f"append {sync_times['wal_append_s']} s and segment write + "
@@ -1350,9 +1398,9 @@ def _durable_service(torch, dev, host_blocks, wave, p3, zero_counts,
     want = p3["packed"][:, :DURABLE_BLOCKS * BLOCK // 32]
     if rdb.num_records != DURABLE_BLOCKS * BLOCK or not torch.equal(
             rdb.index.packed, want):
-        raise SystemExit("durable service: the recovered index differs from "
+        raise SystemExit(f"{label}: the recovered index differs from "
                          f"phase 3's first {DURABLE_BLOCKS * BLOCK} records")
-    print(f"durable service: repro_torch.open after close in {recover_s} s "
+    print(f"{label}: repro_torch.open after close in {recover_s} s "
           f"({len(rdb.store.segments)} segments): index bit-identical to "
           f"phase 3's first {DURABLE_BLOCKS * BLOCK} records")
     del rdb
@@ -2266,6 +2314,200 @@ def restart_path(torch, dev, seed: int) -> dict:
     return out
 
 
+#: phase 14: the locks that must be wrapped by the port's witness (each a
+#: ``witness._Wrapped`` carrying this id), so that the witness was not
+#: vacuous
+WITNESS_LOCKS = ("BitmapService._cv", "BitmapService._elock",
+                 "MaintenanceExecutor._cv", "StreamingIndexer._mu",
+                 "SegmentStore._flush_lock", "SegmentStore._lock",
+                 "FabricClient._flush_lock", "ServiceHost._append_lock")
+#: phase 14: shard-side locks; a FabricClient lock held while one of these
+#: is taken is the loopback nesting only the runtime witness can see
+SHARD_LOCKS = ("ServiceHost._append_lock", "BitmapService._close_lock",
+               "BitmapService._flush_lock", "BitmapService._cv",
+               "BitmapService._elock", "MaintenanceExecutor._cv",
+               "SegmentStore._flush_lock", "StreamingIndexer._mu",
+               "SegmentStore._lock")
+
+
+def witness_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+                 read_waves, repro_torch, BitmapDB, policy, sync_times: dict,
+                 storm_11a: dict) -> None:
+    """Phase 14 (see the module docstring)."""
+    import collections
+    t_phase = time.perf_counter()
+    from repro_torch import analysis
+    from repro_torch.analysis import witness
+    from repro_torch.analysis.core import default_baseline_path
+    from repro_torch.fabric import FabricClient, ShardMap
+    from repro_torch.fabric.envelope import Envelope
+    from repro_torch.serve.service import ServiceConfig
+
+    # ---- 14a. the static analysis of the checkout
+    t0 = time.perf_counter()
+    findings = analysis.run(ROOT)
+    unbase, supp, stale = analysis.Baseline.load(
+        default_baseline_path()).split(findings)
+    per_checker = collections.Counter(f.checker for f in findings)
+    print(f"analysis: {len(findings)} findings in "
+          f"{time.perf_counter() - t0} s, per checker {dict(per_checker)}: "
+          f"{len(unbase)} unbaselined, {len(supp)} baselined, {len(stale)} "
+          f"stale baseline entries")
+    if unbase or stale:
+        raise SystemExit("analysis: " + "; ".join(
+            [f.render() for f in unbase] + [str(e) for e in stale]))
+
+    # ---- 14b. the witness over the concurrent paths, at full size
+    p3_rows, p3_counts = p3["rows"], p3["counts"].tolist()
+    bitmap = ("bulk_program", "bitmap_query")
+    wrapped, out = {}, {}
+    wit = witness.install(ROOT)
+    try:
+        # 1. the service storm over a fresh 2^25-record session
+        db = BitmapDB(num_keys=M, device=dev)
+        for blk in host_blocks:
+            db.append_encoded(blk)
+        svc = db.serve(max_batch=256, max_delay_ms=2.0)
+        wrapped.update({"BitmapService._cv": svc._cv,
+                        "BitmapService._elock": svc._elock})
+
+        def body(t, seqs, bad):
+            futs = [(i, svc.submit(q)) for i, q in enumerate(wave)]
+            for i, f in futs:
+                row, cnt = f.result(timeout=600)
+                if not (torch.equal(row, p3_rows[i])
+                        and int(cnt) == p3_counts[i]):
+                    bad.append((t, i))
+                seqs.append(f.resolve_seq)
+        zero_counts()
+        threads, seqs, bad = _submitters(SERVICE_THREADS, body)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        storm_s = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or \
+                not svc.drain(timeout=600):
+            raise SystemExit("witness storm: a submitter or the drain hung")
+        torch.cuda.synchronize()
+        n_q = SERVICE_THREADS * len(wave)
+        if bad or svc.metrics().served != n_q or \
+                any(s != sorted(s) for s in seqs):
+            raise SystemExit(f"witness storm: answers differ from phase 3's "
+                             f"{bad[:5]} or futures resolved out of order")
+        launches = read_counts(*bitmap)
+        if min(launches.values()) < 1:
+            raise SystemExit(f"witness storm: launches {launches}")
+        out["storm"] = {"queries": n_q, "storm_s": storm_s,
+                        "queries_per_s": n_q / storm_s,
+                        "ladder": ladder_clean(svc, "witness storm"),
+                        "launches": launches,
+                        "waves": read_waves("witness storm")}
+        svc.close(timeout=300)
+        del svc, db
+        repro_torch.engine.batch._AUG_CACHE.clear()
+        gc.collect()
+        print(f"witness storm: {SERVICE_THREADS} threads x 1 round of the "
+              f"{len(wave)}-query wave over a fresh {BLOCKS * BLOCK}-record "
+              f"session, every answer phase 3's: {n_q} queries in {storm_s}"
+              f" s = {out['storm']['queries_per_s']} queries/s under the "
+              f"witness (phase 11a, 4 rounds without it: "
+              f"{storm_11a['queries_per_s']} queries/s); ladder "
+              f"{out['storm']['ladder']}; launches {launches}; waves per "
+              f"backend {out['storm']['waves']}")
+
+        # 2. the durable session with background spills (11c's)
+        out["durable"] = durable_service(
+            torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+            read_waves, repro_torch, BitmapDB, policy, [], sync_times,
+            label="witness durable service", keep=wrapped)
+        gc.collect()
+
+        # 3. the loopback fabric over 4 shards, one wave and one
+        #    exactly-once append with its resend
+        per = BLOCKS // FABRIC_SHARDS
+        sm = ShardMap.blocked(FABRIC_SHARDS, block_size=per * BLOCK)
+        gids = [np.arange(s * per * BLOCK, (s + 1) * per * BLOCK,
+                          dtype=np.int64) for s in range(FABRIC_SHARDS)]
+        cfg = {"max_batch": 256, "max_delay_ms": 2.0}
+        zero_counts()
+        dbs = []
+        for s in range(FABRIC_SHARDS):
+            sdb = BitmapDB(num_keys=M, device=dev)
+            for blk in host_blocks[s * per:(s + 1) * per]:
+                sdb.append_encoded(blk)
+            dbs.append(sdb)
+        fc = FabricClient.local(dbs, sm, gids=gids,
+                                service_config=ServiceConfig(**cfg), **cfg)
+        try:
+            wave_ms = fabric_wave(fc, wave,
+                                  p3_rows.cpu().numpy().view(np.uint32),
+                                  p3_counts, "witness fabric")
+            shard = int(sm.route(host_blocks[0][:1],
+                                 start_gid=fc.num_records)[0])
+            n = fc.append_encoded(host_blocks[0])
+            seq = fc._next_seq[shard]
+            dup = fc._shard_request(shard, Envelope("append", payload={
+                "stream": fc._stream, "seq": seq,
+                "records": np.asarray(host_blocks[0], np.int32)}),
+                hedge=False)
+            total = sum(p["num_records"] for p in fc.info())
+            want = (BLOCKS + 1) * BLOCK
+            if not dup.payload["duplicate"] or n != want or total != want:
+                raise SystemExit(f"witness fabric: exactly-once append: "
+                                 f"duplicate {dup.payload}, client {n}, "
+                                 f"shards {total}, want {want}")
+            for h in fc.health()["shards"]:
+                ladder_of(h, f"witness fabric, shard {h['shard_id']}")
+            wrapped.update({"FabricClient._flush_lock": fc._flush_lock,
+                            "ServiceHost._append_lock":
+                                fc._owned_hosts[shard]._append_lock})
+            torch.cuda.synchronize()
+            launches = read_counts("cam_match", "bit_transpose", *bitmap)
+            if min(launches.values()) < 1:
+                raise SystemExit(f"witness fabric: launches {launches}")
+            out["fabric"] = {"wave_ms": wave_ms, "append_shard": shard,
+                             "launches": launches,
+                             "waves": read_waves("witness fabric")}
+        finally:
+            fc.close(timeout=300)
+        del dbs, fc
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"witness fabric: the wave over {FABRIC_SHARDS} loopback "
+              f"shards bit-identical to phase 3's in {wave_ms} ms; block 0 "
+              f"appended to shard {shard} (seq {seq}), the resent seq "
+              f"acknowledged duplicate={dup.payload['duplicate']}, info() "
+              f"totals {total}; launches {out['fabric']['launches']}; waves "
+              f"per backend {out['fabric']['waves']}")
+    finally:
+        witness.uninstall()
+    violations = wit.violations()
+    pairs = sorted(wit.pairs.items())
+    for (outer, inner), (fn, line, held) in pairs:
+        print(f"  witness pair {outer} -> {inner}: first at "
+              f"{os.path.relpath(fn, ROOT)}:{line} (held "
+              f"{' -> '.join(held)})")
+    bare = [lid for lid in WITNESS_LOCKS
+            if not (isinstance(wrapped.get(lid), witness._Wrapped)
+                    and wrapped[lid].lock_id == lid)]
+    client = [(a, b) for (a, b), _ in pairs
+              if a.startswith("FabricClient.") and b in SHARD_LOCKS]
+    phase_s = time.perf_counter() - t_phase
+    print(f"witness: {len(pairs)} observed (outer, inner) pairs, "
+          f"{len(violations)} violations; the {len(WITNESS_LOCKS)} named "
+          f"locks wrapped: {not bare}; client-to-shard nestings {client}; "
+          f"phase 14 took {phase_s} s")
+    if violations or bare or not client:
+        raise SystemExit(f"witness: violations {violations}, locks not "
+                         f"wrapped {bare}, client-to-shard nestings {client}")
+    out.update(phase_s=phase_s, pairs=len(pairs), findings=dict(per_checker),
+               baselined=len(supp),
+               client_to_shard=[list(p) for p in client])
+    print(json.dumps({"witness_path": out}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3100,15 +3342,18 @@ def main() -> int:
                           BitmapDB, args.seed)
 
     # ---- 11. the service on the card -------------------------------------
-    service_path(torch, dev, sdb, host_blocks, wave, mix, p3, zero_counts,
-                 read_counts, read_waves, repro_torch, BitmapDB, tstep,
-                 policy, records, sync_times)
+    storm_11a = service_path(torch, dev, sdb, host_blocks, wave, mix, p3,
+                             zero_counts, read_counts, read_waves,
+                             repro_torch, BitmapDB, tstep, policy, records,
+                             sync_times)
 
     # ---- 12. the shard fabric on the card ---------------------------------
     fabric_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
                 read_waves, BitmapDB, records)
 
     # ---- 13. the training path on the card --------------------------------
+    # phase 3's answers wait on the host for phase 14
+    p3_host = {k: p3[k].cpu() for k in ("rows", "counts", "packed")}
     del sdb, p3
     batch._AUG_CACHE.clear()
     gc.collect()
@@ -3118,6 +3363,16 @@ def main() -> int:
     training_path(torch, dev, args.seed, zero_counts, counted, read_waves,
                   kernel, records)
     restart_path(torch, dev, args.seed)
+
+    # ---- 14. the analysis and the lock witness on the card ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    p3 = {k: v.to(dev) for k, v in p3_host.items()}
+    del p3_host
+    witness_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
+                 read_waves, repro_torch, BitmapDB, policy, sync_times,
+                 storm_11a)
+    del p3
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -24,6 +24,8 @@ beside the ``cuda`` backend's kernel.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.engine import policy
@@ -111,5 +113,15 @@ def run_program_stacked(aug: torch.Tensor, nrecs, sels: torch.Tensor,
     (S, Q)).  One stacked counted ``bulk_program`` launch on a CUDA tensor
     (mask and popcount in its epilogue), its plain version on a CPU
     tensor."""
-    n = torch.tensor(list(nrecs), dtype=torch.int32).to(aug.device)
+    n = _record_counts(tuple(int(c) for c in nrecs), aug.device)
     return bitmap_ops.bulk_program_stacked_counted(aug, n, sels, invs, post)
+
+
+@functools.lru_cache(maxsize=64)
+def _record_counts(nrecs: tuple[int, ...], device: torch.device
+                   ) -> torch.Tensor:
+    """The segments' record counts as an int32 tensor on ``device``,
+    uploaded once per (counts, device): a blocking copy from pageable
+    memory inside the executor would synchronize the stream on every
+    stacked bucket."""
+    return torch.tensor(nrecs, dtype=torch.int32).to(device)

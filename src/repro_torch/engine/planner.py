@@ -398,6 +398,16 @@ def _factored_constants(groups: tuple, device: torch.device):
     return tuple(out)
 
 
+def compiled_plan_cache_info():
+    """Exposed for tests/benchmarks: the executor cache statistics."""
+    return _compiled.cache_info()
+
+
+def plan_constant_cache_info():
+    """Exposed for tests/benchmarks: the plan-constant cache statistics."""
+    return _plan_constants.cache_info()
+
+
 def check_key_range(mentioned: Iterable[int], num_keys: int) -> None:
     """Raise on any key id outside [0, num_keys) — a gather would fault or
     mis-select, and the batch layer's virtual identity row lives at index
@@ -484,3 +494,24 @@ def execute(packed: torch.Tensor, predicate: Union[Pred, AnyPlan], *,
         name = backends.resolve_backend(backend, packed.device)
     check_key_range(mentioned, packed.shape[0])
     return _run(packed, pl, int(num_records), name)
+
+
+def evaluate_dense(pred: Pred, dense) -> torch.Tensor:
+    """Reference semantics on a dense (M, N) {0,1} matrix (a tensor or an
+    array) -> (N,) bool tensor — test oracle."""
+    d = torch.as_tensor(dense).to(torch.bool)
+
+    def ev(p) -> torch.Tensor:
+        if isinstance(p, Key):
+            return d[p.index]
+        if isinstance(p, Not):
+            return ~ev(p.child)
+        if isinstance(p, And):
+            return functools.reduce(lambda a, b: a & b,
+                                    (ev(c) for c in p.children))
+        if isinstance(p, Or):
+            return functools.reduce(lambda a, b: a | b,
+                                    (ev(c) for c in p.children))
+        raise TypeError(f"not a predicate: {p!r}")
+
+    return ev(pred)

@@ -121,6 +121,14 @@ def unpack_bits(packed: torch.Tensor, length: int | None = None) -> torch.Tensor
     return bits
 
 
+def cam_match_unpacked(records: torch.Tensor, keys: torch.Tensor
+                       ) -> torch.Tensor:
+    """(N, W) records x (M,) keys -> (N, M) int32 {0, 1}: record n contains
+    key m.  Unchunked: an (N, M, W) compare (small inputs only)."""
+    eq = records[:, None, :] == keys[None, :, None]          # (N, M, W)
+    return eq.any(dim=-1).to(torch.int32)
+
+
 def cam_match(records: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     """records (N, W) x keys (M,) -> packed (N, ceil(M/32)) int32 match
     bits: bit m of record n is set when any word of record n equals key m.

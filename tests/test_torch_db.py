@@ -16,6 +16,8 @@ from repro.core import bic as jbic
 from repro_torch import db as tdb
 from repro_torch.core import bic as tbic
 from repro_torch.engine import planner as tplanner
+from torch_witness import (torch_lock_witness,  # noqa: F401
+                           torch_witness_isolation)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
 import quickstart  # noqa: E402  (make_rows / brute / the column vocab)

@@ -25,6 +25,7 @@ from repro_torch.engine import planner as tplanner
 from repro_torch.engine import policy as tpolicy
 from repro_torch.engine import runtime as truntime
 from repro_torch.kernels import bitmap_ops as tbq
+from repro_torch.kernels import ref as tref
 
 PORT_BACKENDS = ("ref", "bulk", "cuda")
 
@@ -198,6 +199,70 @@ def test_key_range_is_checked():
                             num_records=50)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_evaluate_dense_matches_reference(seed):
+    """The dense test oracle: the same (M, N) {0, 1} matrix and predicate
+    trees give the same (N,) bools, which are also the packed executor's
+    bits."""
+    rng = np.random.default_rng(seed)
+    n = 77
+    dense = (rng.random((12, n)) < 0.5).astype(np.uint32)
+    packed = tref.pack_bits(torch.nn.functional.pad(
+        torch.from_numpy(dense.astype(np.int32)), (0, (-n) % 32)))
+    for tp, jp in zip(_wave(seed, 10, tplanner), _wave(seed, 10, jplanner)):
+        got = tplanner.evaluate_dense(tp, torch.from_numpy(dense))
+        want = jplanner.evaluate_dense(jp, jnp.asarray(dense))
+        assert got.dtype == torch.bool and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        row, cnt = tplanner.execute(packed, tp, num_records=n,
+                                    backend="ref")
+        np.testing.assert_array_equal(
+            tref.unpack_bits(row, n).numpy().astype(bool), got.numpy())
+        assert int(cnt) == int(got.sum())
+
+
+def test_compiled_plan_cache_counts_like_reference():
+    """``tests/test_engine.py``'s executor-cache test through both
+    packages: the same plan shape with other key ids is a cache hit and
+    adds no executor."""
+    rng = np.random.default_rng(3)
+    packed = words(rng, 16, 2)
+
+    def moves(pkg, idx):
+        before = pkg.compiled_plan_cache_info().currsize
+        pkg.execute(idx, (pkg.key(1) | pkg.key(2)) & pkg.key(3),
+                    num_records=64, backend="ref")
+        mid = pkg.compiled_plan_cache_info()
+        pkg.execute(idx, (pkg.key(9) | pkg.key(4)) & pkg.key(7),
+                    num_records=64, backend="ref")
+        after = pkg.compiled_plan_cache_info()
+        return (mid.currsize >= before, after.currsize - mid.currsize,
+                after.hits - mid.hits >= 1)
+
+    assert moves(tplanner, t32(packed)) == \
+        moves(jplanner, jnp.asarray(packed)) == (True, 0, True)
+
+
+def test_plan_constant_cache_counts_like_reference():
+    """A re-executed plan re-uploads no literal in either package: three
+    calls, three or more hits, no new entry."""
+    rng = np.random.default_rng(4)
+    packed = words(rng, 16, 2)
+
+    def moves(pkg, idx):
+        pl = pkg.plan((pkg.key(1) | pkg.key(2)) & pkg.key(3))
+        pkg.execute(idx, pl, num_records=64, backend="ref")
+        before = pkg.plan_constant_cache_info()
+        for _ in range(3):
+            pkg.execute(idx, pl, num_records=64, backend="ref")
+        after = pkg.plan_constant_cache_info()
+        return (after.hits >= before.hits + 3,
+                after.currsize - before.currsize)
+
+    assert moves(tplanner, t32(packed)) == \
+        moves(jplanner, jnp.asarray(packed)) == (True, 0)
+
+
 # ------------------------------------------------------------ batch
 @pytest.mark.parametrize("backend", PORT_BACKENDS)
 @pytest.mark.parametrize("n,factor,pad_output", [
@@ -220,6 +285,31 @@ def test_execute_many_matches_reference(backend, n, factor, pad_output):
     assert got_r.shape == tuple(want_r.shape)
     np.testing.assert_array_equal(u32(got_r[:q]), np.asarray(want_r)[:q])
     np.testing.assert_array_equal(got_c[:q].numpy(), np.asarray(want_c)[:q])
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_padded_buckets_in_input_order_keep_their_rows(backend):
+    """Two buckets of 3 queries in input order, each padded to 4 rows:
+    with ``pad_output`` every query's row is still its own, equal to the
+    reference's answer for that query alone.  (The reference's wave
+    shortcut tests the order alone and returns these rows shifted by the
+    first bucket's pad row; the service, which pads, hit it.)"""
+    rng = np.random.default_rng(11)
+    n = 128
+    packed = words(rng, 12, n // 32)
+
+    def wave(kind):
+        k = kind.key
+        return [k(1), k(2), k(3), k(4) & ~k(5), k(6) & ~k(7), k(8) & ~k(9)]
+    rows, counts = tbatch.execute_many(t32(packed), wave(tplanner),
+                                       num_records=n, backend=backend,
+                                       pad_output=True)
+    assert rows.shape == (8, n // 32)
+    for i, jq in enumerate(wave(jplanner)):
+        want_r, want_c = jplanner.execute(jnp.asarray(packed), jq,
+                                          num_records=n, backend="ref")
+        np.testing.assert_array_equal(u32(rows[i]), np.asarray(want_r))
+        assert int(counts[i]) == int(want_c)
 
 
 def test_execute_many_empty_and_executor_cache():

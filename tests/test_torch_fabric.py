@@ -24,6 +24,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_witness import (torch_lock_witness,  # noqa: E402,F401
+                           torch_witness_isolation)
+
 M = 16
 HALF = M // 2
 T = 60.0          # every wait / join / result is bounded by this

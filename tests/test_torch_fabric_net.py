@@ -22,6 +22,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_witness import (torch_lock_witness,  # noqa: E402,F401
+                           torch_witness_isolation)
+
 from test_torch_fabric import (J, M, P, PKGS, T, _db,  # noqa: E402
                                _records, _schema, _single_node, _trim)
 

@@ -62,6 +62,26 @@ def test_popcount_and_shift_edges():
 
 
 # ------------------------------------------------------------- cam_match
+@pytest.mark.parametrize("n,w,m", [(8, 32, 32), (19, 7, 37), (1, 3, 1)])
+def test_cam_match_unpacked_matches_reference(n, w, m):
+    """The unpacked match matrix, bit-identical to the reference's, and
+    packing it gives the packed plain version's words."""
+    rng = np.random.default_rng(n * 1000 + m)
+    records = rng.integers(0, 2 * m, (n, w), dtype=np.int32)
+    keys = rng.integers(0, 2 * m, m, dtype=np.int32)
+    got = tref.cam_match_unpacked(torch.from_numpy(records),
+                                  torch.from_numpy(keys))
+    want = jref.cam_match_unpacked(jnp.asarray(records), jnp.asarray(keys))
+    assert got.shape == (n, m) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                  np.asarray(want))
+    pad = (-m) % 32
+    packed = tref.pack_bits(torch.nn.functional.pad(got, (0, pad)))
+    np.testing.assert_array_equal(
+        u32(packed), u32(tref.cam_match(torch.from_numpy(records),
+                                        torch.from_numpy(keys))))
+
+
 @pytest.mark.parametrize("n,w,m", [
     (8, 32, 32),         # paper-like core geometry
     (64, 32, 128),

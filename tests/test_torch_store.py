@@ -25,6 +25,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_witness import (torch_lock_witness,  # noqa: E402,F401
+                           torch_witness_isolation)
+
 import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402
