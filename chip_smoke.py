@@ -291,6 +291,47 @@ Phases (any failure exits non-zero and prints no result):
    runs the host handler on the calling thread).  c: the phase's wall
    time, and the storm's queries/s under the witness beside phase 11a's;
    no timed phase runs under the witness.
+15. Sliding windows, offsets and the VLM prefix (ROADMAP A10.2), after
+   phase 14.  a: Gemma3-4B at its published config (34 layers, d_model
+   2560, 8 query / 4 KV heads x 256, d_ff 10240, vocab 262144, GeGLU,
+   qk-norm, tied head, window 1024 on every layer but each 6th), random
+   bf16 weights from ``--seed``, ``greedy_generate`` of WIN_STEPS tokens
+   for WIN_BATCH prompts of WIN_PROMPT = 4096 tokens (the window covers
+   under half of a causal row; the decode positions are past it on every
+   local layer), every counter zeroed around it: one flash launch a layer
+   (34) and the plain versions made to raise.  Prefill and decode timed;
+   layers 0 (local), 5 (global) and 33 captured by hooks with the window
+   each was given, the kernel there held against its plain version by
+   both bf16 checks of phase 2; the prefill's last-position logits against
+   the plain route (``plain_routes``, which must receive every layer's
+   window) in bf16 and fp32 as in phase 7; the card's busy time and idle
+   share over one prefill (whose profile must show ``flash_fwd_kernel``
+   and no ``flash_fwd_wgmma``: head_dim 256) and one decode step; row 5w
+   (the kernel at
+   layer 0's shape beside its plain version, SDPA under the window's
+   boolean mask, whose kernels are printed, and its bound: the allowed
+   pairs x 4 hd flops over 989e12 flop/s against the bytes of q, k, v, o);
+   and the kernel at layer 0 beside layer 5 at the same shape, a ratio
+   near the allowed pairs' 0.44 when whole tiles outside the window are
+   skipped.  b: Qwen2-VL-7B at its published config, 4 prompts of 2048
+   positions whose first 1024 are the visual prefix (fp32 standard normal
+   x 0.02 from ``--seed``) with M-RoPE positions on a 32 x 32 grid
+   (``torch_checks.grid_positions``; text token j at 32 + j in every
+   stream), 32 greedy steps (decode positions pos0 + arange, the
+   reference's): 28 flash launches a prefill, the logits against the
+   plain route as in a, and the grid must move them past the fp32 route
+   tolerance against three equal streams.  c: one windowed training step
+   at Gemma3's width, its 34 layers cut to 6 (one local:global period;
+   16 B a parameter of fp32 state is 62 GB at 34 layers before
+   activations), remat full, 2 x 4096 tokens: the loss and layer 0's
+   wq/wk/wv gradients against the plain route within ROUTE_TOL, one step
+   counted (12 forward and 6 backward launches, no plain version), one
+   timed with its peak memory, one profiled (the CUDA-core backward pair
+   seen, never the tensor-core pair), the backward kernel at layers 0 and 5
+   against its plain version on the step's unit-RMS dout, and row 5bw (the
+   backward at layer 0's shape beside its plain version, SDPA's backward
+   under the same mask and its bound: 2.5x the forward's flops against the
+   bytes of q, k, v, o, dout, lse, dq, dk, dv).
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -319,7 +360,18 @@ inputs, max|plain| printed beside each tolerance; the profiler must see
 the tensor-core pair (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``)
 for bf16 at head_dim 64 and 128 and the CUDA-core pair
 (``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``) for fp32 and for
-bf16 at head_dim 32.  Each
+bf16 at head_dim 32.  Then both flash kernels under a mask, at
+``tests/torch_checks.py``'s ``FLASH_WINDOW_CASES`` (S = 63, 200, 1000,
+2048 x window 1, 64, 100, 1024 x head_dim 64, 128, 256 x H/KV 1 and 7 (2
+at 256) x fp32 and bf16, causal) and ``FLASH_OFFSET_CASES`` (a chunk of
+queries against a longer cache with and without a window, one decode
+position, kv_len < Skv causal and full, cross attention, rows that see no
+key; each at head_dim 64, 128, 256 in fp32 and bf16), through
+``flash_mask_ratios``: the forward within ``attn_tol`` and, for bf16,
+``bf16_attn_err``, the lse within 1e-5, dq, dk, dv within ``bwd_tol`` and
+two backward launches bit-identical; the profiler must see the
+tensor-core forward and backward kernels for bf16 under a window at
+head_dim 64 and 128 and the CUDA-core ones at 256.  Each
 path (phases 3, 8, 9) is driven with every launch counter set to 0 just
 before it and read just after; so is each of phases 10, 11 and 12a's runs
 (11b's wake and one-shot step together).  Each of those runs also fails
@@ -331,6 +383,7 @@ card's ``nvidia-smi`` name and power limit, and the result JSON.
 """
 import argparse
 import atexit
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -394,6 +447,14 @@ RESTART_STEPS = (4, 2)      # phase 13b: steps, and the checkpoint restarted
 #: about b1^2 of its value; a reduction summed in another order moves it
 #: by fp32 rounding (about 1e-7 of its value).
 RESTART_MOMENT_TOL = 1e-3
+WIN_ARCH = "gemma3-4b"      # phase 15a and c: sliding windows, head_dim 256
+#: phase 15a: prompts of 4096, so that the window (1024) covers under half
+#: of a causal row, and 32 greedy steps past the window on every local layer
+WIN_BATCH, WIN_PROMPT, WIN_STEPS = 4, 4096, 32
+VLM_ARCH = "qwen2-vl-7b"    # phase 15b: M-RoPE and the visual prefix
+VLM_BATCH, VLM_PROMPT = 4, 2048
+WIN_TRAIN_LAYERS = 6        # phase 15c: Gemma3's 34 layers cut to 6
+WIN_TRAIN_BATCH = 2         # phase 15c: batches of 2 x WIN_PROMPT tokens
 
 
 def serving_mix(planner, m: int, count: int, seed: int) -> list:
@@ -654,16 +715,6 @@ def bulk_beside(torch, label: str, forms: dict, rows, plain_mask,
     record["beside"] = {k: {"card_ms": min(t for t, _ in v),
                             "kernel_ms": min(k_ for _, k_ in v)}
                         for k, v in times.items()}
-
-
-def attn_tol(want, dtype) -> float:
-    """Kernel-vs-plain tolerance of the flash kernel: the reference test's
-    atol for fp32 inputs; for bf16, one bf16 ulp at the output's largest
-    magnitude (each side rounds an fp32 result to bf16 once)."""
-    import torch
-    if dtype == torch.float32:
-        return 2e-5
-    return 2.0 ** -7 * float(want.float().abs().max())
 
 
 def block_records(seed: int, b: int) -> np.ndarray:
@@ -1812,6 +1863,91 @@ def check_flash_backward(torch, dev, rng, attention) -> None:
               f"launch each of {BWD_KERNELS[route]} ({route})")
 
 
+#: the kernels of each route of the two C entries under a window, as the
+#: profiler names them: bf16 at head_dim 64 / 128 on the tensor cores, 256
+#: (Gemma3's) on the CUDA cores
+MASK_KERNELS = {
+    "tensor cores": ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                     "flash_bwd_dkdv_wgmma"),
+    "CUDA cores": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkdv_kernel")}
+
+
+def check_flash_masked(torch, dev, rng, attention) -> None:
+    """Phase 2's windowed and offset checks (see the module docstring)."""
+    from torch_checks import (FLASH_OFFSET_CASES, FLASH_WINDOW_CASES,
+                              flash_bwd_inputs, flash_mask_ratios)
+    cases = [(f"S={s_} window={w_} hd={hd} H/KV={g}", hd, dt,
+              (s_, hd, g, dt), {"skv": None},
+              {"causal": True, "window": w_})
+             for s_, w_, hd, g, dt in FLASH_WINDOW_CASES]
+    for sq, skv, qo, kl, w_, causal in FLASH_OFFSET_CASES:
+        for hd, dt in itertools.product((64, 128, 256),
+                                        (torch.float32, torch.bfloat16)):
+            g = 2 if hd == 256 else 7
+            cases.append((f"Sq={sq} Skv={skv} q_offset={qo} kv_len={kl} "
+                          f"window={w_} causal={causal} hd={hd} H/KV={g}",
+                          hd, dt, (sq, hd, g, dt), {"skv": skv},
+                          {"causal": causal, "window": w_, "q_offset": qo,
+                           "kv_len": kl}))
+    worst, n_cases = {}, {}
+    for case, hd, dt, shape, extra, mask in cases:
+        q, k, v, dout = flash_bwd_inputs(rng, *shape, dev, **extra)
+        ratios = flash_mask_ratios(attention, q, k, v, dout, **mask)
+        torch.cuda.synchronize()
+        for name, ratio in ratios.items():
+            if not ratio <= 1:
+                raise SystemExit(f"flash kernels under a mask: {name} "
+                                 f"err/tol {ratio} at {case} {dt} (repeat: "
+                                 f"two backward launches differ)")
+            key = (str(dt), hd, name)
+            worst[key] = max(worst.get(key, (0.0, "")), (ratio, case))
+            n_cases[key] = n_cases.get(key, 0) + 1
+    for (dt, hd, name), (ratio, case) in sorted(worst.items()):
+        print(f"check flash under a mask {dt} hd={hd} {name}: "
+              f"{n_cases[dt, hd, name]} windowed and offset cases within "
+              f"tolerance, worst err/tol {ratio} at {case}")
+    # under a window the C entries pick each route's kernels: the profiler
+    # must see none of the other route's, in up to three sessions of the
+    # forward and of the backward alone (phase 2's unmasked shape).  It
+    # loses kernel records, up to all of a session's (PERF.md section 7;
+    # it lost this forward's in every session of two runs of phase 2 while
+    # the card tests saw it), so what it saw of the route's own kernels is
+    # printed, never required
+    for hd, route in ((64, "tensor cores"), (128, "tensor cores"),
+                      (256, "CUDA cores")):
+        q, k, v, dout = flash_bwd_inputs(rng, 300, hd, 2, torch.bfloat16,
+                                         dev)
+        out, lse = attention.flash_attention_fwd(q, k, v, causal=True,
+                                                 window=64, return_lse=True)
+        calls = {"forward": lambda: attention.flash_attention_fwd(
+            q, k, v, causal=True, window=64),
+                 "backward": lambda: attention.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=True, window=64)}
+        for (what, fn), want in zip(calls.items(), (
+                MASK_KERNELS[route][:1], MASK_KERNELS[route][1:])):
+            got = dict.fromkeys((n for names in MASK_KERNELS.values()
+                                 for n in names), 0)
+            for _ in range(3):
+                seen = {}
+                device_profile(torch, fn, 1, seen)
+                for n in got:
+                    got[n] += launches_named(seen, n)
+                if all(got[n] for n in want):
+                    break
+            others = {n: c for n, c in got.items() if n not in want and c}
+            if others:
+                raise SystemExit(f"flash {what} under a window, bf16 "
+                                 f"hd={hd}: the profiler saw {others}, "
+                                 f"kernels of the route other than "
+                                 f"{route}'s {want}")
+            print(f"check flash {what} under a window, bf16 hd={hd}: no "
+                  f"kernel of the other route; of {want} ({route}) the "
+                  f"profiler saw {[got[n] for n in want]} launches in "
+                  f"sessions of one call (last session's kernels: "
+                  f"{sorted(seen)[:4]})")
+
+
 def check_step_backward(seen: dict, layers: int, label: str) -> dict:
     """The backward kernels the profiler saw over one train step (``seen``,
     {kernel: launches}): one launch a layer of each tensor-core kernel and
@@ -1841,31 +1977,77 @@ def backward_launch_ms(torch, attention, args, reps: int = 10) -> dict:
             for k, v in by_name.items() if "flash_bwd" in k}
 
 
-def _plain_attention_vjp(torch, attention, kernel_forward: bool = False):
-    """flash_attention_vjp with the plain backward on the card, after the
-    plain forward or, with ``kernel_forward``, the forward kernel (phase
-    13a's comparison routes, here only: the package has no switch)."""
+def plain_routes(torch, attention, kernel_forward: bool = False,
+                 windows: list | None = None):
+    """Plain stand-ins for ``models.flash``'s two entries, the comparison
+    routes of phases 7, 13a and 15 (here only: the package has no switch):
+    (serving forward, training vjp).  Both forward the mask arguments
+    (``window``, ``q_offset``, ``kv_len``) and append each call's window
+    to ``windows``.  The vjp runs the plain backward after the plain
+    forward or, with ``kernel_forward``, after the forward kernel."""
     fwd = (attention.flash_attention_fwd if kernel_forward
            else attention.flash_attention_fwd_plain)
 
     class PlainVJP(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, causal):
-            out, lse = fwd(q, k, v, causal=causal, return_lse=True)
+        def forward(ctx, q, k, v, causal, mask):
+            out, lse = fwd(q, k, v, causal=causal, return_lse=True, **mask)
             ctx.save_for_backward(q, k, v, out, lse)
-            ctx.causal = causal
+            ctx.causal, ctx.mask = causal, mask
             return out
 
         @staticmethod
         def backward(ctx, dout):
             q, k, v, out, lse = ctx.saved_tensors
             return (*attention.flash_attention_bwd_plain(
-                q, k, v, out, lse, dout.contiguous(), causal=ctx.causal),
-                None)
+                q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+                **ctx.mask), None, None)
 
-    def vjp(q, k, v, *, causal, **options):
-        return PlainVJP.apply(q, k, v, causal)
-    return vjp
+    def mask_of(window, q_offset, kv_len):
+        if windows is not None:
+            windows.append(window)
+        return {"window": window, "q_offset": q_offset, "kv_len": kv_len}
+
+    def serve(q, k, v, *, causal, window=None, q_offset=0, kv_len=None):
+        return attention.flash_attention_fwd_plain(
+            q, k, v, causal=causal, **mask_of(window, q_offset, kv_len))
+
+    def vjp(q, k, v, *, causal, window=None, q_offset=0, kv_len=None,
+            **options):
+        return PlainVJP.apply(q, k, v, causal,
+                              mask_of(window, q_offset, kv_len))
+    return serve, vjp
+
+
+@contextlib.contextmanager
+def swapped(tflash, serve=None, vjp=None):
+    """``models.flash``'s serving and training entries replaced (those
+    given) for the block's duration."""
+    saved = tflash.flash_attention, tflash.flash_attention_vjp
+    tflash.flash_attention = serve or saved[0]
+    tflash.flash_attention_vjp = vjp or saved[1]
+    try:
+        yield
+    finally:
+        tflash.flash_attention, tflash.flash_attention_vjp = saved
+
+
+@contextlib.contextmanager
+def no_plain_attention(attention):
+    """The flash wrappers' plain versions made to raise for the block's
+    duration: a call on the card that is not a kernel launch fails."""
+    saved = (attention.flash_attention_fwd_plain,
+             attention.flash_attention_bwd_plain)
+
+    def refuse(*args, **kwargs):
+        raise SystemExit("a flash wrapper ran its plain version on the card")
+    attention.flash_attention_fwd_plain = refuse
+    attention.flash_attention_bwd_plain = refuse
+    try:
+        yield
+    finally:
+        (attention.flash_attention_fwd_plain,
+         attention.flash_attention_bwd_plain) = saved
 
 
 def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
@@ -1938,20 +2120,15 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
     from torch_checks import bwd_tol, unit_rms
     last = cfg.num_layers - 1
     names = [(i, n) for i in (0, last) for n in ("wq", "wk", "wv")]
-    vjps = {"kernel": tflash.flash_attention_vjp,
-            "mixed": _plain_attention_vjp(torch, attention,
-                                          kernel_forward=True),
-            "plain": _plain_attention_vjp(torch, attention)}
+    vjps = {"kernel": None,
+            "mixed": plain_routes(torch, attention, kernel_forward=True)[1],
+            "plain": plain_routes(torch, attention)[1]}
 
     def route(batch, which: str):
-        kernel_vjp = tflash.flash_attention_vjp
-        tflash.flash_attention_vjp = vjps[which]
-        try:
+        with swapped(tflash, vjp=vjps[which]):
             params.requires_grad_(True)
             loss, _ = tmodel.lm_loss(params, cfg, batch)
             loss.backward()
-        finally:
-            tflash.flash_attention_vjp = kernel_vjp
         grads = {(i, n): getattr(params.layers[i], n).grad.clone()
                  for i, n in names}
         params.zero_grad(set_to_none=True)
@@ -2004,51 +2181,38 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
         return hook
     hooks = [params.layers[i].attn_core.register_forward_hook(capture(i))
              for i in (0, last)]
-    plain_calls = {"fwd": 0, "bwd": 0}
-    plain_fwd = attention.flash_attention_fwd_plain
-    plain_bwd = attention.flash_attention_bwd_plain
-
-    def counting(fn, name):
-        def call(*a, **kw):
-            plain_calls[name] += 1
-            return fn(*a, **kw)
-        return call
-    attention.flash_attention_fwd_plain = counting(plain_fwd, "fwd")
-    attention.flash_attention_bwd_plain = counting(plain_bwd, "bwd")
     # The step runs under the profiler, which now and then records
     # nothing or misses launches: then the next step (the same batch) is
     # profiled, up to three steps, each counted alike, and a step that
-    # nothing recorded fails
+    # nothing recorded fails; the plain versions raise meanwhile
     losses, first_s = [], None
     try:
-        for attempt in range(3):
-            zero_counts()
-            first_seen, res = {}, []
-            t0 = time.perf_counter()
-            device_profile(torch, lambda: res.append(step(params, opt,
-                                                          first)),
-                           1, first_seen)
-            params, opt, m = res[0]
-            first_s = first_s or time.perf_counter() - t0
-            losses.append(float(m["loss"]))
-            step_launches = {n: fn.launches for n, fn in counted.items()}
-            print(f"train step {attempt + 1}: under the profiler, loss "
-                  f"{losses[-1]}, launches {step_launches}, plain attention "
-                  f"calls {plain_calls}, {sum(first_seen.values())} card "
-                  f"kernels recorded")
-            if (step_launches["flash_attention_fwd"] != 2 * cfg.num_layers
-                    or step_launches["flash_attention_bwd"] != cfg.num_layers
-                    or any(plain_calls.values())):
-                raise SystemExit(f"train step: want {2 * cfg.num_layers} "
-                                 f"forward and {cfg.num_layers} backward "
-                                 f"kernel launches and no plain route, saw "
-                                 f"{step_launches}, {plain_calls}")
-            if all(launches_named(first_seen, n) >= cfg.num_layers
-                   for n in BWD_KERNELS["tensor cores"]):
-                break
+        with no_plain_attention(attention):
+            for attempt in range(3):
+                zero_counts()
+                first_seen, res = {}, []
+                t0 = time.perf_counter()
+                device_profile(torch, lambda: res.append(step(params, opt,
+                                                              first)),
+                               1, first_seen)
+                params, opt, m = res[0]
+                first_s = first_s or time.perf_counter() - t0
+                losses.append(float(m["loss"]))
+                step_launches = {n: fn.launches for n, fn in counted.items()}
+                print(f"train step {attempt + 1}: under the profiler, loss "
+                      f"{losses[-1]}, launches {step_launches}, no plain "
+                      f"attention, {sum(first_seen.values())} card kernels "
+                      f"recorded")
+                if (step_launches["flash_attention_fwd"] != 2 * cfg.num_layers
+                        or step_launches["flash_attention_bwd"]
+                        != cfg.num_layers):
+                    raise SystemExit(f"train step: want {2 * cfg.num_layers} "
+                                     f"forward and {cfg.num_layers} backward "
+                                     f"kernel launches, saw {step_launches}")
+                if all(launches_named(first_seen, n) >= cfg.num_layers
+                       for n in BWD_KERNELS["tensor cores"]):
+                    break
     finally:
-        attention.flash_attention_fwd_plain = plain_fwd
-        attention.flash_attention_bwd_plain = plain_bwd
         for h in hooks:
             h.remove()
     print(f"train step 1: {first_s} s (first, under the profiler)")
@@ -2214,6 +2378,570 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
                "bwd_kernels_seen": bwd_seen, "adamw_ms": adamw_ms}
     print(json.dumps({"train_path": out_rec}))
     del params, opt, ds, stream, first, batch, captured, out, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_rec
+
+
+def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
+               steps: int, zero_counts, counted, label: str, layers
+               ) -> dict:
+    """One LM serving path (phases 7 and 15): ``greedy_generate`` of
+    ``steps`` tokens for ``batch`` (its tokens and any other prefill
+    inputs), every counter zeroed just before and read just after with
+    the flash wrappers' plain versions made to raise: the flash kernel
+    must run once a layer (one prefill).  Then the prefill and the decode
+    steps timed apart (a CUDA synchronize around each), the flash module
+    of each of ``layers`` captured by a hook as (q, k, v, window, out).
+    Returns the path's numbers, its step functions and captures."""
+    tokens = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    B, S = tokens.shape
+    fwd = counted["flash_attention_fwd"]
+    zero_counts()
+    t0 = time.perf_counter()
+    with no_plain_attention(attention):
+        gen = tstep.greedy_generate(params, cfg, tokens, steps=steps,
+                                    **extra)
+        torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    print(f"{label} path: greedy_generate B={B} prompt {S} steps {steps}: "
+          f"{gen_s} s (first run), launches {launches}, no plain attention")
+    if fwd.launches != cfg.num_layers:
+        raise SystemExit(f"{label}: flash_attention_fwd launched "
+                         f"{fwd.launches} times in one prefill, want "
+                         f"{cfg.num_layers}")
+    if gen.shape != (B, steps) or not (
+            0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
+        raise SystemExit(f"{label} path: bad tokens {tuple(gen.shape)}")
+
+    prefill = tstep.make_prefill_step(cfg, max_len=S + steps)
+    decode = tstep.make_decode_step(cfg)
+    captured = {}
+
+    def capture(i):
+        def hook(module, args, kwargs, output):
+            captured[i] = (*args, kwargs.get("window"), output)
+        return hook
+    hooks = [params.layers[i].attn_core.register_forward_hook(
+        capture(i), with_kwargs=True) for i in layers]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    for h in hooks:
+        h.remove()
+    kernel_logits = logits[:, -1, :cfg.vocab_size].float()
+    toks = [kernel_logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        logits, cache = decode(params, {"tokens": toks[-1][:, None],
+                                        "cache": cache})
+        toks.append(logits[:, -1, :cfg.vocab_size].argmax(-1))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    tok_s = B * steps / ((prefill_ms + decode_ms * (steps - 1)) / 1e3)
+    same = int((torch.stack(toks, 1) == gen).sum())
+    print(f"{label} timing: prefill {prefill_ms} ms ({B} x {S} tokens), "
+          f"decode {decode_ms} ms/step, {tok_s} generated tokens/s; "
+          f"{same}/{gen.numel()} tokens equal to the first run's")
+    return {"gen_s": gen_s, "launches": launches, "prefill": prefill,
+            "decode": decode, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "tok_s": tok_s,
+            "kernel_logits": kernel_logits, "captured": captured}
+
+
+def check_layers(attention, captured: dict, windows: list, label: str
+                 ) -> dict:
+    """The flash kernel at the captured layers ((q, k, v, window, out))
+    against its plain version under the window each was given, which must
+    be the model's (``windows``), by both bf16 checks of phase 2."""
+    from torch_checks import attn_tol, bf16_attn_err
+    layer_err = {}
+    for i, (cq, ck, cv, w, cout) in captured.items():
+        if w != windows[i]:
+            raise SystemExit(f"{label}: layer {i} attended with window {w}, "
+                             f"want {windows[i]}")
+        want = attention.flash_attention_fwd_plain(
+            cq.float(), ck.float(), cv.float(), causal=True, window=w)
+        err, tol = max_abs_err(cout, want), attn_tol(want, cout.dtype)
+        elem = bf16_attn_err(cout, want)
+        if not (err <= tol and elem <= 1):
+            raise SystemExit(f"flash_attention_fwd at layer {i} (window "
+                             f"{w}): {err} > {tol} or element err/tol "
+                             f"{elem} > 1")
+        layer_err[i] = {"window": w, "err": err, "tol": tol,
+                        "element": elem}
+    print(f"{label}: flash kernel vs plain at layers {sorted(captured)} (q "
+          f"{tuple(next(iter(captured.values()))[0].shape)}, bf16): "
+          f"{layer_err}")
+    return layer_err
+
+
+def logit_route_checks(torch, tmodel, tflash, attention, cfg, prefill,
+                       params, batch, kernel_logits, label: str) -> dict:
+    """A prefill's last-position logits by the kernel route (bf16:
+    ``kernel_logits``) against the same prefill with the plain attention
+    swapped in (``plain_routes``, which must receive each layer's window),
+    in bf16 and again with the compute dtype set to fp32 (the weights are
+    cast at use, as the reference does): within LOGIT_TOL of their largest
+    magnitude, with argmax equal on every batch row whose top-2 margin
+    exceeds that tolerance."""
+    windows = tmodel.layer_windows(cfg)
+
+    def route_logits(dtype, plain):
+        seen = []
+        tmodel.COMPUTE_DTYPE = dtype
+        try:
+            with swapped(tflash, serve=plain_routes(
+                    torch, attention, windows=seen)[0] if plain else None):
+                out, _ = prefill(params, batch)
+        finally:
+            tmodel.COMPUTE_DTYPE = torch.bfloat16
+        if plain and seen != windows:
+            raise SystemExit(f"{label}: the plain route received the "
+                             f"windows {seen}, want {windows}")
+        return out[:, -1, :cfg.vocab_size].float()
+
+    checks = {}
+    for name, frac in LOGIT_TOL.items():
+        dt = getattr(torch, name)
+        got = (kernel_logits if dt == torch.bfloat16
+               else route_logits(dt, plain=False))
+        want = route_logits(dt, plain=True)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        tol = frac * float(want.abs().max())
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > tol
+        agree = got.argmax(-1) == want.argmax(-1)
+        if not (err <= tol and bool(agree[decided].all())
+                and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"{label} {name}: kernel-route logits differ "
+                             f"from the plain route: {err} > {tol} or argmax "
+                             f"{agree.tolist()} on decided rows "
+                             f"{decided.tolist()}")
+        checks[name] = {"err": err, "tol": tol,
+                        "argmax_agree": int(agree.sum()),
+                        "rows_decided": int(decided.sum())}
+        print(f"{label} {name}: last-position logits, kernel vs plain route: "
+              f"max err {err} <= {tol} ({frac} of max "
+              f"{float(want.abs().max())}); argmax agrees on "
+              f"{int(agree.sum())}/{got.shape[0]} rows ({int(decided.sum())} "
+              f"rows with a top-2 margin above the tolerance)")
+    return checks
+
+
+def sdpa_beside(torch, q, k, v, keep):
+    """``scaled_dot_product_attention`` of the model-layout q (B, S, H, hd)
+    and k/v (B, S, KV, hd) under the boolean mask ``keep`` (S, S), the
+    library yardstick (timed only; the port never calls it): a callable,
+    with k and v broadcast to the H query heads beforehand, and the
+    backend SDPA picks for these inputs (``torch._fused_sdp_choice``)
+    beside the kernels the profiler saw it launch (it can miss them);
+    (None, the error) if SDPA refuses the inputs."""
+    g = q.shape[2] // k.shape[2]
+    sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (
+        q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+
+    def run():
+        return torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=keep)
+    try:
+        run()
+    except RuntimeError as exc:
+        return None, f"refused: {exc}"[:200]
+    try:
+        from torch.nn.attention import SDPBackend
+        backend = SDPBackend(torch._fused_sdp_choice(sq, sk, sv,
+                                                     keep)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError,
+            ValueError) as exc:
+        backend = f"not known ({exc})"[:120]
+    seen = {}
+    device_profile(torch, run, 1, seen)
+    return run, {"backend": backend,
+                 "kernels": sorted(seen, key=lambda n: -seen[n])[:3]}
+
+
+def window_serving(torch, dev, seed: int, zero_counts, counted, kernel
+                   ) -> dict:
+    """Phase 15a (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    from torch_checks import attn_tol
+    cfg = get_config(WIN_ARCH)
+    windows = tmodel.layer_windows(cfg)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in params.parameters())
+    print(f"window lm: {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window}, global layers "
+          f"{[i for i, w in enumerate(windows) if w is None]}): {nparam} "
+          f"parameters, made in {time.perf_counter() - t0} s")
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (WIN_BATCH, WIN_PROMPT))).to(dev)
+    # a local, the first global and the last layer captured; the decode
+    # positions are past the window on every local layer
+    lm = lm_serving(torch, tstep, attention, params, cfg,
+                    {"tokens": prompts}, WIN_STEPS, zero_counts, counted,
+                    "window lm", (0, cfg.global_every - 1,
+                                  cfg.num_layers - 1))
+    prefill, decode, captured = lm["prefill"], lm["decode"], lm["captured"]
+    layer_err = check_layers(attention, captured, windows, "window lm check")
+    logit_checks = logit_route_checks(
+        torch, tmodel, tflash, attention, cfg, prefill, params,
+        {"tokens": prompts}, lm["kernel_logits"], "window lm check")
+
+    # row 5w: the kernel at layer 0's shape (local), beside its plain
+    # version, SDPA under the same boolean mask and its bound; then layer 0
+    # beside the global layer at the same shape
+    fq, fk, fv, w0, fo = captured[0]
+    gq, gk, gv, gw, _ = captured[cfg.global_every - 1]
+    B_, S_, H_, hd_ = fq.shape
+    keep = attention.allowed(S_, S_, causal=True, window=w0, device=dev)
+    pairs = int(keep.sum())
+    library, sdpa_kernels = sdpa_beside(torch, fq, fk, fv, keep)
+    print(f"window lm: SDPA under the window's boolean mask: {sdpa_kernels}")
+    kernel("flash_attention_fwd window", "attention.cu",
+           "src/repro/kernels/attention.py:67",
+           f"q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, causal, window "
+           f"{w0}, bf16",
+           lambda: attention.flash_attention_fwd(fq, fk, fv, causal=True,
+                                                 window=w0),
+           lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
+                                                       causal=True,
+                                                       window=w0),
+           2 * (2 * fq.numel() + fk.numel() + fv.numel()),
+           4 * hd_ * pairs * B_ * H_, 10,
+           count=lm["launches"]["flash_attention_fwd"],
+           tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
+           library=library)
+    local_ms = event_ms(torch, lambda: attention.flash_attention_fwd(
+        fq, fk, fv, causal=True, window=w0), 10, back_to_back=True)
+    global_ms = event_ms(torch, lambda: attention.flash_attention_fwd(
+        gq, gk, gv, causal=True, window=gw), 10, back_to_back=True)
+    pair_ratio = pairs / (S_ * (S_ + 1) // 2)
+    print(f"window lm: the kernel at layer 0 (window {w0}) {local_ms} ms "
+          f"beside the global layer {cfg.global_every - 1} {global_ms} ms at "
+          f"the same shape: ratio {local_ms / global_ms} (allowed pairs "
+          f"{pairs} per (b, h), {pair_ratio} of the causal half; 1.0 would "
+          f"mean the kernel only masks)")
+
+    # where the time goes: one prefill, one decode step.  At head_dim 256
+    # the profiler must see the CUDA-core forward in the prefill, never
+    # flash_fwd_wgmma (a session this long keeps its records)
+    for _ in range(3):          # the profiler now and then misses launches
+        seen = {}
+        prof = {"prefill": profile(
+            f"one windowed prefill ({WIN_BATCH} x {WIN_PROMPT})",
+            *device_profile(torch, lambda: prefill(
+                params, {"tokens": prompts}), 1, seen))}
+        if launches_named(seen, "flash_fwd") >= cfg.num_layers:
+            break
+    flash_kernels = {sym: launches_named(seen, sym)
+                     for sym in ("flash_fwd_wgmma", "flash_fwd_kernel")}
+    print(f"window lm check: the profiler saw {flash_kernels} in the "
+          f"profiled prefill")
+    if flash_kernels["flash_fwd_wgmma"] or not flash_kernels[
+            "flash_fwd_kernel"]:
+        raise SystemExit(f"window lm: want the prefill's flash launches on "
+                         f"the CUDA cores (head_dim {cfg.head_dim}), the "
+                         f"profiler saw {flash_kernels}")
+    prof["prefill"]["flash_kernels"] = flash_kernels
+    logits, cache = prefill(params, {"tokens": prompts})
+    nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    prof["decode"] = profile("one windowed decode step", *device_profile(
+        torch, lambda: decode(params, {"tokens": nxt, "cache": cache})))
+    out = {"arch": cfg.name, "params": nparam, "batch": WIN_BATCH,
+           "prompt": WIN_PROMPT, "steps": WIN_STEPS,
+           "greedy_first_s": lm["gen_s"], "prefill_ms": lm["prefill_ms"],
+           "decode_ms_per_step": lm["decode_ms"],
+           "launches": lm["launches"], "layer_checks": layer_err,
+           "logit_checks": logit_checks, "local_ms": local_ms,
+           "global_ms": global_ms, "local_over_global": local_ms / global_ms,
+           "pair_ratio": pair_ratio, "sdpa_kernels": sdpa_kernels,
+           "profile": prof}
+    print(json.dumps({"window_lm_path": out}))
+    del params, cache, logits, captured, fq, fk, fv, gq, gk, gv, library, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_serving(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 15b (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    from torch_checks import grid_positions
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in params.parameters())
+    print(f"vlm: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model},"
+          f" {cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+          f"M-RoPE sections {cfg.mrope_sections}, visual prefix "
+          f"{cfg.visual_prefix}): {nparam} parameters, made in "
+          f"{time.perf_counter() - t0} s")
+    rng = np.random.default_rng(seed)
+    side = int(round(cfg.visual_prefix ** 0.5))
+    batch = {
+        "tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT))).to(dev),
+        "visual": torch.from_numpy((rng.standard_normal(
+            (VLM_BATCH, cfg.visual_prefix, cfg.d_model)) * 0.02)
+            .astype(np.float32)).to(dev),
+        "mrope_positions": torch.from_numpy(grid_positions(
+            VLM_BATCH, VLM_PROMPT, cfg.visual_prefix, side)).to(dev)}
+    print(f"vlm: {VLM_BATCH} prompts of {VLM_PROMPT} positions, the "
+          f"first {cfg.visual_prefix} a visual prefix in a {side} x {side} "
+          f"M-RoPE grid; decode positions pos0 + arange in all three "
+          f"streams")
+    lm = lm_serving(torch, tstep, attention, params, cfg, batch, WIN_STEPS,
+                    zero_counts, counted, "vlm", ())
+    prefill, kernel_logits = lm["prefill"], lm["kernel_logits"]
+    logit_checks = logit_route_checks(
+        torch, tmodel, tflash, attention, cfg, prefill, params, batch,
+        kernel_logits, "vlm check")
+    # the grid must reach the logits: three equal streams give others
+    flat = dict(batch, mrope_positions=torch.arange(
+        VLM_PROMPT, device=dev)[None, None].expand(3, VLM_BATCH, VLM_PROMPT))
+    flat_logits = prefill(params, flat)[0][:, -1, :cfg.vocab_size].float()
+    moved = max_abs_err(kernel_logits, flat_logits)
+    floor = LOGIT_TOL["float32"] * float(kernel_logits.abs().max())
+    print(f"vlm check: grid positions against three equal streams move the "
+          f"last-position logits by up to {moved} (must exceed {floor}, the "
+          f"fp32 route tolerance)")
+    if not moved > floor:
+        raise SystemExit("vlm: the M-RoPE grid positions do not reach the "
+                         "logits")
+    out = {"arch": cfg.name, "params": nparam, "batch": VLM_BATCH,
+           "prompt": VLM_PROMPT, "visual_prefix": cfg.visual_prefix,
+           "steps": WIN_STEPS, "greedy_first_s": lm["gen_s"],
+           "prefill_ms": lm["prefill_ms"],
+           "decode_ms_per_step": lm["decode_ms"],
+           "launches": lm["launches"], "logit_checks": logit_checks,
+           "grid_vs_equal_streams": moved}
+    print(json.dumps({"vlm_path": out}))
+    del params, batch, flat, kernel_logits, flat_logits, lm, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_training(torch, dev, seed: int, zero_counts, counted, kernel
+                    ) -> dict:
+    """Phase 15c (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    from torch_checks import bwd_tol, unit_rms
+    full = get_config(WIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=WIN_TRAIN_LAYERS,
+                              remat="full")
+    windows = tmodel.layer_windows(cfg)
+    print(f"window train cut: {full.name} at its published width with "
+          f"num_layers {full.num_layers} -> {WIN_TRAIN_LAYERS}, one "
+          f"local:global period (windows {windows}): fp32 master weights, "
+          f"gradients and AdamW moments take {STATE_BYTES_PER_PARAM} B/param,"
+          f" {STATE_BYTES_PER_PARAM} x {full.param_count()} = "
+          f"{STATE_BYTES_PER_PARAM * full.param_count()} B before "
+          f"activations; at {WIN_TRAIN_LAYERS} layers "
+          f"{STATE_BYTES_PER_PARAM * cfg.param_count()} B")
+    torch.cuda.reset_peak_memory_stats()
+    params = tmodel.init_params(cfg, seed=seed, device=dev,
+                                dtype=torch.float32)
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+    opt = init_opt_state(params, ocfg)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (WIN_TRAIN_BATCH, WIN_PROMPT))).to(dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+
+    # the loss and layer 0's q/k/v gradients, kernel route against the
+    # plain route (which must receive each layer's window)
+    names = ("wq", "wk", "wv")
+
+    def route(plain: bool):
+        seen = []
+        with swapped(tflash, vjp=plain_routes(
+                torch, attention, windows=seen)[1] if plain else None):
+            params.requires_grad_(True)
+            loss, _ = tmodel.lm_loss(params, cfg, batch)
+            loss.backward()
+        if plain and (seen[:cfg.num_layers] != windows
+                      or len(seen) != 2 * cfg.num_layers):
+            raise SystemExit(f"window train: the plain route received the "
+                             f"windows {seen}, want {windows} (forward) "
+                             f"and again (the remat recompute)")
+        grads = {n: getattr(params.layers[0], n).grad.clone() for n in names}
+        params.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+    (k_loss, k_grads), (p_loss, p_grads) = route(False), route(True)
+    torch.cuda.synchronize()
+    route_err = {"loss": abs(k_loss - p_loss) / abs(p_loss)}
+    for n in names:
+        route_err[f"layer0.{n}"] = float((k_grads[n] - p_grads[n]).norm()
+                                         / p_grads[n].norm())
+    print(f"window train check: loss kernel route {k_loss}, plain route "
+          f"{p_loss}; relative differences {route_err} (tolerances "
+          f"{ROUTE_TOL})")
+    if not (route_err["loss"] <= ROUTE_TOL["loss"] and all(
+            route_err[f"layer0.{n}"] <= ROUTE_TOL["grad"] for n in names)
+            and np.isfinite(k_loss)):
+        raise SystemExit("window train: the kernel route differs from the "
+                         "plain route")
+    del k_grads, p_grads
+
+    # one counted step, then one timed; layers 0 (local) and the global one
+    # captured (q, k, v, window, out and dout) on the first call
+    step = make_train_step(cfg, TrainConfig(ocfg))
+    captured = {}
+
+    def capture(i):
+        def hook(module, args, kwargs, output):
+            if i in captured:
+                return                      # the recompute under remat
+            captured[i] = ([t.detach() for t in args]
+                           + [kwargs.get("window"), output.detach()])
+            output.register_hook(lambda g: captured[i].append(g.detach()))
+        return hook
+    layers = (0, cfg.global_every - 1)
+    hooks = [params.layers[i].attn_core.register_forward_hook(
+        capture(i), with_kwargs=True) for i in layers]
+    zero_counts()
+    try:
+        with no_plain_attention(attention):
+            params, opt, m = step(params, opt, batch)
+            first_loss = float(m["loss"])
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = {n: fn.launches for n, fn in counted.items()}
+    print(f"window train step 1: loss {first_loss}, launches {launches}, "
+          f"no plain attention")
+    if (launches["flash_attention_fwd"] != 2 * cfg.num_layers
+            or launches["flash_attention_bwd"] != cfg.num_layers):
+        raise SystemExit(f"window train step: want {2 * cfg.num_layers} "
+                         f"forward and {cfg.num_layers} backward launches, "
+                         f"saw {launches}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    second_loss = float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"window train step 2: {step_ms} ms ({WIN_TRAIN_BATCH} x "
+          f"{WIN_PROMPT} tokens, remat full), loss {second_loss}; peak "
+          f"{peak} bytes allocated")
+    if not (np.isfinite(first_loss) and np.isfinite(second_loss)):
+        raise SystemExit("window train: a loss is not finite")
+    # one more step under the profiler: at head_dim 256 it must see the
+    # CUDA-core backward pair, never the tensor-core pair
+    for _ in range(3):                  # the profiler now and then misses
+        seen = {}                       # some or all of the launches
+        device_profile(torch, lambda: step(params, opt, batch), 1, seen)
+        got = {n: launches_named(seen, n)
+               for pair in BWD_KERNELS.values() for n in pair}
+        if all(got[n] for n in BWD_KERNELS["CUDA cores"]):
+            break
+    print(f"window train check: the profiler saw backward launches {got} in "
+          f"a profiled step")
+    if any(got[n] for n in BWD_KERNELS["tensor cores"]) or not all(
+            got[n] for n in BWD_KERNELS["CUDA cores"]):
+        raise SystemExit(f"window train: want the backward on the CUDA cores "
+                         f"(head_dim {cfg.head_dim}), the profiler saw {got}")
+
+    # the backward kernel at the captured layers against its plain
+    # version, on the step's dout brought to unit RMS (exact)
+    layer_err = {}
+    for i, (cq, ck, cv, w, cout, cdout) in captured.items():
+        if w != windows[i]:
+            raise SystemExit(f"window train: layer {i} attended with window "
+                             f"{w}, want {windows[i]}")
+        out, lse = attention.flash_attention_fwd(cq, ck, cv, causal=True,
+                                                 window=w, return_lse=True)
+        if not torch.equal(out, cout):
+            raise SystemExit(f"window train: layer {i}'s forward is not the "
+                             "step's")
+        udout = unit_rms(cdout)
+        got = attention.flash_attention_bwd(cq, ck, cv, out, lse, udout,
+                                            causal=True, window=w)
+        want = attention.flash_attention_bwd_plain(
+            cq.float(), ck.float(), cv.float(), out.float(), lse,
+            udout.float(), causal=True, window=w)
+        errs = bwd_errors(got, want, cq.dtype)
+        if not all(e["err/tol"] <= 1 for e in errs.values()):
+            raise SystemExit(f"flash_attention_bwd at layer {i} (window "
+                             f"{w}): {errs}")
+        layer_err[i] = {"window": w, **errs}
+        del got, want, udout, out, lse
+    print(f"window train check: backward kernel vs plain at layers {layers} "
+          f"(q {tuple(captured[0][0].shape)}, bf16, dout at unit RMS): "
+          f"{layer_err}")
+
+    # row 5bw: the backward kernel at layer 0's shape (local), beside its
+    # plain version, SDPA's backward under the same boolean mask (timed
+    # only) and its bound
+    cq, ck, cv, w0, _, cdout = captured[0]
+    udout = unit_rms(cdout)
+    out, lse = attention.flash_attention_fwd(cq, ck, cv, causal=True,
+                                             window=w0, return_lse=True)
+    B_, S_, H_, hd_ = cq.shape
+    keep = attention.allowed(S_, S_, causal=True, window=w0, device=dev)
+    pairs = int(keep.sum())
+    want = attention.flash_attention_bwd_plain(cq, ck, cv, out, lse, udout,
+                                               causal=True, window=w0)
+    g = H_ // ck.shape[2]
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_() for t in (
+        cq, ck.repeat_interleave(g, dim=2), cv.repeat_interleave(g, dim=2)))
+    library = None
+    try:
+        so = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=keep)
+        sdo = udout.transpose(1, 2).contiguous()
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            so, (sq, sk, sv), sdo, retain_graph=True)
+        library()
+    except RuntimeError as exc:
+        library = None
+        print(f"window train: SDPA's backward refused the inputs: {exc}"[
+            :300])
+    kernel("flash_attention_bwd window", "attention.cu",
+           "src/repro/models/flash.py:262",
+           f"q {tuple(cq.shape)}, k/v {tuple(ck.shape)}, causal, window "
+           f"{w0}, bf16",
+           lambda: attention.flash_attention_bwd(cq, ck, cv, out, lse, udout,
+                                                 causal=True, window=w0),
+           lambda: attention.flash_attention_bwd_plain(
+               cq, ck, cv, out, lse, udout, causal=True, window=w0),
+           2 * (4 * cq.numel() + 4 * ck.numel()) + 4 * lse.numel(),
+           2.5 * 4 * hd_ * pairs * B_ * H_, 10,
+           count=launches["flash_attention_bwd"],
+           tol=[bwd_tol(x, torch.bfloat16) for x in want],
+           peak_ops=PEAK_BF16, library=library)
+    out_rec = {"arch": cfg.name, "layers": cfg.num_layers,
+               "batch": WIN_TRAIN_BATCH, "seq": WIN_PROMPT,
+               "route_err": route_err, "launches": launches,
+               "losses": [first_loss, second_loss], "step_ms": step_ms,
+               "peak_bytes": peak, "layer_checks": layer_err}
+    print(json.dumps({"window_train_path": out_rec}))
+    del params, opt, batch, captured, want, library, sq, sk, sv, out, lse
     gc.collect()
     torch.cuda.empty_cache()
     return out_rec
@@ -2526,7 +3254,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_checks import (COUNTED_CASES, STACKED_CASES,
-                              any_int32_cam_inputs, bf16_attn_err,
+                              any_int32_cam_inputs, attn_tol, bf16_attn_err,
                               bulk_counted_inputs, bulk_plan_route,
                               bulk_routes_seen, record_cuts,
                               stacked_program_inputs)
@@ -2804,6 +3532,7 @@ def main() -> int:
         print(f"check flash_attention_fwd {dt} hd=128: the profiler saw one "
               f"{want} launch")
     check_flash_backward(torch, dev, rng, attention)
+    check_flash_masked(torch, dev, rng, attention)
 
     # ---- 3. the main path ----------------------------------------------
     t0 = time.perf_counter()
@@ -3150,127 +3879,28 @@ def main() -> int:
           f"bytes on the card, made in {init_s} s")
     prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
-    flash_fn = attention.flash_attention_fwd
-    zero_counts()
-    t0 = time.perf_counter()
-    gen = tstep.greedy_generate(params, cfg, prompts, steps=LM_STEPS)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    lm_launches = {name: fn.launches for name, fn in wrappers.items()}
-    lm_launches["flash_attention_fwd"] = flash_fn.launches
-    print(f"lm path: greedy_generate B={LM_BATCH} prompt {LM_PROMPT} "
-          f"steps {LM_STEPS}: {gen_s} s (first run), launches {lm_launches}")
-    if flash_fn.launches != cfg.num_layers:
-        raise SystemExit(f"flash_attention_fwd launched {flash_fn.launches} "
-                         f"times in one prefill, want {cfg.num_layers}")
-    if gen.shape != (LM_BATCH, LM_STEPS) or not (
-            0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
-        raise SystemExit(f"lm path: bad tokens {tuple(gen.shape)}")
+    # greedy generation counted, then prefill and decode timed apart;
+    # layers 0 and L-1 captured by hooks
+    lm = lm_serving(torch, tstep, attention, params, cfg,
+                    {"tokens": prompts}, LM_STEPS, zero_counts, counted,
+                    "lm", (0, cfg.num_layers - 1))
+    prefill, decode, captured = lm["prefill"], lm["decode"], lm["captured"]
+    kernel_logits = lm["kernel_logits"]
+    layer_err = check_layers(attention, captured,
+                             tmodel.layer_windows(cfg), "lm check")
 
-    # prefill and decode timed apart; layers 0 and L-1 captured by hooks
-    prefill = tstep.make_prefill_step(cfg, max_len=LM_PROMPT + LM_STEPS)
-    decode = tstep.make_decode_step(cfg)
-    captured = {}
-
-    def capture(i):
-        def hook(module, inputs, output):
-            captured[i] = (*inputs, output)
-        return hook
-
-    last = cfg.num_layers - 1
-    hooks = [params.layers[i].attn_core.register_forward_hook(capture(i))
-             for i in (0, last)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    for h in hooks:
-        h.remove()
-    kernel_logits = logits[:, -1, :cfg.vocab_size].float()
-    toks = [kernel_logits.argmax(-1)]
-    t0 = time.perf_counter()
-    for _ in range(LM_STEPS - 1):
-        logits, cache = decode(params, {"tokens": toks[-1][:, None],
-                                        "cache": cache})
-        toks.append(logits[:, -1, :cfg.vocab_size].argmax(-1))
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / (LM_STEPS - 1)
-    tok_s = LM_BATCH * LM_STEPS / ((prefill_ms
-                                    + decode_ms * (LM_STEPS - 1)) / 1e3)
-    same = int((torch.stack(toks, 1) == gen).sum())
-    print(f"lm timing: prefill {prefill_ms} ms ({LM_BATCH} x {LM_PROMPT} "
-          f"tokens), decode {decode_ms} ms/step, {tok_s} generated tokens/s; "
-          f"{same}/{gen.numel()} tokens equal to the first run's")
-
-    # the kernel against its plain version at the captured layers
-    layer_err = {}
-    for i, (cq, ck, cv, cout) in captured.items():
-        want = attention.flash_attention_fwd_plain(
-            cq.float(), ck.float(), cv.float(), causal=True)
-        err, tol = max_abs_err(cout, want), attn_tol(want, cout.dtype)
-        elem = bf16_attn_err(cout, want)
-        if not (err <= tol and elem <= 1):
-            raise SystemExit(f"flash_attention_fwd at layer {i}: {err} > {tol}"
-                             f" or element err/tol {elem} > 1")
-        layer_err[i] = (err, tol, elem)
-    print(f"lm check: flash kernel vs plain at layers 0 and {last} "
-          f"(q {tuple(captured[0][0].shape)}, bf16): (max err, its tol, "
-          f"element err/tol) {layer_err}")
-
-    # The same prefill with the plain attention swapped in (here only), in
-    # the path's bf16 and, for a sharp comparison, with COMPUTE_DTYPE set
-    # to fp32 (the weights are cast at use, as the reference does).
-    def route_logits(dtype, plain):
-        kernel_route = tflash.flash_attention
-        if plain:
-            tflash.flash_attention = (
-                lambda q, k, v, *, causal, **kw:
-                attention.flash_attention_fwd_plain(q, k, v, causal=causal))
-        tmodel.COMPUTE_DTYPE = dtype
-        try:
-            out, _ = prefill(params, {"tokens": prompts})
-        finally:
-            tflash.flash_attention = kernel_route
-            tmodel.COMPUTE_DTYPE = torch.bfloat16
-        return out[:, -1, :cfg.vocab_size].float()
-
-    logit_checks = {}
-    for name, frac in LOGIT_TOL.items():
-        dt = getattr(torch, name)
-        got = (kernel_logits if dt == torch.bfloat16
-               else route_logits(dt, plain=False))
-        want = route_logits(dt, plain=True)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        tol = frac * float(want.abs().max())
-        top2 = want.topk(2, dim=-1).values
-        decided = (top2[:, 0] - top2[:, 1]) > tol
-        agree = got.argmax(-1) == want.argmax(-1)
-        if not (err <= tol and bool(agree[decided].all())
-                and bool(torch.isfinite(got).all())):
-            raise SystemExit(f"lm check {name}: kernel-route logits differ from "
-                             f"the plain route: {err} > {tol} or argmax "
-                             f"{agree.tolist()} on decided rows "
-                             f"{decided.tolist()}")
-        logit_checks[name] = {"err": err, "tol": tol,
-                                 "argmax_agree": int(agree.sum()),
-                                 "rows_decided": int(decided.sum())}
-        print(f"lm check {name}: last-position logits, kernel vs plain route: "
-              f"max err {err} <= {tol} ({frac} of max "
-              f"{float(want.abs().max())}); argmax agrees on "
-              f"{int(agree.sum())}/{LM_BATCH} rows ({int(decided.sum())} "
-              f"rows with a top-2 margin above the tolerance)")
-    del got, want
+    # the same prefill with the plain attention swapped in (here only)
+    logit_checks = logit_route_checks(
+        torch, tmodel, tflash, attention, cfg, prefill, params,
+        {"tokens": prompts}, kernel_logits, "lm check")
 
     # the kernel at the path's shape, beside its plain version and SDPA
-    fq, fk, fv, _ = captured[0]
+    fq, fk, fv, _, fo = captured[0]
     B_, S_, H_, hd_ = fq.shape
     sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_err = max_abs_err(sdpa(sq, sk, sv, is_causal=True,
-                                enable_gqa=True).transpose(1, 2),
-                           captured[0][3])
+                                enable_gqa=True).transpose(1, 2), fo)
     print(f"library yardstick scaled_dot_product_attention vs the kernel at "
           f"layer 0: max err {sdpa_err}")
     nbytes = 2 * (fq.numel() + fk.numel() + fv.numel() + fq.numel())
@@ -3281,14 +3911,15 @@ def main() -> int:
            lambda: attention.flash_attention_fwd(fq, fk, fv, causal=True),
            lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
                                                        causal=True),
-           nbytes, flops, 10, count=lm_launches["flash_attention_fwd"],
-           tol=attn_tol(captured[0][3], torch.bfloat16), peak_ops=PEAK_BF16,
+           nbytes, flops, 10, count=lm["launches"]["flash_attention_fwd"],
+           tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
            library=lambda: sdpa(sq, sk, sv, is_causal=True, enable_gqa=True))
 
     # where the time goes: one prefill, one decode step.  The prefill must
     # launch the flash kernel once per layer (the wrapper's count), all on
     # the tensor cores: the profiler sees flash_fwd_wgmma, never
     # flash_fwd_kernel.
+    flash_fn = attention.flash_attention_fwd
     for _ in range(3):          # the profiler now and then misses launches
         seen = {}
         flash_fn.launches = 0
@@ -3315,14 +3946,15 @@ def main() -> int:
     print(json.dumps({"lm_path": {
         "arch": cfg.name, "params": nparam, "batch": LM_BATCH,
         "prompt": LM_PROMPT, "steps": LM_STEPS, "init_s": init_s,
-        "greedy_first_s": gen_s, "prefill_ms": prefill_ms,
-        "decode_ms_per_step": decode_ms, "generated_tokens_per_s": tok_s,
-        "launches": lm_launches, "logit_checks": logit_checks,
+        "greedy_first_s": lm["gen_s"], "prefill_ms": lm["prefill_ms"],
+        "decode_ms_per_step": lm["decode_ms"],
+        "generated_tokens_per_s": lm["tok_s"], "launches": lm["launches"],
+        "layer_checks": layer_err, "logit_checks": logit_checks,
         "profile": lm_prof}}))
 
     # ---- 8. the durable main path ------------------------------------------
-    del params, cache, logits, prefill, decode, captured, fq, fk, fv, sq, sk
-    del sv, kernel_logits, prompts, gen
+    del params, cache, logits, prefill, decode, captured, fq, fk, fv, fo, sq
+    del sk, sv, kernel_logits, prompts, lm
     gc.collect()
     torch.cuda.empty_cache()
     sync_times = durable(torch, dev, host_blocks, wave, p3, zero_counts,
@@ -3373,6 +4005,15 @@ def main() -> int:
                  read_waves, repro_torch, BitmapDB, policy, sync_times,
                  storm_11a)
     del p3
+
+    # ---- 15. sliding windows and the VLM prefix on the card --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    window_serving(torch, dev, args.seed, zero_counts, counted, kernel)
+    vlm_serving(torch, dev, args.seed, zero_counts, counted)
+    window_training(torch, dev, args.seed, zero_counts, counted, kernel)
+    print(f"phase 15 took {time.perf_counter() - t15} s")
 
     print(json.dumps({"kernels": records}))
     print(smi)

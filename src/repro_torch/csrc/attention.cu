@@ -1,9 +1,29 @@
 // flash_attention_fwd: online-softmax attention forward, causal or full,
-// scale 1/sqrt(hd), fp32 accumulation.  q (B, S, H, hd), k/v (B, S, KV, hd)
-// contiguous, fp32 or bf16 -> o (B, S, H, hd) in q's dtype.  Query head h
-// reads KV head h / (H / KV) (the (KV, g) grouping of the reference's GQA),
-// straight from k/v: no broadcast copy.  The (BH, S, hd) entry of the
-// reference is the case B = BH, H = KV = 1.
+// scale 1/sqrt(hd), fp32 accumulation.  q (B, Sq, H, hd), k/v (B, Skv, KV,
+// hd) contiguous, fp32 or bf16 -> o (B, Sq, H, hd) in q's dtype.  Query
+// head h reads KV head h / (H / KV) (the (KV, g) grouping of the
+// reference's GQA), straight from k/v: no broadcast copy.  The (BH, S, hd)
+// entry of the reference is the case B = BH, H = KV = 1.
+//
+// The mask is the reference's (src/repro/models/flash.py _block_ok): key k
+// is allowed for query q when k < kv_len and, under the causal mask only,
+// q + q_offset - window < k <= q + q_offset (a sliding window below each
+// query's absolute position; window 2^30 is unbounded).  The C entries
+// clip kv_len to Skv and clamp the window to Sq + q_offset, past which it
+// masks nothing, so the kernels' 32-bit sums cannot overflow.  Every
+// kernel walks only the key tiles its query tile can see (key_range: from
+// the first row's window edge to the last row's diagonal) and, in the
+// backward's dK/dV launches, only the query tiles that can see its key
+// tile (query_range); tiles that straddle an edge take the masked path,
+// the others run unmasked.  Under a window of 1024 at S = 4096 a local
+// layer reads 34 of the 64-query tile's 32-key tiles where the causal
+// mask alone reads up to 128.  A row that sees no key (kv_len <= q +
+// q_offset - window) is written as zeros with an lse of NEG_INF (the
+// plain version's choice; the reference averages V over its padded
+// chunk there): its exponentials take 0, not the running max, as their
+// reference point while every score is NEG_INF (row_ref).  On an
+// unwindowed call with q_offset 0 and kv_len Skv the kernels compute
+// what they computed before the mask took these arguments, bit for bit.
 //
 // Replaces the TPU kernel src/repro/kernels/attention.py::flash_attention_fwd
 // (_flash_fwd_kernel), which walks a sequential (q block, kv block) grid with
@@ -173,12 +193,89 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The mask of every kernel here (the reference's models/flash.py
+// _block_ok): key k is allowed for the query at absolute position qabs =
+// q + q_offset when k < kvlen and, under the causal mask only, qabs -
+// window < k <= qabs.  The C entries clip kvlen to Skv and clamp window to
+// Sq + q_offset (past that it masks nothing), so no sum here overflows.
+__device__ __forceinline__ bool allowed(int k, int qabs, int causal,
+                                        int window, int kvlen) {
+  return k < kvlen && (!causal || (k <= qabs && k > qabs - window));
+}
+
+// The reference point of a row's exponentials: its running max, or 0 while
+// every score so far is masked (NEG_INF), so that masked scores give
+// exp(NEG_INF) = 0 and a row with no allowed key ends with l = 0 (output 0,
+// lse NEG_INF) instead of averaging its masked keys.
+__device__ __forceinline__ float row_ref(float m) {
+  return m == NEG_INF ? 0.f : m;
+}
+
+// [kbeg, kend): the keys that the query rows [q0, q0 + rows) (cut at Sq) can
+// see, kbeg rounded down to a multiple of the key tile ``tile``: every
+// allowed key of every row, and whole tiles outside skipped.  Under the
+// causal mask: from the first row's window edge to the last row's
+// diagonal; otherwise all kvlen keys.  Empty (kend <= kbeg) when no row
+// sees a key.
+__device__ __forceinline__ void key_range(int q0, int rows, int Sq,
+                                          int causal, int window, int qoff,
+                                          int kvlen, int tile, int& kbeg,
+                                          int& kend) {
+  kbeg = 0;
+  kend = kvlen;
+  if (causal) {
+    kend = min(kvlen, min(q0 + rows, Sq) + qoff);
+    kbeg = max(0, q0 + qoff - window + 1) / tile * tile;
+  }
+}
+
+// [qbeg, qend): the query rows that can see a key of [k0, k0 + keys): under
+// the causal mask q + q_offset >= k0 and q + q_offset - window < k0 + keys
+// - 1, qbeg rounded down to a multiple of the query tile ``tile``; all Sq
+// rows otherwise; none when k0 >= kvlen.
+__device__ __forceinline__ void query_range(int k0, int keys, int Sq,
+                                            int causal, int window, int qoff,
+                                            int kvlen, int tile, int& qbeg,
+                                            int& qend) {
+  qbeg = 0;
+  qend = k0 < kvlen ? Sq : 0;
+  if (causal && k0 < kvlen) {
+    qend = min(Sq, k0 + keys - 1 - qoff + window);
+    qbeg = max(0, k0 - qoff) / tile * tile;
+  }
+}
+
+// The mask's integers as the kernels take them, from the C entry's
+// arguments: kv_len clipped to [0, Skv], window clamped to [1, Sq +
+// q_offset].
+struct Mask {
+  int skv, causal, window, qoff, kvlen;
+};
+
+// Checks the C entry's mask arguments (window >= 1, q_offset >= 0, Skv >= 1,
+// positions within int32 with room for a tile) and fills ``mk``.
+bool make_mask(long long Sq, long long Skv, long long causal,
+               long long window, long long q_offset, long long kv_len,
+               Mask& mk) {
+  const long long lim = 0x7fffffffLL - 1024;
+  if (Skv < 1 || window < 1 || q_offset < 0 || Sq > lim || Skv > lim
+      || Sq + q_offset + Skv > lim)
+    return false;
+  mk.skv = (int)Skv;
+  mk.causal = causal ? 1 : 0;
+  mk.window = (int)(window < Sq + q_offset ? window : Sq + q_offset);
+  mk.qoff = (int)q_offset;
+  mk.kvlen = (int)(kv_len < 0 ? 0 : (kv_len > Skv ? Skv : kv_len));
+  return true;
+}
+
 template <typename T, int HD, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int KV, int nq,
-                 int causal, float scale) {
+                 float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                 int nq, int causal, int window, int qoff, int kvlen,
+                 float scale) {
   constexpr int QS = HD + 4;           // padded row strides, 16-byte aligned
   constexpr int VS = HD;
   constexpr int PS = BK + 4;
@@ -199,15 +296,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const long long qstride = (long long)H * HD;   // between positions
   const long long kstride = (long long)KV * HD;
-  const T* qb = q + (b * S * H + h) * HD;
-  const T* kb = k + (b * S * KV + kvh) * HD;
-  const T* vb = v + (b * S * KV + kvh) * HD;
-  T* ob = o + (b * S * H + h) * HD;
+  const T* qb = q + (b * Sq * H + h) * HD;
+  const T* kb = k + (b * Skv * KV + kvh) * HD;
+  const T* vb = v + (b * Skv * KV + kvh) * HD;
+  T* ob = o + (b * Sq * H + h) * HD;
 
   for (int i = tid; i < BQ * H4; i += THREADS) {
     const int r = i / H4, c = (i % H4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < S) {
+    if (q0 + r < Sq) {
       x = load4(qb + (q0 + r) * qstride + c);
       x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
     }
@@ -223,13 +320,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int kend = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  // the key tiles the tile's rows can see: up to the last row's diagonal
+  // and down to the first row's window edge (whole tiles outside skipped)
+  int kbeg, kend;
+  key_range(q0, BQ, Sq, causal, window, qoff, kvlen, BK, kbeg, kend);
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();                   // last tile's K, V, P reads are done
     for (int i = tid; i < BK * H4; i += THREADS) {
       const int r = i / H4, c = (i % H4) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-      if (k0 + r < S) {
+      if (k0 + r < Skv) {
         x = load4(kb + (k0 + r) * kstride + c);
         y = load4(vb + (k0 + r) * kstride + c);
       }
@@ -265,12 +365,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+      const int qabs = q0 + ty * 4 + i + qoff;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        if (kpos >= S || (causal && kpos > qpos)) s[i][j] = NEG_INF;
+        if (!allowed(k0 + tx + 16 * j, qabs, causal, window, kvlen))
+          s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -278,10 +378,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
       const float mnew = fmaxf(m[i], mx);
       const float corr = expf(m[i] - mnew);
+      const float mref = row_ref(mnew);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const float p = expf(s[i][j] - mnew);
+        const float p = expf(s[i][j] - mref);
         Ps[(ty * 4 + i) * PS + tx + 16 * j] = p;
         sum += p;
       }
@@ -323,22 +424,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
+    if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-37f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
       if (HD >= 16 || c < HD) store1(ob + r * qstride + c, acc[i][j] / den);
     }
-    // natural-log lse of the scaled scores, as the backward recomputes p
-    if (lse != nullptr && tx == 0) lse[bh * S + r] = m[i] + logf(den);
+    // natural-log lse of the scaled scores, as the backward recomputes p;
+    // NEG_INF for a row with no allowed key (l = 0: its output is 0)
+    if (lse != nullptr && tx == 0)
+      lse[bh * Sq + r] = l[i] > 0.f ? m[i] + logf(den) : NEG_INF;
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            long long B, long long S, long long H, long long KV,
-           long long causal, cudaStream_t stream) {
+           const Mask& mk, cudaStream_t stream) {
   constexpr int BK = HD <= 64 ? 64 : 32;
   const size_t smem = sizeof(float) * (size_t)(BQ * (HD + 4) + BK * (HD + 4)
                                                + BK * HD + BQ * (BK + 4));
@@ -348,24 +451,25 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (err != cudaSuccess) return (int)err;
   const long long nq = (S + BQ - 1) / BQ;
   const long long blocks = B * H * nq;
-  if (blocks > 0x7fffffffLL || S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, (int)S, (int)H,
-      (int)KV, (int)nq, (int)causal, (float)(1.0 / sqrt((double)HD)));
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, (int)S, mk.skv,
+      (int)H, (int)KV, (int)nq, mk.causal, mk.window, mk.qoff, mk.kvlen,
+      (float)(1.0 / sqrt((double)HD)));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              long long B, long long S, long long H, long long KV,
-             long long hd, long long causal, cudaStream_t st) {
+             long long hd, const Mask& mk, cudaStream_t st) {
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, o, lse, B, S, H, KV, causal, st);
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, KV, causal, st);
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, KV, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KV, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, H, KV, causal, st);
-    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, H, KV, causal, st);
+    case 8: return launch<T, 8>(q, k, v, o, lse, B, S, H, KV, mk, st);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, KV, mk, st);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, KV, mk, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KV, mk, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, H, KV, mk, st);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, H, KV, mk, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -577,8 +681,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
-                int H, int KV, int BH, int nq, int causal, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                int H, int KV, int BH, int nq, int causal, int window,
+                int qoff, int kvlen, float scale_log2) {
   using L = TcLayout<HD>;
   constexpr int NO = HD / 2;           // O accumulators per thread
   constexpr int NS = TC_BK / 2;        // score accumulators per thread
@@ -596,8 +701,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x % BH;
   const int q0 = (nq - 1 - (int)(blockIdx.x / BH)) * TC_BQ;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int kend = causal ? min(S, q0 + TC_BQ) : S;
-  const int nk = (kend + TC_BK - 1) / TC_BK;
+  int kbeg, kend;
+  key_range(q0, TC_BQ, Sq, causal, window, qoff, kvlen, TC_BK, kbeg, kend);
+  const int nk = kend > kbeg ? (kend - kbeg + TC_BK - 1) / TC_BK : 0;
 
   if (tid == 0) {
     mbar_init(qfull, 1);
@@ -619,14 +725,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const int s = it % TC_STAGES;
         if (it >= TC_STAGES) mbar_wait(empty(s), ((it / TC_STAGES) - 1) & 1);
         const uint32_t kb = kbuf(s), vb = kb + L::KVBYTES;
+        const int k0 = kbeg + it * TC_BK;
         mbar_expect_tx(kfull(s), L::KVBYTES);
         for (int c = 0; c < L::NB; ++c)
-          tma_load(kb + c * L::KBOX, &tk, kfull(s), c * BOX, kvh, it * TC_BK,
-                   b);
+          tma_load(kb + c * L::KBOX, &tk, kfull(s), c * BOX, kvh, k0, b);
         mbar_expect_tx(vfull(s), L::KVBYTES);
         for (int c = 0; c < L::NB; ++c)
-          tma_load(vb + c * L::KBOX, &tv, vfull(s), c * BOX, kvh, it * TC_BK,
-                   b);
+          tma_load(vb + c * L::KBOX, &tv, vfull(s), c * BOX, kvh, k0, b);
       }
     }
     return;
@@ -638,6 +743,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int qrow = q0 + 64 * wg + 16 * warp + (lane >> 2);
   const int ccol = 2 * (lane & 3);
   const uint32_t qa = sq + wg * 64 * 128;
+  // absolute positions of the warpgroup's first and last rows (cut at Sq)
+  const int qa0 = q0 + 64 * wg + qoff;
+  const int qa1 = min(q0 + 64 * wg + 64, Sq) - 1 + qoff;
   float acc[NO], s[NS];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
@@ -650,10 +758,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int st = it % TC_STAGES;
     const uint32_t ph = (it / TC_STAGES) & 1;
     const uint32_t kb = kbuf(st), vb = kb + L::KVBYTES;
-    const int k0 = it * TC_BK;
+    const int k0 = kbeg + it * TC_BK;
 
     // S = Q K^T: HD/16 steps of 16 columns (32 bytes) within the boxes
     mbar_wait(kfull(st), ph);
+    if (k0 >= kvlen
+        || (causal && (k0 > qa1 || k0 + TC_BK - 1 <= qa0 - window))) {
+      // no key of the tile is allowed for any row of this warpgroup: the
+      // tile would add exp(NEG_INF - m) = 0 to every row (a sliding
+      // window's edge; never under the plain causal mask)
+      mbar_wait(vfull(st), ph);
+      mbar_arrive(empty(st));
+      continue;
+    }
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
@@ -667,9 +784,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(s);
 
-    // scale to the log2 domain; mask only the diagonal and ragged tiles
-    const bool edge = k0 + TC_BK > S
-                      || (causal && k0 + TC_BK - 1 > q0 + 64 * wg);
+    // scale to the log2 domain; mask only the tiles on the diagonal, on
+    // the window's edge and past kv_len
+    const bool edge = k0 + TC_BK > kvlen
+                      || (causal && (k0 + TC_BK - 1 > qa0
+                                     || k0 <= qa1 - window));
 #pragma unroll
     for (int n = 0; n < NS / 4; ++n)
 #pragma unroll
@@ -678,7 +797,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         if (edge) {
           const int col = k0 + 8 * n + ccol + (e & 1);
           const int row = qrow + 8 * (e >> 1);
-          if (col >= S || (causal && col > row)) x = NEG_INF;
+          if (!allowed(col, row + qoff, causal, window, kvlen)) x = NEG_INF;
         }
         s[4 * n + e] = x;
       }
@@ -696,14 +815,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
+    const float e0 = row_ref(m0), e1 = row_ref(m1);
     // P in bf16 pairs hi (p) and lo (pl): [2n + i] holds row qrow + 8i,
     // columns 8n + ccol, +1
     uint32_t p[NS / 2], pl[NS / 2];
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int n = 0; n < NS / 4; ++n) {
-      const float a0 = exp2f(s[4 * n] - m0), a1 = exp2f(s[4 * n + 1] - m0);
-      const float b0 = exp2f(s[4 * n + 2] - m1), b1 = exp2f(s[4 * n + 3] - m1);
+      const float a0 = exp2f(s[4 * n] - e0), a1 = exp2f(s[4 * n + 1] - e0);
+      const float b0 = exp2f(s[4 * n + 2] - e1), b1 = exp2f(s[4 * n + 3] - e1);
       sum0 += a0 + a1;
       sum1 += b0 + b1;
       split_bf16(a0, a1, p[2 * n], pl[2 * n]);
@@ -749,19 +869,22 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(FULL, l1, off);
   }
   const float r0 = 1.f / fmaxf(l0, 1e-37f), r1 = 1.f / fmaxf(l1, 1e-37f);
-  // natural-log lse of the scaled scores: m is in the log2 domain
+  // natural-log lse of the scaled scores: m is in the log2 domain; NEG_INF
+  // for a row with no allowed key (l = 0: its output is 0)
   if (lse != nullptr && (lane & 3) == 0) {
     constexpr float LN2 = 0.69314718055994531f;
-    float* lb = lse + (long long)bh * S;
-    if (qrow < S) lb[qrow] = m0 * LN2 + logf(fmaxf(l0, 1e-37f));
-    if (qrow + 8 < S) lb[qrow + 8] = m1 * LN2 + logf(fmaxf(l1, 1e-37f));
+    float* lb = lse + (long long)bh * Sq;
+    if (qrow < Sq)
+      lb[qrow] = l0 > 0.f ? m0 * LN2 + logf(fmaxf(l0, 1e-37f)) : NEG_INF;
+    if (qrow + 8 < Sq)
+      lb[qrow + 8] = l1 > 0.f ? m1 * LN2 + logf(fmaxf(l1, 1e-37f)) : NEG_INF;
   }
   const long long ostride = (long long)H * HD;
-  __nv_bfloat16* ob = o + ((long long)b * S * H + h) * HD + ccol;
+  __nv_bfloat16* ob = o + ((long long)b * Sq * H + h) * HD + ccol;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = qrow + 8 * i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float r = i ? r1 : r0;
     __nv_bfloat16* dst = ob + row * ostride;
 #pragma unroll
@@ -826,7 +949,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, long long B, long long S,
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, long long B, long long S, long long H,
-                 long long KV, long long causal, cudaStream_t stream) {
+                 long long KV, const Mask& mk, cudaStream_t stream) {
   const size_t smem = TcLayout<HD>::SMEM;
   auto kernel = flash_fwd_wgmma<HD>;
   cudaError_t err = bind_context();
@@ -836,17 +959,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, S, H, HD, TC_BQ)
-      || !tensor_map(&tk, k, B, S, KV, HD, TC_BK)
-      || !tensor_map(&tv, v, B, S, KV, HD, TC_BK))
+      || !tensor_map(&tk, k, B, mk.skv, KV, HD, TC_BK)
+      || !tensor_map(&tv, v, B, mk.skv, KV, HD, TC_BK))
     return (int)cudaErrorInvalidValue;
   const long long nq = (S + TC_BQ - 1) / TC_BQ;
   const long long blocks = B * H * nq;
-  if (blocks > 0x7fffffffLL || S > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)HD));
   kernel<<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, lse, (int)S, (int)H, (int)KV,
-      (int)(B * H), (int)nq, (int)causal, scale_log2);
+      (int)(B * H), (int)nq, mk.causal, mk.window, mk.qoff, mk.kvlen,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -901,11 +1024,14 @@ __device__ __forceinline__ void stage(float* dst, const T* base,
   }
 }
 
-// p of one score element: exp(s - lse), 0 where masked (a query or key
-// past S, or a key after its query under the causal mask).
+// p of one score element: exp(s - lse), 0 where masked (a query past Sq,
+// or a key the mask does not allow it: past kv_len, or, under the causal
+// mask, after its query or at or below its window's edge).
 __device__ __forceinline__ float prob(float s, float lse, int row, int col,
-                                      int S, int causal) {
-  const bool masked = row >= S || col >= S || (causal && col > row);
+                                      int Sq, const Mask& mk) {
+  const bool masked = row >= Sq
+                      || !allowed(col, row + mk.qoff, mk.causal, mk.window,
+                                  mk.kvlen);
   return masked ? 0.f : expf(s - lse);
 }
 
@@ -916,8 +1042,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const float* __restrict__ lse, const T* __restrict__ dout,
-                    T* __restrict__ dq, float* __restrict__ delta, int S,
-                    int H, int KV, int nq, int causal, float scale) {
+                    T* __restrict__ dq, float* __restrict__ delta, int Sq,
+                    int H, int KV, int nq, Mask mk, float scale) {
   constexpr int QS = HD + 4, PS = TK + 4;
   constexpr int RQ = TQ / 16, RK = TK / 16, NJ = (HD + 15) / 16;
   extern __shared__ float4 smem4[];
@@ -937,19 +1063,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = (int)(bh % H);
   const int kvh = h / (H / KV);
   const long long qstride = (long long)H * HD, kstride = (long long)KV * HD;
-  const long long qoff = (b * S * H + h) * HD, koff = (b * S * KV + kvh) * HD;
+  const long long qbase = (b * Sq * H + h) * HD;
+  const long long kbase = (b * mk.skv * KV + kvh) * HD;
 
-  stage<T, HD, QS, TQ>(Qs, q + qoff, qstride, q0, S, scale, tid);
-  stage<T, HD, QS, TQ>(Ds, dout + qoff, qstride, q0, S, 1.f, tid);
+  stage<T, HD, QS, TQ>(Qs, q + qbase, qstride, q0, Sq, scale, tid);
+  stage<T, HD, QS, TQ>(Ds, dout + qbase, qstride, q0, Sq, 1.f, tid);
   __syncthreads();
   // delta = rowsum(dout * out), out as stored; 16 threads share a row
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = ty * RQ + i;
     float acc = 0.f;
-    if (q0 + r < S)
+    if (q0 + r < Sq)
       for (int c = 4 * tx; c < HD; c += 64) {
-        const float4 a = load4(o + qoff + (q0 + r) * qstride + c);
+        const float4 a = load4(o + qbase + (q0 + r) * qstride + c);
         const float4 d = load4(Ds + r * QS + c);
         acc = fmaf(a.x, d.x, acc);
         acc = fmaf(a.y, d.y, acc);
@@ -960,10 +1087,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int off = 8; off >= 1; off >>= 1)
       acc += __shfl_xor_sync(FULL, acc, off);
     if (tx == 0) {
-      const bool in = q0 + r < S;
+      const bool in = q0 + r < Sq;
       Es[r] = acc;
-      Ls[r] = in ? lse[bh * S + q0 + r] : 0.f;
-      if (in) delta[bh * S + q0 + r] = acc;
+      Ls[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
+      if (in) delta[bh * Sq + q0 + r] = acc;
     }
   }
 
@@ -973,11 +1100,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  const int kend = causal ? min(S, q0 + TQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += TK) {
+  int kbeg, kend;
+  key_range(q0, TQ, Sq, mk.causal, mk.window, mk.qoff, mk.kvlen, TK, kbeg,
+            kend);
+  for (int k0 = kbeg; k0 < kend; k0 += TK) {
     __syncthreads();                   // last tile's K, V, dS reads are done
-    stage<T, HD, QS, TK>(Ks, k + koff, kstride, k0, S, 1.f, tid);
-    stage<T, HD, QS, TK>(Vs, v + koff, kstride, k0, S, 1.f, tid);
+    stage<T, HD, QS, TK>(Ks, k + kbase, kstride, k0, mk.skv, 1.f, tid);
+    stage<T, HD, QS, TK>(Vs, v + kbase, kstride, k0, mk.skv, 1.f, tid);
     __syncthreads();
     float s[RQ][RK], dp[RQ][RK];
     tile_dot<HD, QS, RQ, RK>(Qs, Ks, ty, tx, s);
@@ -987,8 +1116,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = ty * RQ + i;
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
-        const float p = prob(s[i][j], Ls[r], q0 + r, k0 + tx + 16 * j, S,
-                             causal);
+        const float p = prob(s[i][j], Ls[r], q0 + r, k0 + tx + 16 * j, Sq,
+                             mk);
         Ss[r * PS + tx + 16 * j] = p * (dp[i][j] - Es[r]);
       }
     }
@@ -1022,12 +1151,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = q0 + ty * RQ + i;
-    if (r >= S) continue;
+    if (r >= Sq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
       if (HD >= 16 || c < HD)
-        store1(dq + qoff + r * qstride + c, acc[i][j] * scale);
+        store1(dq + qbase + r * qstride + c, acc[i][j] * scale);
     }
   }
 }
@@ -1041,8 +1170,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       const T* __restrict__ dout, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int H, int KV, int nk,
-                      int causal, float scale) {
+                      T* __restrict__ dv, int Sq, int H, int KV, int nk,
+                      Mask mk, float scale) {
   constexpr int QS = HD + 4, PS = TK + 4;
   constexpr int RQ = TQ / 16, RK = TK / 16, NJ = (HD + 15) / 16;
   extern __shared__ float4 smem4[];
@@ -1062,10 +1191,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long b = bkv / KV;
   const int kvh = (int)(bkv % KV), g = H / KV;
   const long long qstride = (long long)H * HD, kstride = (long long)KV * HD;
-  const long long koff = (b * S * KV + kvh) * HD;
+  const long long kbase = (b * mk.skv * KV + kvh) * HD;
 
-  stage<T, HD, QS, TK>(Ks, k + koff, kstride, k0, S, 1.f, tid);
-  stage<T, HD, QS, TK>(Vs, v + koff, kstride, k0, S, 1.f, tid);
+  stage<T, HD, QS, TK>(Ks, k + kbase, kstride, k0, mk.skv, 1.f, tid);
+  stage<T, HD, QS, TK>(Vs, v + kbase, kstride, k0, mk.skv, 1.f, tid);
 
   float dka[RK][NJ], dva[RK][NJ];
 #pragma unroll
@@ -1073,19 +1202,23 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
 
-  const int qstart = causal ? k0 / TQ * TQ : 0;
+  // the query tiles that can see a key of this tile: from its first key's
+  // diagonal to its last key's window edge
+  int qbeg, qend;
+  query_range(k0, TK, Sq, mk.causal, mk.window, mk.qoff, mk.kvlen, TQ, qbeg,
+              qend);
   for (int gi = 0; gi < g; ++gi) {
     const int h = kvh * g + gi;
     const long long bh = b * H + h;
-    const long long qoff = (b * S * H + h) * HD;
-    for (int q0 = qstart; q0 < S; q0 += TQ) {
+    const long long qbase = (b * Sq * H + h) * HD;
+    for (int q0 = qbeg; q0 < qend; q0 += TQ) {
       __syncthreads();                 // last tile's Q, dO, P, dS reads done
-      stage<T, HD, QS, TQ>(Qs, q + qoff, qstride, q0, S, scale, tid);
-      stage<T, HD, QS, TQ>(Ds, dout + qoff, qstride, q0, S, 1.f, tid);
+      stage<T, HD, QS, TQ>(Qs, q + qbase, qstride, q0, Sq, scale, tid);
+      stage<T, HD, QS, TQ>(Ds, dout + qbase, qstride, q0, Sq, 1.f, tid);
       for (int r = tid; r < TQ; r += THREADS) {
-        const bool in = q0 + r < S;
-        Ls[r] = in ? lse[bh * S + q0 + r] : 0.f;
-        Es[r] = in ? delta[bh * S + q0 + r] : 0.f;
+        const bool in = q0 + r < Sq;
+        Ls[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
+        Es[r] = in ? delta[bh * Sq + q0 + r] : 0.f;
       }
       __syncthreads();
       float s[RQ][RK], dp[RQ][RK];
@@ -1097,7 +1230,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < RK; ++j) {
           const int c = tx + 16 * j;
-          const float p = prob(s[i][j], Ls[r], q0 + r, k0 + c, S, causal);
+          const float p = prob(s[i][j], Ls[r], q0 + r, k0 + c, Sq, mk);
           Ps[r * PS + c] = p;
           Ss[r * PS + c] = p * (dp[i][j] - Es[r]);
         }
@@ -1132,13 +1265,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RK; ++i) {
     const int r = k0 + ty * RK + i;
-    if (r >= S) continue;
+    if (r >= mk.skv) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
       if (HD >= 16 || c < HD) {
-        store1(dk + koff + r * kstride + c, dka[i][j]);
-        store1(dv + koff + r * kstride + c, dva[i][j]);
+        store1(dk + kbase + r * kstride + c, dka[i][j]);
+        store1(dv + kbase + r * kstride + c, dva[i][j]);
       }
     }
   }
@@ -1150,7 +1283,7 @@ template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dout, void* dq, void* dk,
                void* dv, float* delta, long long B, long long S, long long H,
-               long long KV, long long causal, cudaStream_t stream) {
+               long long KV, const Mask& mk, cudaStream_t stream) {
   constexpr int TB = HD > 128 ? 32 : 64;
   constexpr int QS = HD + 4, PS = TB + 4;
   const size_t smem_dq = sizeof(float) * ((size_t)4 * TB * QS + TB * PS
@@ -1166,18 +1299,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
   if (err != cudaSuccess) return (int)err;
   const long long nt = (S + TB - 1) / TB;
-  if (B * H * nt > 0x7fffffffLL || S > 0x7fffffffLL)
+  const long long nkt = (mk.skv + TB - 1) / TB;
+  if (B * H * nt > 0x7fffffffLL || B * KV * nkt > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HD));
   kdq<<<(unsigned)(B * H * nt), THREADS, smem_dq, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, lse,
-      (const T*)dout, (T*)dq, delta, (int)S, (int)H, (int)KV, (int)nt,
-      (int)causal, scale);
+      (const T*)dout, (T*)dq, delta, (int)S, (int)H, (int)KV, (int)nt, mk,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<(unsigned)(B * KV * nt), THREADS, smem_kv, stream>>>(
+  kkv<<<(unsigned)(B * KV * nkt), THREADS, smem_kv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, lse, delta, (const T*)dout,
-      (T*)dk, (T*)dv, (int)S, (int)H, (int)KV, (int)nt, (int)causal, scale);
+      (T*)dk, (T*)dv, (int)S, (int)H, (int)KV, (int)nkt, mk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1185,13 +1319,13 @@ template <typename T>
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
                  const float* lse, const void* dout, void* dq, void* dk,
                  void* dv, float* delta, long long B, long long S, long long H,
-                 long long KV, long long hd, long long causal,
+                 long long KV, long long hd, const Mask& mk,
                  cudaStream_t st) {
   switch (hd) {
 #define BWD(HD)                                                             \
   case HD:                                                                  \
     return launch_bwd<T, HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, \
-                             H, KV, causal, st);
+                             H, KV, mk, st);
     BWD(8) BWD(16) BWD(32) BWD(64) BWD(128) BWD(256)
 #undef BWD
     default: return (int)cudaErrorInvalidValue;
@@ -1336,7 +1470,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __nv_bfloat16* __restrict__ dout,
                    const float* __restrict__ lse,
                    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
-                   int S, int H, int KV, int BH, int nq, int causal,
+                   int Sq, int H, int KV, int BH, int nq, Mask mk,
                    float scale, float scale_log2) {
   using L = BwLayout<HD>;
   constexpr int NA = HD / 2;           // dQ accumulators per thread
@@ -1353,8 +1487,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x % BH;
   const int q0 = (nq - 1 - (int)(blockIdx.x / BH)) * BW_Q;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int kend = causal ? min(S, q0 + BW_Q) : S;
-  const int nk = (kend + BW_K - 1) / BW_K;
+  const int causal = mk.causal, window = mk.window, kvlen = mk.kvlen;
+  int kbeg, kend;
+  key_range(q0, BW_Q, Sq, causal, window, mk.qoff, kvlen, BW_K, kbeg, kend);
+  const int nk = kend > kbeg ? (kend - kbeg + BW_K - 1) / BW_K : 0;
 
   if (tid == 0) {
     mbar_init(qfull, 1);
@@ -1378,10 +1514,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         const int s = it % BW_STAGES;
         if (it >= BW_STAGES) mbar_wait(empty(s), ((it / BW_STAGES) - 1) & 1);
         const uint32_t kb = kbuf(s), vb = kb + L::DQ_KV;
+        const int k0 = kbeg + it * BW_K;
         mbar_expect_tx(full(s), 2 * L::DQ_KV);
         for (int c = 0; c < L::NB; ++c) {
-          tma_load(kb + c * L::KBOX, &tk, full(s), c * BOX, kvh, it * BW_K, b);
-          tma_load(vb + c * L::KBOX, &tv, full(s), c * BOX, kvh, it * BW_K, b);
+          tma_load(kb + c * L::KBOX, &tk, full(s), c * BOX, kvh, k0, b);
+          tma_load(vb + c * L::KBOX, &tv, full(s), c * BOX, kvh, k0, b);
         }
       }
     }
@@ -1393,7 +1530,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     const int qrow = q0 + 64 * wg + 16 * warp + (lane >> 2);
     const int ccol = 2 * (lane & 3);
     const long long qstride = (long long)H * HD;
-    const long long qoff = ((long long)b * S * H + h) * HD;
+    const long long qbase = ((long long)b * Sq * H + h) * HD;
+    // absolute positions of the warpgroup's first and last rows (cut at Sq)
+    const int qa0 = q0 + 64 * wg + mk.qoff;
+    const int qa1 = min(q0 + 64 * wg + 64, Sq) - 1 + mk.qoff;
     // delta = rowsum(dout * out) of rows qrow and qrow + 8 (out as stored):
     // the 4 threads of a row take a quarter of its columns each
     float dl[2], l2[2];
@@ -1401,8 +1541,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 2; ++i) {
       const int row = qrow + 8 * i;
       float acc = 0.f;
-      if (row < S) {
-        const long long at = qoff + row * qstride + (lane & 3) * (HD / 4);
+      if (row < Sq) {
+        const long long at = qbase + row * qstride + (lane & 3) * (HD / 4);
 #pragma unroll
         for (int j = 0; j < HD / 32; ++j)
           acc = dot8(__ldg(reinterpret_cast<const uint4*>(o + at) + j),
@@ -1411,8 +1551,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       acc += __shfl_xor_sync(FULL, acc, 1);
       acc += __shfl_xor_sync(FULL, acc, 2);
       dl[i] = acc;
-      l2[i] = row < S ? lse[(long long)bh * S + row] * LOG2E : 0.f;
-      if ((lane & 3) == 0 && row < S) delta[(long long)bh * S + row] = acc;
+      l2[i] = row < Sq ? lse[(long long)bh * Sq + row] * LOG2E : 0.f;
+      if ((lane & 3) == 0 && row < Sq) delta[(long long)bh * Sq + row] = acc;
     }
 
     const uint32_t qa = sq + wg * 64 * 128, da = sdo + wg * 64 * 128;
@@ -1427,9 +1567,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       const int st = it % BW_STAGES;
       const uint32_t ph = (it / BW_STAGES) & 1;
       const uint32_t kb = kbuf(st), vb = kb + L::DQ_KV;
-      const int k0 = it * BW_K;
+      const int k0 = kbeg + it * BW_K;
       mbar_wait(full(st), ph);
-      if (causal && k0 > q0 + 64 * wg + 63) {   // past this warpgroup's rows
+      if (k0 >= kvlen                // no key allowed for this warpgroup's
+          || (causal && (k0 > qa1    // rows: past them, or below the window
+                         || k0 + BW_K - 1 <= qa0 - window))) {
         mbar_arrive(empty(st));
         continue;
       }
@@ -1446,10 +1588,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       fence_regs(s);
 
       // P = exp2(S scale log2 e - lse log2 e) in place of S, masked on the
-      // diagonal and ragged tiles only; then dS = P (dP - delta) in place
-      // of dP
-      const bool edge = k0 + BW_K > S || q0 + 64 * wg + 64 > S
-                        || (causal && k0 + BW_K - 1 > q0 + 64 * wg);
+      // diagonal, window-edge, kv_len and ragged tiles only; then dS = P
+      // (dP - delta) in place of dP
+      const bool edge = k0 + BW_K > kvlen || q0 + 64 * wg + 64 > Sq
+                        || (causal && (k0 + BW_K - 1 > qa0
+                                       || k0 <= qa1 - window));
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -1458,7 +1601,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
           if (edge) {
             const int col = k0 + 8 * n + ccol + (e & 1);
             const int row = qrow + 8 * (e >> 1);
-            if (col >= S || row >= S || (causal && col > row)) p = 0.f;
+            if (row >= Sq || !allowed(col, row + mk.qoff, causal, window,
+                                      kvlen))
+              p = 0.f;
           }
           s[4 * n + e] = p;
         }
@@ -1482,11 +1627,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(empty(st));
     }
 
-    __nv_bfloat16* qb = dq + qoff + ccol;
+    __nv_bfloat16* qb = dq + qbase + ccol;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = qrow + 8 * i;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       __nv_bfloat16* dst = qb + row * qstride;
 #pragma unroll
       for (int n = 0; n < NA / 4; ++n)
@@ -1509,8 +1654,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
-                     int BKV, int causal, float scale, float scale_log2) {
+                     __nv_bfloat16* __restrict__ dv, int Sq, int H, int KV,
+                     int BKV, Mask mk, float scale, float scale_log2) {
   using L = BwLayout<HD>;
   constexpr int NA = HD / 2;           // dK and dV accumulators per thread
   extern __shared__ uint8_t smem_raw[];
@@ -1528,8 +1673,14 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
   const int bkv = blockIdx.x % BKV;
   const int k0 = (int)(blockIdx.x / BKV) * BW_KEYS;
   const int b = bkv / KV, kvh = bkv % KV, g = H / KV;
-  const int qstart = causal ? k0 / BW_QT * BW_QT : 0;
-  const int ntq = (S - qstart + BW_QT - 1) / BW_QT;   // query tiles a head
+  const int causal = mk.causal, window = mk.window, kvlen = mk.kvlen;
+  const int qoff = mk.qoff;
+  // the query tiles that can see a key of this tile: from its first key's
+  // diagonal to its last key's window edge
+  int qstart, qend;
+  query_range(k0, BW_KEYS, Sq, causal, window, qoff, kvlen, BW_QT, qstart,
+              qend);
+  const int ntq = qend > qstart ? (qend - qstart + BW_QT - 1) / BW_QT : 0;
   const int n_it = g * ntq;
 
   if (tid == 0) {
@@ -1570,8 +1721,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
         float* lr = rows + s * 2 * BW_QT;
         for (int j = lane; j < BW_QT; j += 32) {
           const int r = q0 + j;
-          lr[j] = r < S ? lse[bh * S + r] * LOG2E : 0.f;
-          lr[BW_QT + j] = r < S ? delta[bh * S + r] : 0.f;
+          lr[j] = r < Sq ? lse[bh * Sq + r] * LOG2E : 0.f;
+          lr[BW_QT + j] = r < Sq ? delta[bh * Sq + r] : 0.f;
         }
         mbar_arrive(full(s));
       }
@@ -1598,8 +1749,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
       const uint32_t qb = qbuf(st), db = qb + L::KV_Q;
       const int q0 = qstart + (it % ntq) * BW_QT;
       mbar_wait(full(st), ph);
-      if (causal && q0 + BW_QT - 1 < kmin) {    // every query before every key
-        mbar_arrive(empty(st));
+      if (kmin >= kvlen              // no pair allowed: every key past kv_len,
+          || (causal && (q0 + BW_QT - 1 + qoff < kmin  // every query before
+                         || kmin + 63 <= q0 + qoff - window))) {  // or past
+        mbar_arrive(empty(st));      // every key's window
         continue;
       }
       // S^T = K Q^T, then dP^T = V dO^T (both operands in shared memory):
@@ -1618,8 +1771,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
       // dS^T = P^T (dP^T - delta) in place of dP^T; lse and delta are per
       // column (query), from the tile's rows in shared memory
       const float* lr = rows + st * 2 * BW_QT;
-      const bool edge = q0 + BW_QT > S || kmin + 64 > S
-                        || (causal && kmin + 63 > q0);
+      const bool edge = q0 + BW_QT > Sq || kmin + 64 > kvlen
+                        || (causal && (kmin + 63 > q0 + qoff
+                                       || kmin <= q0 + BW_QT - 1 + qoff
+                                                      - window));
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * n + ccol);
@@ -1629,7 +1784,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
           float p = exp2f(fmaf(s[4 * n + e], scale_log2, -(c ? l2.y : l2.x)));
           if (edge) {
             const int col = q0 + 8 * n + ccol + c, row = krow + 8 * (e >> 1);
-            if (col >= S || row >= S || (causal && row > col)) p = 0.f;
+            if (col >= Sq || !allowed(row, col + qoff, causal, window, kvlen))
+              p = 0.f;
           }
           s[4 * n + e] = p;
         }
@@ -1668,11 +1824,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
     }
 
     const long long kstride = (long long)KV * HD;
-    const long long koff = ((long long)b * S * KV + kvh) * HD + ccol;
+    const long long koff = ((long long)b * mk.skv * KV + kvh) * HD + ccol;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = krow + 8 * i;
-      if (row >= S) continue;
+      if (row >= mk.skv) continue;
       __nv_bfloat16* dkr = dk + koff + row * kstride;
       __nv_bfloat16* dvr = dv + koff + row * kstride;
 #pragma unroll
@@ -1691,7 +1847,7 @@ template <int HD>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      const void* o, const float* lse, const void* dout,
                      void* dq, void* dk, void* dv, float* delta, long long B,
-                     long long S, long long H, long long KV, long long causal,
+                     long long S, long long H, long long KV, const Mask& mk,
                      cudaStream_t stream) {
   using L = BwLayout<HD>;
   auto kdq = flash_bwd_dq_wgmma<HD>;
@@ -1707,29 +1863,29 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   CUtensorMap tq, tdo, tk, tv, tk2, tv2, tq2, tdo2;
   if (!tensor_map(&tq, q, B, S, H, HD, BW_Q)
       || !tensor_map(&tdo, dout, B, S, H, HD, BW_Q)
-      || !tensor_map(&tk, k, B, S, KV, HD, BW_K)
-      || !tensor_map(&tv, v, B, S, KV, HD, BW_K)
-      || !tensor_map(&tk2, k, B, S, KV, HD, BW_KEYS)
-      || !tensor_map(&tv2, v, B, S, KV, HD, BW_KEYS)
+      || !tensor_map(&tk, k, B, mk.skv, KV, HD, BW_K)
+      || !tensor_map(&tv, v, B, mk.skv, KV, HD, BW_K)
+      || !tensor_map(&tk2, k, B, mk.skv, KV, HD, BW_KEYS)
+      || !tensor_map(&tv2, v, B, mk.skv, KV, HD, BW_KEYS)
       || !tensor_map(&tq2, q, B, S, H, HD, BW_QT)
       || !tensor_map(&tdo2, dout, B, S, H, HD, BW_QT))
     return (int)cudaErrorInvalidValue;
   const long long nq = (S + BW_Q - 1) / BW_Q;
-  const long long nkt = (S + BW_KEYS - 1) / BW_KEYS;
-  if (B * H * nq > 0x7fffffffLL || S > 0x7fffffffLL)
+  const long long nkt = (mk.skv + BW_KEYS - 1) / BW_KEYS;
+  if (B * H * nq > 0x7fffffffLL || B * KV * nkt > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const double scale = 1.0 / sqrt((double)HD);
   const float scale_log2 = (float)(1.4426950408889634 * scale);
   kdq<<<(unsigned)(B * H * nq), BW_THREADS, L::DQ_SMEM, stream>>>(
       tq, tdo, tk, tv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
       lse, (__nv_bfloat16*)dq, delta, (int)S, (int)H, (int)KV, (int)(B * H),
-      (int)nq, (int)causal, (float)scale, scale_log2);
+      (int)nq, mk, (float)scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kkv<<<(unsigned)(B * KV * nkt), BW_THREADS, L::KV_SMEM, stream>>>(
       tk2, tv2, tq2, tdo2, lse, delta, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, (int)S, (int)H, (int)KV, (int)(B * KV),
-      (int)causal, (float)scale, scale_log2);
+      (__nv_bfloat16*)dv, (int)S, (int)H, (int)KV, (int)(B * KV), mk,
+      (float)scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -1737,10 +1893,14 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
 
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    long long B, long long S, long long H, long long KV, long long hd,
-    long long causal, long long bf16, void* stream) {
+    long long B, long long S, long long Skv, long long H, long long KV,
+    long long hd, long long causal, long long window, long long q_offset,
+    long long kv_len, long long bf16, void* stream) {
   if (B == 0 || S == 0 || H == 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  Mask mk;
+  if (!make_mask(S, Skv, causal, window, q_offset, kv_len, mk))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;              // (B, H, S) fp32, or null: not written
   // both kernels read 16-byte pieces (TMA boxes, float4 / 8-byte loads)
@@ -1748,21 +1908,24 @@ extern "C" int flash_attention_fwd_launch(
     return (int)cudaErrorMisalignedAddress;
   // bf16 at head_dim 64 / 128 goes to the tensor cores
   if (bf16 && hd == 128)
-    return launch_wgmma<128>(q, k, v, o, l, B, S, H, KV, causal, st);
+    return launch_wgmma<128>(q, k, v, o, l, B, S, H, KV, mk, st);
   if (bf16 && hd == 64)
-    return launch_wgmma<64>(q, k, v, o, l, B, S, H, KV, causal, st);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd, causal,
-                                        st)
-              : dispatch<float>(q, k, v, o, l, B, S, H, KV, hd, causal, st);
+    return launch_wgmma<64>(q, k, v, o, l, B, S, H, KV, mk, st);
+  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd, mk, st)
+              : dispatch<float>(q, k, v, o, l, B, S, H, KV, hd, mk, st);
 }
 
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, long long B, long long S, long long H, long long KV,
-    long long hd, long long causal, long long bf16, void* stream) {
+    void* delta, long long B, long long S, long long Skv, long long H,
+    long long KV, long long hd, long long causal, long long window,
+    long long q_offset, long long kv_len, long long bf16, void* stream) {
   if (B == 0 || S == 0 || H == 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  Mask mk;
+  if (!make_mask(S, Skv, causal, window, q_offset, kv_len, mk))
+    return (int)cudaErrorInvalidValue;
   // the kernels read 16-byte (fp32) or 8-byte (bf16) pieces
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o
        | (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv
@@ -1774,12 +1937,12 @@ extern "C" int flash_attention_bwd_launch(
   // bf16 at head_dim 64 / 128 goes to the tensor cores
   if (bf16 && hd == 128)
     return launch_bwd_wgmma<128>(q, k, v, o, l, dout, dq, dk, dv, e, B, S, H,
-                                 KV, causal, st);
+                                 KV, mk, st);
   if (bf16 && hd == 64)
     return launch_bwd_wgmma<64>(q, k, v, o, l, dout, dq, dk, dv, e, B, S, H,
-                                KV, causal, st);
+                                KV, mk, st);
   return bf16 ? dispatch_bwd<__nv_bfloat16>(q, k, v, o, l, dout, dq, dk, dv, e,
-                                            B, S, H, KV, hd, causal, st)
+                                            B, S, H, KV, hd, mk, st)
               : dispatch_bwd<float>(q, k, v, o, l, dout, dq, dk, dv, e, B, S,
-                                    H, KV, hd, causal, st);
+                                    H, KV, hd, mk, st);
 }

@@ -44,10 +44,9 @@ SIGNATURES = {
                              (_P,) * 7 + (_I,) * 8 + (_P,)),
     "bulk_program_plan": ("bulk_program_plan", (_I,) * 7 + (_P,)),
     "flash_attention_fwd": ("flash_attention_fwd_launch",
-                            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _P)),
+                            (_P,) * 5 + (_I,) * 11 + (_P,)),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
-                            (_P,) * 10 + (_I,) * 7 + (_P,)),
+                            (_P,) * 10 + (_I,) * 11 + (_P,)),
 }
 
 #: which source file holds each kernel

@@ -3,12 +3,17 @@
 its plain-torch version.
 
 Online-softmax attention, causal or full, scale 1/sqrt(hd), fp32
-accumulation, output in q's dtype.  Two layouts, one entry point:
+accumulation, output in q's dtype, under the reference's mask
+(``repro.models.flash._block_ok``, here :func:`allowed`): ``kv_len`` valid
+keys and, under the causal mask, a sliding ``window`` below each query's
+absolute position q + ``q_offset``.  The kernels skip whole tiles outside
+the window.  A row that sees no key is zeros with an lse of ``NEG_INF``.
+Two layouts, one entry point:
 
-* the model's: q (B, S, H, hd), k/v (B, S, KV, hd) with H % KV == 0; query
-  head h reads KV head h // (H // KV), with no broadcast copy;
-* the reference kernel's: q/k/v (BH, S, hd), KV heads pre-broadcast (the
-  model layout with H = KV = 1).
+* the model's: q (B, Sq, H, hd), k/v (B, Skv, KV, hd) with H % KV == 0;
+  query head h reads KV head h // (H // KV), with no broadcast copy;
+* the reference kernel's: q (BH, Sq, hd), k/v (BH, Skv, hd), KV heads
+  pre-broadcast (the model layout with H = KV = 1).
 
 On the card the C entry point picks one of two hand-written kernels by type
 and shape: bf16 at head_dim 64 or 128 (every full config the port serves)
@@ -17,11 +22,12 @@ copies, P carried as a bf16 hi + lo pair); fp32 inputs and the other head
 dims run on the CUDA cores (``flash_fwd_kernel``: fp32 FMAs, which keep
 fp32 within the reference test's atol of 2e-5).
 
-The forward also returns lse (B, H, S) fp32, the natural-log normalizer of
+The forward also returns lse (B, H, Sq) fp32, the natural-log normalizer of
 the scaled scores, when asked (``return_lse=True``: the training path).  The
-backward takes (q, k, v, out, lse, dout) in the model layout and returns
-dq, dk, dv in q's dtype (fp32 accumulation, two launches, no atomics, so
-bit-identical from run to run).  Its C entry picks by the same rule: bf16
+backward takes (q, k, v, out, lse, dout) and the forward's mask arguments
+in the model layout and returns dq, dk, dv in q's dtype (fp32
+accumulation, two launches, no atomics, so bit-identical from run to
+run).  Its C entry picks by the same rule: bf16
 at head_dim 64 or 128 runs on the tensor cores (``flash_bwd_dq_wgmma``, one
 CTA per 128-query tile streaming 64-key K/V tiles, which also writes delta;
 then ``flash_bwd_dkdv_wgmma``, one CTA per (batch, KV head, 128-key tile)
@@ -46,6 +52,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
+#: the reference's unbounded window (``repro.models.flash.WINDOW_INF``)
+WINDOW_INF = 2 ** 30
 #: head dims the kernel is instantiated for (every config's head_dim)
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -58,29 +66,52 @@ def _model_layout(q, k, v):
     return q, k, v, False
 
 
+def allowed(sq: int, skv: int, *, causal: bool, window=None, q_offset=0,
+            kv_len=None, device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: key k is allowed for query q when k < kv_len (clipped
+    to Skv) and, under ``causal`` only, q + q_offset - window < k <=
+    q + q_offset: the mask of the reference's ``models.flash._block_ok``
+    (``window`` None is unbounded)."""
+    kl = skv if kv_len is None else max(0, min(int(kv_len), skv))
+    k_pos = torch.arange(skv, device=device)
+    keep = (k_pos < kl)[None, :].expand(sq, skv)
+    if causal:
+        q_abs = torch.arange(sq, device=device)[:, None] + int(q_offset)
+        keep = keep & (k_pos[None, :] <= q_abs)
+        if window is not None:
+            keep = keep & (k_pos[None, :] > q_abs - int(window))
+    return keep
+
+
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
+                              window=None, q_offset: int = 0, kv_len=None,
                               return_lse: bool = False):
     """The plain-torch version: per query head, fp32
-    ``softmax(q k^T * scale + mask) v``, the mask at ``NEG_INF``; with
-    ``return_lse``, also the logsumexp of each masked score row, (B, H, S)
-    fp32 ((BH, S) for 3-D inputs)."""
+    ``softmax(q k^T * scale + mask) v``, the mask (:func:`allowed`) at
+    ``NEG_INF``; with ``return_lse``, also the logsumexp of each masked
+    score row, (B, H, Sq) fp32 ((BH, Sq) for 3-D inputs).  A row with no
+    allowed key is written as zeros with an lse of ``NEG_INF`` (the
+    reference's chunked forward averages V over its padded chunk there;
+    its gradient through such a row is zero in both)."""
     q4, k4, v4, flat = _model_layout(q, k, v)
     B, S, H, hd = q4.shape
     g = H // k4.shape[2]
     scale = 1.0 / math.sqrt(hd)
-    keep = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        keep = keep.tril()
+    keep = allowed(S, k4.shape[1], causal=causal, window=window,
+                   q_offset=q_offset, kv_len=kv_len, device=q.device)
+    empty = ~keep.any(-1)
     out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     for h in range(H):
         qh = q4[:, :, h].float() * scale
         s = qh @ k4[:, :, h // g].float().transpose(1, 2)
         s = s.masked_fill(~keep, NEG_INF)
-        out[:, :, h] = (torch.softmax(s, dim=-1)
-                        @ v4[:, :, h // g].float()).to(q.dtype)
-        lse[:, h] = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1)
+        if empty.any():
+            p = p.masked_fill(empty[:, None], 0.0)
+        out[:, :, h] = (p @ v4[:, :, h // g].float()).to(q.dtype)
+        lse[:, h] = torch.logsumexp(s, dim=-1).masked_fill(empty, NEG_INF)
     if flat:
         out, lse = out[:, :, 0], lse[:, 0]
     return (out, lse) if return_lse else out
@@ -97,16 +128,35 @@ def _card_checks(name: str, hd: int, tensors) -> None:
                    "inputs must be 16-byte aligned")
 
 
+def _mask_args(name: str, sq: int, skv: int, window, q_offset, kv_len):
+    """The mask's integers as the C entries take them: window (None is
+    :data:`WINDOW_INF`), q_offset and kv_len (None is Skv), checked."""
+    w = WINDOW_INF if window is None else int(window)
+    kl = skv if kv_len is None else int(kv_len)
+    _build.require(name, w >= 1, f"window must be >= 1, got {window}")
+    _build.require(name, int(q_offset) >= 0,
+                   f"q_offset must be >= 0, got {q_offset}")
+    _build.require(name, skv >= 1, "k/v need at least one position")
+    _build.require(name, sq + int(q_offset) + skv <= 2 ** 31 - 1025,
+                   "sequence positions past int32")
+    return w, int(q_offset), kl
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, block_q: int = 256,
+                        *, causal: bool = True, window=None,
+                        q_offset: int = 0, kv_len=None, block_q: int = 256,
                         block_k: int = 256, return_lse: bool = False):
     """Launch the kernel on CUDA tensors; run the plain version on CPU
-    tensors.  Returns the output, or (output, lse) with ``return_lse``.  Takes q/k/v of one dtype (fp32 or bf16), either (BH, S, hd)
-    each or q (B, S, H, hd) with k/v (B, S, KV, hd); on the card they must be
-    contiguous and 16-byte aligned, with hd in :data:`HEAD_DIMS`.
-    ``block_q``/``block_k`` are the reference kernel's tile sizes: checked,
-    not used (the kernels tile 128 queries by 128 keys on the tensor cores,
-    64 queries by 32 or 64 keys on the CUDA cores)."""
+    tensors.  Returns the output, or (output, lse) with ``return_lse``.
+    Takes q/k/v of one dtype (fp32 or bf16), either q (BH, Sq, hd) with k/v
+    (BH, Skv, hd) or q (B, Sq, H, hd) with k/v (B, Skv, KV, hd); on the card
+    they must be contiguous and 16-byte aligned, with hd in
+    :data:`HEAD_DIMS`.  The mask is :func:`allowed`'s: ``kv_len`` valid
+    keys and, under ``causal``, a ``window`` below each query's absolute
+    position q + ``q_offset``.  ``block_q``/``block_k`` are the reference
+    kernel's tile sizes: checked, not used (the kernels tile 128 queries by
+    128 keys on the tensor cores, 64 queries by 32 or 64 keys on the CUDA
+    cores)."""
     name = "flash_attention_fwd"
     card = _build.on_card(name, q, k, v)
     _build.require(name, q.dtype in DTYPES and k.dtype == q.dtype
@@ -122,21 +172,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"{tuple(v.shape)}")
     q4, k4, v4, _ = _model_layout(q, k, v)
     B, S, H, hd = q4.shape
-    KV = k4.shape[2]
-    _build.require(name, k4.shape[:2] == (B, S) and k4.shape[3] == hd
+    Skv, KV = k4.shape[1], k4.shape[2]
+    _build.require(name, k4.shape[0] == B and k4.shape[3] == hd
                    and KV >= 1 and H % KV == 0,
                    f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    w, qo, kl = _mask_args(name, S, Skv, window, q_offset, kv_len)
     if not card:
         return flash_attention_fwd_plain(q, k, v, causal=causal,
-                                         return_lse=return_lse)
+                                         window=window, q_offset=q_offset,
+                                         kv_len=kv_len, return_lse=return_lse)
     _card_checks(name, hd, (q, k, v))
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
     _build.launch(name, q.device, _build.ptr(q), _build.ptr(k),
                   _build.ptr(v), _build.ptr(out),
-                  None if lse is None else _build.ptr(lse), B, S, H, KV, hd,
-                  int(causal), int(q.dtype == torch.bfloat16))
+                  None if lse is None else _build.ptr(lse), B, S, Skv, H, KV,
+                  hd, int(causal), w, qo, kl, int(q.dtype == torch.bfloat16))
     flash_attention_fwd.launches += 1
     if not return_lse:
         return out
@@ -150,14 +202,17 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True, kv_chunk: int = 512):
+                              causal: bool = True, window=None,
+                              q_offset: int = 0, kv_len=None,
+                              kv_chunk: int = 512):
     """The plain-torch version: the chunked twin of the reference's
     ``_flash_bwd_dense`` in fp32, ``kv_chunk`` keys at a time (memory
-    O(S * kv_chunk) per head).  delta = rowsum(dout * out), p = exp(q k^T *
-    scale - lse) masked, dv = p^T dout, ds = p (dp - delta), dq = ds k *
-    scale, dk = ds^T q * scale; dq, dk, dv in q's, k's and v's dtypes."""
+    O(Sq * kv_chunk) per head).  delta = rowsum(dout * out), p = exp(q k^T *
+    scale - lse) where :func:`allowed` (0 elsewhere), dv = p^T dout, ds =
+    p (dp - delta), dq = ds k * scale, dk = ds^T q * scale; dq, dk, dv in
+    q's, k's and v's dtypes."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Skv, KV = k.shape[1], k.shape[2]
     g = H // KV
     scale = 1.0 / math.sqrt(hd)
     qs = q.float().reshape(B, S, KV, g, hd) * scale
@@ -165,18 +220,17 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     delta = torch.einsum("bqkgh,bqkgh->bkgq", do,
                          out.float().reshape(B, S, KV, g, hd))
     lse_ = lse.float().reshape(B, KV, g, S)
-    q_pos = torch.arange(S, device=q.device)
+    keep = allowed(S, Skv, causal=causal, window=window, q_offset=q_offset,
+                   kv_len=kv_len, device=q.device)
     dq = torch.zeros((B, S, KV, g, hd), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, S, KV, hd), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, Skv, KV, hd), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    for k0 in range(0, S, kv_chunk):
+    for k0 in range(0, Skv, kv_chunk):
         kj = k[:, k0:k0 + kv_chunk].float()
         vj = v[:, k0:k0 + kv_chunk].float()
         s = torch.einsum("bqkgh,bckh->bkgqc", qs, kj)
         p = torch.exp(s - lse_[..., None])
-        if causal:
-            k_pos = k0 + torch.arange(kj.shape[1], device=q.device)
-            p = p.masked_fill(k_pos[None, :] > q_pos[:, None], 0.0)
+        p = p.masked_fill(~keep[:, k0:k0 + kv_chunk], 0.0)
         dv[:, k0:k0 + kv_chunk] = torch.einsum("bkgqc,bqkgh->bckh", p, do)
         dp = torch.einsum("bqkgh,bckh->bkgqc", do, vj)
         ds = p * (dp - delta[..., None])
@@ -188,11 +242,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, *, causal: bool = True):
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window=None, q_offset: int = 0, kv_len=None):
     """dq, dk, dv of :func:`flash_attention_fwd` in the model layout: q, out,
-    dout (B, S, H, hd), k/v (B, S, KV, hd) of one dtype, lse (B, H, S) fp32
-    as the forward returned it.  Launches the kernel on CUDA tensors (both
-    of its launches count as one), runs the plain version on CPU tensors."""
+    dout (B, Sq, H, hd), k/v (B, Skv, KV, hd) of one dtype, lse (B, H, Sq)
+    fp32 as the forward returned it, and the forward's mask arguments.
+    Launches the kernel on CUDA tensors (both of its launches count as
+    one), runs the plain version on CPU tensors."""
     name = "flash_attention_bwd"
     card = _build.on_card(name, q, k, v, out, lse, dout)
     _build.require(name, q.dtype in DTYPES and all(
@@ -205,21 +261,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                    f"{tuple(out.shape)}, {tuple(dout.shape)}")
     B, S, H, hd = q.shape
-    KV = k.shape[2]
-    _build.require(name, k.shape[:2] == (B, S) and k.shape[3] == hd
+    Skv, KV = k.shape[1], k.shape[2]
+    _build.require(name, k.shape[0] == B and k.shape[3] == hd
                    and KV >= 1 and H % KV == 0 and lse.shape == (B, H, S),
                    f"k/v {tuple(k.shape)} or lse {tuple(lse.shape)} do not "
                    f"fit q {tuple(q.shape)}")
+    w, qo, kl = _mask_args(name, S, Skv, window, q_offset, kv_len)
     if not card:
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         causal=causal)
+                                         causal=causal, window=window,
+                                         q_offset=q_offset, kv_len=kv_len)
     _card_checks(name, hd, (q, k, v, out, lse, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _build.launch(name, q.device,
                   *(_build.ptr(t) for t in (q, k, v, out, lse, dout, dq, dk,
                                             dv, delta)),
-                  B, S, H, KV, hd, int(causal), int(q.dtype == torch.bfloat16))
+                  B, S, Skv, H, KV, hd, int(causal), w, qo, kl,
+                  int(q.dtype == torch.bfloat16))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

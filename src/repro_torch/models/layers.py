@@ -1,5 +1,5 @@
-"""Transformer building blocks: norms, rotary embeddings, gated MLPs and
-single-position decode attention.
+"""Transformer building blocks: norms, rotary embeddings (RoPE and M-RoPE),
+gated MLPs and single-position decode attention.
 
 The port's twin of ``repro.models.layers``.  Prefill attention goes through
 the flash kernel (``repro_torch.models.flash``); decode attention stays plain
@@ -31,15 +31,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
                 mrope_sections: tuple[int, ...] | None = None
                 ) -> torch.Tensor:
-    """positions (B, S) -> angles (B, S, hd/2) fp32, plain RoPE."""
-    if positions.dim() != 2:
-        raise NotImplementedError(
-            "M-RoPE positions (3, B, S) are not ported yet (ROADMAP A10)")
+    """positions (B, S) for RoPE or (3, B, S) for M-RoPE -> angles
+    (B, S, hd/2) fp32.
+
+    M-RoPE (Qwen2-VL): the hd/2 frequency slots are split into
+    ``mrope_sections`` (temporal, height, width); slot i takes its position
+    from the stream its section belongs to.  Text tokens carry identical
+    streams, so M-RoPE degenerates to RoPE for them."""
     half = head_dim // 2
     inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                              device=positions.device)
                                 / half))
-    return positions[..., None].float() * inv_freq
+    if positions.dim() == 2:                      # plain RoPE
+        return positions[..., None].float() * inv_freq
+    if mrope_sections is None or sum(mrope_sections) != half:
+        raise ValueError(f"M-RoPE positions {tuple(positions.shape)} need "
+                         f"mrope_sections summing to {half}, got "
+                         f"{mrope_sections}")
+    stream_of_slot = torch.repeat_interleave(
+        torch.arange(len(mrope_sections), device=positions.device),
+        torch.tensor(mrope_sections, device=positions.device))   # (half,)
+    pos = positions[stream_of_slot]                          # (half, B, S)
+    return pos.movedim(0, -1).float() * inv_freq
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -22,10 +22,12 @@ saves each layer's input only, ``"dots"`` also the weight products' outputs
 weights (``init_params(..., dtype=torch.float32)``), cast to the compute
 dtype at use as the reference does; serving keeps bf16 storage.  Ported: the
 dense families with ``qkv_bias``, ``qk_norm``, ``parallel_block``,
-``logit_softcap``, tied and untied heads, silu/geglu/gelu.  MoE, SSM,
-hybrid, enc-dec, VLM and sliding windows raise ``NotImplementedError``
-naming their ROADMAP item; the sharding constraints of the reference are
-identities on one card and are dropped (``param_logical`` keeps their names).
+``logit_softcap``, tied and untied heads, silu/geglu/gelu, sliding windows
+with the reference's per-layer global flags (``global_flags``: Gemma3's
+local:global pattern), M-RoPE and the VLM prefix (Qwen2-VL).  MoE, SSM,
+hybrid and enc-dec raise ``NotImplementedError`` naming their ROADMAP item;
+the sharding constraints of the reference are identities on one card and
+are dropped (``param_logical`` keeps their names).
 """
 from __future__ import annotations
 
@@ -55,22 +57,42 @@ NORM_KEYS = ("final_norm", "ln1", "ln2", "q_norm", "k_norm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the model families of ROADMAP A10.3."""
     if cfg.moe is not None or cfg.family == "moe":
         raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  "yet (ROADMAP A10)")
+                                  "yet (ROADMAP A10.3)")
     if cfg.block != "attn" or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: SSM / hybrid blocks are not "
-                                  "ported yet (ROADMAP A10)")
+                                  "ported yet (ROADMAP A10.3)")
     if cfg.enc_dec or cfg.family == "audio":
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is "
-                                  "not ported yet (ROADMAP A10)")
-    if cfg.vlm or cfg.rope == "mrope" or cfg.family == "vlm":
-        raise NotImplementedError(f"{cfg.name}: VLM prefixes and M-RoPE are "
-                                  "not ported yet (ROADMAP A10)")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(f"{cfg.name}: sliding-window attention is "
-                                  "not ported yet (ROADMAP A10)")
+                                  "not ported yet (ROADMAP A10.3)")
+
+
+def global_flags(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer bool: True = full/global attention, False = sliding window
+    (the reference's rule: every ``global_every``-th layer, else the first,
+    middle and last layers)."""
+    if cfg.num_layers == 0:
+        return np.zeros(0, bool)
+    if cfg.sliding_window is None:
+        return np.ones(cfg.num_layers, bool)
+    if cfg.global_every is not None:
+        return np.array([(i + 1) % cfg.global_every == 0
+                         for i in range(cfg.num_layers)])
+    # hybrid default (Hymba): first / middle / last layers global
+    flags = np.zeros(cfg.num_layers, bool)
+    flags[[0, cfg.num_layers // 2, cfg.num_layers - 1]] = True
+    return flags
+
+
+def layer_windows(cfg: ModelConfig) -> list:
+    """Each layer's attention window: None (unbounded) on a global layer,
+    ``cfg.sliding_window`` on the others (the reference's
+    ``_apply_global``)."""
+    return [None if flag else cfg.sliding_window
+            for flag in global_flags(cfg)]
 
 
 # ----------------------------------------------------------------- schema
@@ -144,7 +166,7 @@ class DecoderLayer(nn.Module):
             self.register_parameter(name, _param(t))
         self.attn_core = flash.FlashAttention()
 
-    def _attention(self, x, angles, mode, cache_k, cache_v, pos):
+    def _attention(self, x, angles, mode, cache_k, cache_v, pos, window):
         cfg = self.cfg
         B, S, d = x.shape
         dt = x.dtype
@@ -167,23 +189,24 @@ class DecoderLayer(nn.Module):
             cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
             cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
             out = decode_attention(q, cache_k, cache_v,
-                                   AttnMask(True, None, pos, pos + 1))
+                                   AttnMask(True, window, pos, pos + 1))
         elif mode == "train":
             skip = cfg.flash_block_skip
             out = self.attn_core(q, k, v, causal=True, train=True,
-                                 block_skip=skip,
+                                 window=window, block_skip=skip,
                                  kv_chunk=512 if skip else 1024)
         else:
-            out = self.attn_core(q, k, v, causal=True)
+            out = self.attn_core(q, k, v, causal=True, window=window)
             cache_k[:, :S] = k.to(cache_k.dtype)
             cache_v[:, :S] = v.to(cache_v.dtype)
         return out.reshape(B * S, H * hd) @ self.wo.to(dt).reshape(H * hd, d)
 
-    def forward(self, x, angles, mode, cache_k=None, cache_v=None, pos=0):
+    def forward(self, x, angles, mode, cache_k=None, cache_v=None, pos=0,
+                window=None):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        mix = self._attention(h, angles, mode, cache_k, cache_v,
-                              pos).view(x.shape)
+        mix = self._attention(h, angles, mode, cache_k, cache_v, pos,
+                              window).view(x.shape)
         p = {n: getattr(self, n) for n in ("w_in", "w_gate", "w_out")
              if hasattr(self, n)}
         if cfg.parallel_block and cfg.d_ff:
@@ -347,20 +370,28 @@ def _train_layers(params: Model, cfg: ModelConfig, x, angles):
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be none, full or dots, got "
                          f"{cfg.remat!r}")
-    for layer in params.layers:
+    for layer, window in zip(params.layers, layer_windows(cfg)):
         if cfg.remat == "none":
-            x = layer(x, angles, "train")
+            x = layer(x, angles, "train", None, None, 0, window)
         else:
             x = torch_checkpoint.checkpoint(
-                layer, x, angles, "train", use_reentrant=False,
-                context_fn=_remat_context(cfg))
+                layer, x, angles, "train", None, None, 0, window,
+                use_reentrant=False, context_fn=_remat_context(cfg))
     return x
 
 
 def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  mode: str, cache: dict | None = None,
-                  max_len: int | None = None, return_hidden: bool = False):
+                  mode: str, visual: torch.Tensor | None = None,
+                  mrope_positions: torch.Tensor | None = None,
+                  cache: dict | None = None, max_len: int | None = None,
+                  return_hidden: bool = False):
     """Returns (logits, new_cache).
+
+    ``visual`` (B, V, d), with ``cfg.vlm``: patch embeddings that take the
+    place of the first V token embeddings.  ``mrope_positions`` (3, B, S),
+    with ``cfg.rope == "mrope"``: each stream's positions (default
+    pos0 + arange(S) in all three, the reference's, as in decode).  Each
+    layer attends under its window (:func:`layer_windows`).
 
     train   : tokens (B, S) -> logits (B, S, Vp), cache None, with autograd;
               ``return_hidden`` returns the final-norm hidden states
@@ -388,16 +419,27 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
             caches = (None if mode == "train" else
                       _empty_caches(cfg, B, max(S, max_len or S), dev))
         x = params.embed[tokens.long()].to(dt)
+        if cfg.vlm and visual is not None:
+            V = visual.shape[1]
+            x = torch.cat([visual.to(device=dev, dtype=dt), x[:, V:]], dim=1)
         angles = None
-        if cfg.rope == "rope":
+        if cfg.rope in ("rope", "mrope"):
             positions = (pos0 + torch.arange(S, device=dev))[None].expand(B, S)
-            angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.rope == "mrope":
+                if mrope_positions is None:
+                    mrope_positions = positions[None].expand(3, B, S)
+                angles = rope_angles(mrope_positions.to(dev), cfg.head_dim,
+                                     cfg.rope_theta, cfg.mrope_sections)
+            else:
+                angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         if mode == "train":
             x = rms_norm(_train_layers(params, cfg, x, angles),
                          params.final_norm, cfg.norm_eps)
             return (x if return_hidden else _head_logits(params, cfg, x)), None
-        for i, layer in enumerate(params.layers):
-            x = layer(x, angles, mode, caches["k"][i], caches["v"][i], pos0)
+        for i, (layer, window) in enumerate(zip(params.layers,
+                                                layer_windows(cfg))):
+            x = layer(x, angles, mode, caches["k"][i], caches["v"][i], pos0,
+                      window)
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         if mode == "prefill":
             x = x[:, -1:]
@@ -422,13 +464,16 @@ def lm_loss(params: Model, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy through the fused chunked loss (full
     (B, S, V) logits are never materialized; see ``models.loss``).  batch:
-    ``tokens`` and ``labels`` (B, S), label -1 masked.  Returns (loss,
-    {"loss", "tokens"}), differentiable in the parameters."""
-    extra = {"visual", "mrope_positions", "frames"} & set(batch)
-    if extra:
-        raise NotImplementedError(f"{sorted(extra)} inputs (VLM, enc-dec) "
-                                  "are not ported yet (ROADMAP A10.3)")
+    ``tokens`` and ``labels`` (B, S), label -1 masked, and for a VLM
+    ``visual`` and ``mrope_positions`` (:func:`model_forward`).  Returns
+    (loss, {"loss", "tokens"}), differentiable in the parameters."""
+    if "frames" in batch:
+        raise NotImplementedError("frames inputs (the encoder-decoder "
+                                  "stack) are not ported yet (ROADMAP "
+                                  "A10.3)")
     hidden, _ = model_forward(params, cfg, batch["tokens"], mode="train",
+                              visual=batch.get("visual"),
+                              mrope_positions=batch.get("mrope_positions"),
                               return_hidden=True)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     loss, tokens = fused_ce_loss(hidden, head.to(hidden.dtype),

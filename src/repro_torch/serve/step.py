@@ -15,6 +15,8 @@ from repro_torch.models.model import model_forward
 def make_prefill_step(cfg: ModelConfig, max_len: int | None = None):
     def prefill_step(params, batch):
         return model_forward(params, cfg, batch["tokens"], mode="prefill",
+                             visual=batch.get("visual"),
+                             mrope_positions=batch.get("mrope_positions"),
                              max_len=max_len)
     return prefill_step
 
@@ -77,13 +79,16 @@ def make_bitmap_query_step(index, *, backend: str = "auto"):
 
 
 def greedy_generate(params, cfg: ModelConfig, tokens: torch.Tensor,
-                    steps: int, max_len: int | None = None) -> torch.Tensor:
+                    steps: int, max_len: int | None = None, **kw
+                    ) -> torch.Tensor:
     """Batched greedy loop (prefill + steps - 1 decodes): tokens (B, S) ->
-    generated ids (B, steps)."""
+    generated ids (B, steps).  ``kw`` goes to the prefill (a VLM's
+    ``visual`` and ``mrope_positions``); decode positions follow the
+    prefill's, pos0 + arange, in every M-RoPE stream."""
     B, S = tokens.shape
     max_len = max_len or (S + steps)
     logits, cache = model_forward(params, cfg, tokens, mode="prefill",
-                                  max_len=max_len)
+                                  max_len=max_len, **kw)
     out = [torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)]
     for _ in range(steps - 1):
         logits, cache = model_forward(params, cfg, out[-1][:, None],

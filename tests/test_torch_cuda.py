@@ -16,7 +16,10 @@ phase 2's shapes of ``chip_smoke.py``: atol 2e-4 for fp32 (the reference's
 gradient tolerance), one bf16 ulp at each output's largest magnitude plus
 that atol for bf16; two launches must be bit-identical, and a train step
 must launch the forward kernel twice and the backward kernel once per
-layer.
+layer.  Both kernels are held alike under a sliding window, a q_offset
+and a kv_len (``torch_checks.FLASH_WINDOW_CASES`` and
+``FLASH_OFFSET_CASES``, shared with ``chip_smoke.py``'s phase 2),
+including rows that see no key (zeros, lse NEG_INF).
 
 The serving layer on the card: a four-thread storm through
 ``BitmapDB.serve()`` over a 2^20-record index (every answer the ``ref``
@@ -37,10 +40,12 @@ from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
 from torch_checks import (COUNTED_CASES, FLASH_BWD_CASES,
-                          STACKED_CASES, any_int32_cam_inputs, bf16_attn_err,
+                          FLASH_OFFSET_CASES, FLASH_WINDOW_CASES,
+                          STACKED_CASES, any_int32_cam_inputs, attn_tol,
+                          bf16_attn_err,
                           bulk_counted_inputs, bulk_plan_route,
                           bulk_routes_seen, bwd_tol,
-                          flash_bwd_inputs, record_cuts,
+                          flash_bwd_inputs, flash_mask_ratios, record_cuts,
                           stacked_program_inputs)
 
 pytestmark = pytest.mark.cuda
@@ -361,12 +366,6 @@ def _attn_inputs(rng, b, s, h, kv, hd, dtype, dev):
     return one(h), one(kv), one(kv)
 
 
-def _attn_tol(want, dtype):
-    if dtype == torch.float32:
-        return 2e-5
-    return 2.0 ** -7 * float(want.abs().max())
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s,h,kv,hd", [(300, 4, 4, 32), (1, 7, 1, 128),
@@ -384,7 +383,7 @@ def test_flash_attention_kernel(dev, dtype, causal, s, h, kv, hd):
     want = tfa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
                                          causal=causal)
     err = float((got.float() - want).abs().max())
-    assert err <= _attn_tol(want, dtype), err
+    assert err <= attn_tol(want, dtype), err
     if dtype == torch.bfloat16:
         assert bf16_attn_err(got, want) <= 1
 
@@ -403,7 +402,7 @@ def test_flash_attention_tensor_core_kernel(dev, hd, s, g, causal):
     want = tfa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
                                          causal=causal)
     err = float((got.float() - want).abs().max())
-    assert err <= _attn_tol(want, torch.bfloat16), err
+    assert err <= attn_tol(want, torch.bfloat16), err
     assert bf16_attn_err(got, want) <= 1
 
 
@@ -547,6 +546,119 @@ def test_flash_attention_vjp_on_the_card_runs_the_kernels(dev):
     for a, b in zip(grads, want):
         assert float((a.float() - b).abs().max()) <= bwd_tol(
             b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("s,window,hd,g,dtype", FLASH_WINDOW_CASES)
+def test_flash_kernels_windowed(dev, s, window, hd, g, dtype):
+    """Both flash kernels under a sliding window against their plain
+    versions (``torch_checks.flash_mask_ratios``: the forward's output and
+    lse, dq, dk and dv, two backward launches bit-identical)."""
+    rng = np.random.default_rng(s * g + hd + window)
+    q, k, v, dout = flash_bwd_inputs(rng, s, hd, g, dtype, dev)
+    ratios = flash_mask_ratios(tfa, q, k, v, dout, causal=True,
+                               window=window)
+    assert all(r <= 1 for r in ratios.values()), ratios
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("sq,skv,q_offset,kv_len,window,causal",
+                         FLASH_OFFSET_CASES)
+def test_flash_kernels_offset(dev, sq, skv, q_offset, kv_len, window, causal,
+                              hd, dtype):
+    """A chunk of queries against a longer cache, kv_len < Skv, cross
+    attention and rows that see no key, through both kernels."""
+    rng = np.random.default_rng(sq + skv + hd)
+    q, k, v, dout = flash_bwd_inputs(rng, sq, hd, 2 if hd == 256 else 7,
+                                     dtype, dev, skv=skv)
+    ratios = flash_mask_ratios(tfa, q, k, v, dout, causal=causal,
+                               window=window, q_offset=q_offset,
+                               kv_len=kv_len)
+    assert all(r <= 1 for r in ratios.values()), ratios
+
+
+def test_flash_rows_with_no_key_are_zero_on_the_card(dev):
+    """A row that sees no key: output 0 and lse NEG_INF from both kernels
+    (the plain version's choice), its gradients 0."""
+    rng = np.random.default_rng(12)
+    for dtype, hd in ((torch.bfloat16, 128), (torch.float32, 128),
+                      (torch.bfloat16, 256)):
+        q, k, v, dout = flash_bwd_inputs(rng, 128, hd, 2, dtype, dev,
+                                         skv=512)
+        mask = {"window": 100, "q_offset": 384, "kv_len": 400}
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                           return_lse=True, **mask)
+        dq, _, _ = tfa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                           causal=True, **mask)
+        torch.cuda.synchronize()
+        assert not out[:, 115:].any() and not dq[:, 115:].any()
+        assert bool((lse[:, :, 115:] == tfa.NEG_INF).all())
+        assert out[:, :115].abs().amax(-1).min() > 0
+
+
+def test_windowed_flash_launches_the_named_kernels(dev):
+    """Under a window the C entries pick by the same rule: the tensor-core
+    forward and backward pair for bf16 at head_dim 64 and 128, the
+    CUDA-core kernels at head_dim 256 (Gemma3's); the forward and the
+    backward each profiled alone, twice a session.  The profiler loses
+    kernel records, up to whole sessions several times in a row on an
+    H100, so, as every route check here, the test forbids the other
+    route's kernels and retries; it never fails on a record the profiler
+    missed: of the route's own kernels it may see none, or each once or
+    twice."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(7)
+    tensor = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+    cuda = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    for hd, names in ((64, tensor), (128, tensor), (256, cuda)):
+        q, k, v, dout = flash_bwd_inputs(rng, 300, hd, 2, torch.bfloat16,
+                                         dev)
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal=True, window=64,
+                                           return_lse=True)
+        calls = ((lambda: tfa.flash_attention_fwd(q, k, v, causal=True,
+                                                  window=64), names[:1]),
+                 (lambda: tfa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  causal=True, window=64),
+                  names[1:]))
+        for fn, want in calls:
+            for _ in range(3):      # the profiler now and then loses records
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    torch.cuda._sleep(1)
+                    fn()
+                    fn()
+                    torch.cuda.synchronize()
+                seen = {e.key: e.count for e in prof.key_averages()
+                        if "flash_" in e.key}
+                got = {name: sum(n for key, n in seen.items() if name in key)
+                       for name in tensor + cuda}
+                if all(got[name] for name in want):
+                    break
+            assert all(got[name] <= 2 for name in want), (hd, seen)
+            assert not any(got[name] for name in tensor + cuda
+                           if name not in want), (hd, seen)
+
+
+def test_windowed_flash_attention_vjp_runs_no_plain_version(dev,
+                                                           monkeypatch):
+    """The windowed autograd route on CUDA tensors launches both kernels
+    and never their plain versions."""
+    from repro_torch.models import flash
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on the card")
+    rng = np.random.default_rng(10)
+    q, k, v, dout = flash_bwd_inputs(rng, 300, 256, 2, torch.bfloat16, dev)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    monkeypatch.setattr(tfa, "flash_attention_fwd_plain", refuse)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_plain", refuse)
+    f0, b0 = tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd.launches
+    out = flash.flash_attention_vjp(q, k, v, causal=True, window=64)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == f0 + 1
+    assert tfa.flash_attention_bwd.launches == b0 + 1
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.parametrize("hd", [64, 128])

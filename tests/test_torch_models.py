@@ -156,8 +156,8 @@ def test_flash_wrapper_rejects(bad):
         q = q.double()
     elif bad == "kv_heads":
         k = v = torch.zeros(1, 4, 4, 8)
-    else:
-        k = v = torch.zeros(1, 5, 2, 8)
+    else:                           # another batch (a kv length other
+        k = v = torch.zeros(2, 4, 2, 8)  # than q's is cross attention)
     with pytest.raises(ValueError, match="flash_attention_fwd"):
         tattention.flash_attention_fwd(q, k, v)
 
@@ -365,8 +365,7 @@ def test_launch_serve_demo_on_cpu(capsys):
 # ------------------------------------------- (g) what is not ported raises
 @pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "granite_moe_3b_a800m",
                                   "mamba2_2_7b", "hymba_1_5b",
-                                  "whisper_small", "qwen2_vl_7b",
-                                  "gemma3_4b"])
+                                  "whisper_small"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         tmodel.init_params(get_smoke_config(arch), device="cpu")
@@ -374,19 +373,15 @@ def test_unported_configs_raise(arch):
 
 def test_unported_modes_and_options_raise():
     """Training runs (``tests/test_torch_train.py``); training an unported
-    family (the MoE smoke config) still raises."""
+    family (the MoE smoke config) still raises, and so do an enc-dec
+    batch's frames.  Windows, offsets, M-RoPE and the VLM prefix run
+    (``tests/test_torch_window_vlm.py``)."""
     cfg = get_smoke_config("qwen2_7b")
     model = tmodel.init_params(cfg, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="MoE.*ROADMAP A10"):
         tmodel.lm_loss(model, get_smoke_config("qwen2_moe_a2_7b"),
                        {"tokens": tokens, "labels": tokens})
-    windowed = dataclasses.replace(cfg, sliding_window=8)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tmodel.model_forward(model, windowed, tokens, mode="prefill")
-    q = torch.zeros(1, 4, 2, 8)
-    for kw in ({"window": 2}, {"q_offset": 1}, {"kv_len": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tflash.flash_attention(q, q, q, causal=True, **kw)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tlayers.rope_angles(torch.zeros((3, 1, 4)), 8, 1e4)
+    with pytest.raises(NotImplementedError, match="encoder-decoder.*A10.3"):
+        tmodel.lm_loss(model, cfg, {"tokens": tokens, "labels": tokens,
+                                    "frames": torch.zeros((1, 4, 64))})

@@ -130,12 +130,15 @@ def test_flash_attention_vjp_matches_reference_grad(causal, block_skip):
 
 
 def test_flash_attention_vjp_options_raise():
+    """block_skip needs causal, as in the reference; the mask arguments run
+    (``tests/test_torch_window_vlm.py``), and a window below 1 or a
+    negative q_offset are refused."""
     q = torch.zeros(1, 4, 2, 8)
-    for kw in ({"window": 2}, {"q_offset": 1}, {"kv_len": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10.2"):
-            tflash.flash_attention_vjp(q, q, q, causal=True, **kw)
     with pytest.raises(ValueError, match="block_skip"):
         tflash.flash_attention_vjp(q, q, q, causal=False, block_skip=True)
+    for kw in ({"window": 0}, {"q_offset": -1}):
+        with pytest.raises(ValueError, match="flash_attention_fwd"):
+            tflash.flash_attention_vjp(q, q, q, causal=True, **kw)
 
 
 def test_flash_backward_wrapper_on_cpu_is_the_plain_version():

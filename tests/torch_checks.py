@@ -63,14 +63,102 @@ FLASH_BWD_CASES = tuple(itertools.product(
 
 
 def flash_bwd_inputs(rng, s: int, hd: int, g: int, dtype, dev, *,
-                     batch: int = 2, kv: int = 2):
+                     batch: int = 2, kv: int = 2, skv: int | None = None):
     """q, k, v, dout of a :data:`FLASH_BWD_CASES` case: ``batch`` (2)
     sequences, ``kv`` (2) KV heads and ``kv`` g query heads, standard
-    normal."""
-    def one(heads):
-        return torch.from_numpy(rng.standard_normal((batch, s, heads, hd))
+    normal; k and v hold ``skv`` positions (default ``s``)."""
+    def one(heads, n):
+        return torch.from_numpy(rng.standard_normal((batch, n, heads, hd))
                                 .astype(np.float32)).to(dev, dtype)
-    return one(kv * g), one(kv), one(kv), one(kv * g)
+    skv = s if skv is None else skv
+    return one(kv * g, s), one(kv, skv), one(kv, skv), one(kv * g, s)
+
+
+#: sliding-window flash cases (S, window, head_dim, H/KV, dtype), causal:
+#: windows of one key, of a 64-row tile, off the tiles (100) and Gemma3's
+#: 1024, over ragged and full-tile sequences; H/KV 1 and Qwen2's 7 (2 at
+#: head_dim 256, Gemma3's).  Shared by the card tests and chip_smoke.py.
+FLASH_WINDOW_CASES = tuple(
+    (s, w, hd, g, dt) for s, w, hd, dt in itertools.product(
+        (63, 200, 1000, 2048), (1, 64, 100, 1024), (64, 128, 256),
+        (torch.float32, torch.bfloat16))
+    for g in ((1, 2) if hd == 256 else (1, 7)))
+
+#: offset flash cases (Sq, Skv, q_offset, kv_len, window, causal): a chunk
+#: of queries against a longer cache, with and without a window; one
+#: decode position; kv_len < Skv, causal and full (a padded cache); cross
+#: attention (full, Sq != Skv); and rows that see no key (115..127 of the
+#: last case: q + 384 - 100 >= kv_len), written as zeros with an lse of
+#: NEG_INF.  Each runs at head_dim 64, 128 and 256 in fp32 and bf16.
+FLASH_OFFSET_CASES = (
+    (64, 1000, 936, None, None, True),
+    (200, 1000, 800, None, 100, True),
+    (1, 300, 299, None, 64, True),
+    (130, 700, 400, 600, 64, True),
+    (200, 200, 0, 150, None, True),
+    (200, 200, 0, 150, None, False),
+    (77, 300, 0, None, None, False),
+    (128, 512, 384, 400, 100, True),
+)
+
+
+def grid_positions(batch: int, seq: int, patches: int, side: int
+                   ) -> np.ndarray:
+    """Qwen2-VL's M-RoPE layout (3, batch, seq) int32, so that the streams
+    differ: patch i of the ``patches`` at the sequence's start gets (t, h,
+    w) = (0, i // side, i % side), a grid of ``side`` columns; text token j
+    after them gets side + j in all three streams."""
+    i = np.arange(patches)
+    j = np.arange(seq - patches)
+    pos = np.stack([np.concatenate([np.zeros(patches, np.int64), side + j]),
+                    np.concatenate([i // side, side + j]),
+                    np.concatenate([i % side, side + j])])
+    return np.broadcast_to(pos[:, None], (3, batch, seq)).astype(np.int32)
+
+
+def attn_tol(want: torch.Tensor, dtype) -> float:
+    """Kernel-vs-plain tolerance of the flash forward: the reference test's
+    atol 2e-5 for fp32 inputs; for bf16, one bf16 ulp at the output's
+    largest magnitude (each side rounds an fp32 result to bf16 once)."""
+    if dtype == torch.float32:
+        return 2e-5
+    return 2.0 ** -7 * float(want.float().abs().max())
+
+
+def flash_mask_ratios(attention, q, k, v, dout, *, causal: bool = True,
+                      **mask) -> dict:
+    """The flash kernels against their plain versions on one case with
+    mask arguments ``mask`` (window, q_offset, kv_len): err/tol of the
+    forward output (``max``, :func:`attn_tol`; ``element``,
+    :func:`bf16_attn_err`, bf16 only), of the lse (atol 1e-5), and of dq,
+    dk, dv (:func:`bwd_tol`) from the backward on the kernel's own output
+    and lse; ``repeat`` is 0 when two backward launches on the same inputs
+    are bit-identical, else infinity.  Every ratio must be <= 1."""
+    dt = q.dtype
+    out, lse = attention.flash_attention_fwd(q, k, v, causal=causal,
+                                             return_lse=True, **mask)
+    got = attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                        causal=causal, **mask)
+    again = attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=causal, **mask)
+    want, want_lse = attention.flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), causal=causal, return_lse=True,
+        **mask)
+    grads = attention.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+        causal=causal, **mask)
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    ratios = {"max": err(out, want) / attn_tol(want, dt),
+              "lse": err(lse, want_lse) / 1e-5}
+    if dt == torch.bfloat16:
+        ratios["element"] = bf16_attn_err(out, want)
+    for name, a, b in zip(("dq", "dk", "dv"), got, grads):
+        ratios[name] = err(a, b) / bwd_tol(b, dt)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ratios["repeat"] = 0.0 if same else math.inf
+    return ratios
 
 
 def unit_rms(t: torch.Tensor) -> torch.Tensor:
