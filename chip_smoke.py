@@ -332,6 +332,43 @@ Phases (any failure exits non-zero and prints no result):
    backward at layer 0's shape beside its plain version, SDPA's backward
    under the same mask and its bound: 2.5x the forward's flops against the
    bytes of q, k, v, o, dout, lse, dq, dk, dv).
+16. The MoE, SSM and hybrid families (ROADMAP A10.3, serving), after phase
+   15, each at its published config with random bf16 weights from
+   ``--seed``, ``greedy_generate`` of FAMILY_STEPS = 32 tokens for 4
+   prompts of 2048 (every counter zeroed around it, the flash wrappers'
+   plain versions made to raise), prefill and decode timed, the peak
+   memory over those runs, the card's busy time and idle share over one
+   prefill and one decode step with the top device operations.  a:
+   Qwen2-MoE-A2.7B (24 layers, d_model 2048, 16/16 heads x 128, 60
+   experts top-4 of width 1408 plus 4 shared, untied head): 24 flash
+   launches a prefill (``flash_fwd_wgmma``); the kernel at layers 0 and 23
+   against its plain version by both bf16 checks of phase 2; the
+   assignments the capacity dropped per layer (T = 8192, C = 688);
+   layer 0's captured MoE input through ``moe_ffn`` in fp32 against its
+   per-token dense form (each token the sum over its kept experts of gate
+   x expert MLP, every expert applied to every token, ``keep`` from a
+   running count of each expert's assignments) within MOE_DENSE_TOL, at
+   the config's capacity factor and at MOE_TIGHT_FACTOR; the logits
+   against the plain route as in phase 7, with the (token, slot) routings
+   that differ between the two routes counted per layer and printed (a
+   bf16 route can flip an expert choice near a tie); the kernel at layer
+   0's shape beside its plain version and SDPA (record ``flash_attention_fwd
+   moe``).  b: Mamba2-2.7B (64 layers, d_model 2560, 80 heads x 64,
+   d_state 128, chunk 128, tied head): no flash launch; ``ssd_chunked``
+   against the step-by-step ``ssd_sequential`` at layer 0's captured
+   input in fp32 within SSD_TOL; a prefill of 2047 tokens plus one decode
+   step against a prefill of 2048, the last-position logits within
+   STEP_TOL with argmax equal on decided rows (the conv and SSM caches
+   carried on the card).  c: Hymba-1.5B (32 layers, d_model 1600, 25/5
+   heads x 64 beside 50 SSM heads, window 1024 but on layers 0, 16 and
+   31, d_ff 5504): 32 flash launches a prefill; the kernel at layers 1
+   (local) and 16 (global) against its plain version; the logits against
+   the plain route (which must receive every layer's window); the S - 1
+   plus one step check of b; the kernel at layer 1's shape beside its
+   plain version and SDPA under the window's boolean mask (record
+   ``flash_attention_fwd hybrid``).  The S - 1 check is not made for the
+   MoE: there the capacity drops make a prefill and its continuation
+   differ by design.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -455,6 +492,28 @@ VLM_ARCH = "qwen2-vl-7b"    # phase 15b: M-RoPE and the visual prefix
 VLM_BATCH, VLM_PROMPT = 4, 2048
 WIN_TRAIN_LAYERS = 6        # phase 15c: Gemma3's 34 layers cut to 6
 WIN_TRAIN_BATCH = 2         # phase 15c: batches of 2 x WIN_PROMPT tokens
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 4, 2048, 32
+MOE_ARCH = "qwen2-moe-a2.7b"    # 16a: capacity dispatch, shared experts
+SSM_ARCH = "mamba2-2.7b"        # 16b: attention-free SSD at 64 layers
+HYBRID_ARCH = "hymba-1.5b"      # 16c: parallel attention and SSM heads
+#: 16a: the MoE layer at layer 0's captured input against its per-token
+#: dense form, both in fp32 (the same products summed in other orders),
+#: as a fraction of the dense form's largest magnitude; at the config's
+#: capacity factor and at MOE_TIGHT_FACTOR, where the capacity drops many
+#: assignments
+MOE_DENSE_TOL = 1e-4
+MOE_TIGHT_FACTOR = 0.5
+#: 16b: ``ssd_chunked`` against the step-by-step ``ssd_sequential`` at
+#: layer 0's captured input in fp32 (the reference's own test holds 64
+#: steps to 1e-5 absolute; here 2048), y and the final state each within
+#: this fraction of the oracle's largest magnitude
+SSD_TOL = 1e-4
+#: 16b and 16c: a prefill of S - 1 tokens plus one decode step against a
+#: prefill of S, bf16 last-position logits: the chunked and recurrent SSD,
+#: the full and stepped conv (and for Hymba the kernel and the plain decode
+#: attention) round to bf16 at other places in every layer, as phase 7's
+#: two attention routes do; its bf16 route tolerance
+STEP_TOL = LOGIT_TOL["bfloat16"]
 
 
 def serving_mix(planner, m: int, count: int, seed: int) -> list:
@@ -2390,7 +2449,8 @@ def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
     ``steps`` tokens for ``batch`` (its tokens and any other prefill
     inputs), every counter zeroed just before and read just after with
     the flash wrappers' plain versions made to raise: the flash kernel
-    must run once a layer (one prefill).  Then the prefill and the decode
+    must run once an attention layer (one prefill; none for an SSM model).
+    Then the prefill and the decode
     steps timed apart (a CUDA synchronize around each), the flash module
     of each of ``layers`` captured by a hook as (q, k, v, window, out).
     Returns the path's numbers, its step functions and captures."""
@@ -2408,10 +2468,11 @@ def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
     launches = {n: fn.launches for n, fn in counted.items()}
     print(f"{label} path: greedy_generate B={B} prompt {S} steps {steps}: "
           f"{gen_s} s (first run), launches {launches}, no plain attention")
-    if fwd.launches != cfg.num_layers:
+    attn_layers = sum(hasattr(layer, "attn_core") for layer in params.layers)
+    if fwd.launches != attn_layers:
         raise SystemExit(f"{label}: flash_attention_fwd launched "
                          f"{fwd.launches} times in one prefill, want "
-                         f"{cfg.num_layers}")
+                         f"{attn_layers} (one an attention layer)")
     if gen.shape != (B, steps) or not (
             0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
         raise SystemExit(f"{label} path: bad tokens {tuple(gen.shape)}")
@@ -2945,6 +3006,344 @@ def window_training(torch, dev, seed: int, zero_counts, counted, kernel
     gc.collect()
     torch.cuda.empty_cache()
     return out_rec
+
+
+def family_serving(torch, dev, seed: int, zero_counts, counted, arch: str,
+                   layers_of, label: str) -> dict:
+    """Phase 16's serving run of one model at its published config: random
+    bf16 weights from ``seed``, FAMILY_BATCH prompts of FAMILY_PROMPT
+    tokens, ``lm_serving`` (``greedy_generate`` counted, prefill and decode
+    timed, the flash module of each layer of ``layers_of(cfg)`` captured),
+    the peak
+    memory over it, and the card's busy time and idle share over one
+    prefill and one decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparam = sum(p.numel() for p in params.parameters())
+    print(f"{label}: {cfg.name} ({cfg.num_layers} layers, block {cfg.block}, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+          f"x {cfg.head_dim}, d_ff {cfg.d_ff}, moe {cfg.moe}, ssm {cfg.ssm}, "
+          f"window {cfg.sliding_window}, vocab {cfg.vocab_size}): {nparam} "
+          f"parameters (config: {cfg.param_count()}), "
+          f"{torch.cuda.memory_allocated()} bytes on the card, made in "
+          f"{init_s} s")
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT))).to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = lm_serving(torch, tstep, attention, params, cfg, {"tokens": prompts},
+                    FAMILY_STEPS, zero_counts, counted, label,
+                    layers_of(cfg))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: peak memory over greedy_generate, prefill and decode "
+          f"{peak} bytes")
+    prefill, decode = lm["prefill"], lm["decode"]
+    prof = {"prefill": profile(
+        f"{label}: one prefill ({FAMILY_BATCH} x {FAMILY_PROMPT})",
+        *device_profile(torch, lambda: prefill(params, {"tokens": prompts})))}
+    logits, cache = prefill(params, {"tokens": prompts})
+    nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    prof["decode"] = profile(f"{label}: one decode step", *device_profile(
+        torch, lambda: decode(params, {"tokens": nxt, "cache": cache})))
+    del logits, cache, nxt
+    record = {"arch": cfg.name, "params": nparam, "batch": FAMILY_BATCH,
+              "prompt": FAMILY_PROMPT, "steps": FAMILY_STEPS,
+              "init_s": init_s, "greedy_first_s": lm["gen_s"],
+              "prefill_ms": lm["prefill_ms"],
+              "decode_ms_per_step": lm["decode_ms"],
+              "generated_tokens_per_s": lm["tok_s"],
+              "launches": lm["launches"], "peak_bytes": peak,
+              "profile": prof}
+    return {"cfg": cfg, "params": params, "prompts": prompts, "lm": lm,
+            "record": record}
+
+
+def step_check(torch, tmodel, cfg, params, prompts, label: str) -> dict:
+    """A prefill of S - 1 tokens plus one decode step (the conv, SSM and KV
+    caches carried on the card) against a prefill of S: the last-position
+    logits within STEP_TOL of their largest magnitude, the argmax equal on
+    every row whose top-2 margin exceeds it."""
+    S, V = prompts.shape[1], cfg.vocab_size
+    want = tmodel.model_forward(params, cfg, prompts, mode="prefill")[0]
+    _, cache = tmodel.model_forward(params, cfg, prompts[:, :-1],
+                                    mode="prefill", max_len=S)
+    got = tmodel.model_forward(params, cfg, prompts[:, -1:], cache=cache,
+                               mode="decode")[0]
+    want, got = want[:, -1, :V].float(), got[:, -1, :V].float()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    tol = STEP_TOL * float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > tol
+    agree = got.argmax(-1) == want.argmax(-1)
+    print(f"{label}: prefill of {S - 1} + one decode step vs a prefill of "
+          f"{S}: max err {err} <= {tol} ({STEP_TOL} of max "
+          f"{float(want.abs().max())}); argmax agrees on {int(agree.sum())}/"
+          f"{got.shape[0]} rows ({int(decided.sum())} decided)")
+    if not (err <= tol and bool(agree[decided].all())
+            and bool(torch.isfinite(got).all())):
+        raise SystemExit(f"{label}: the decode step after a prefill of "
+                         f"{S - 1} differs from the prefill of {S}")
+    return {"err": err, "tol": tol, "argmax_agree": int(agree.sum()),
+            "rows_decided": int(decided.sum())}
+
+
+def routed(tmoe, run, calls: list) -> None:
+    """Run ``run()`` with every ``moe_ffn`` call's routing appended to
+    ``calls`` (one an MoE layer, in order; kept if ``run`` fails): the
+    chosen experts (T, k) and ``keep`` (T*k,), and for the first call its
+    arguments (x, p, spec, act)."""
+    saved = tmoe.moe_ffn
+
+    def recording(x, p, spec, act="silu"):
+        T = x.shape[0] * x.shape[1]
+        _, experts = tmoe.route(x.reshape(T, -1), p["router"], spec)
+        keep = tmoe.dispatch(experts, spec.num_experts, tmoe._capacity(
+            T, spec.top_k, spec.num_experts, spec.capacity_factor))[1]
+        calls.append({"experts": experts, "keep": keep,
+                      "args": None if calls else (x, p, spec, act)})
+        return saved(x, p, spec, act)
+    tmoe.moe_ffn = recording
+    try:
+        run()
+    finally:
+        tmoe.moe_ffn = saved
+
+
+def dense_moe(torch, tmoe, mlp, x, p, spec, act):
+    """The MoE layer's per-token dense form: each token's sum over its kept
+    experts of gate x expert MLP, each expert's MLP applied to every token.
+    The routing is ``route``'s; ``keep`` comes from a running count of each
+    expert's assignments in token order (not ``dispatch``'s sort).
+    Returns (out, dropped assignments)."""
+    B, S, d = x.shape
+    T, E, k = B * S, spec.num_experts, spec.top_k
+    xf = x.reshape(T, d)
+    gates, experts = tmoe.route(xf, p["router"], spec)
+    onehot = torch.nn.functional.one_hot(experts.reshape(-1), E)
+    rank = (onehot.cumsum(0) - 1).gather(1, experts.reshape(-1, 1))
+    C = tmoe._capacity(T, k, E, spec.capacity_factor)
+    keep = (rank < C).view(T, k)
+    weight = torch.zeros((T, E), dtype=xf.dtype, device=x.device)
+    weight.scatter_(1, experts, gates * keep)
+    out = torch.zeros_like(xf)
+    for e in range(E):
+        out += weight[:, e:e + 1] * mlp(xf, {"w_in": p["w_in"][e],
+                                            "w_gate": p["w_gate"][e],
+                                            "w_out": p["w_out"][e]}, act)
+    out = out.view(B, S, d)
+    if "shared_w_in" in p:
+        out = out + torch.sigmoid(x @ p["shared_gate"]) * mlp(
+            x, {"w_in": p["shared_w_in"], "w_gate": p["shared_w_gate"],
+                "w_out": p["shared_w_out"]}, act)
+    return out, int((~keep).sum())
+
+
+def moe_serving(torch, dev, seed: int, zero_counts, counted, kernel) -> dict:
+    """Phase 16a (see the module docstring)."""
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.layers import mlp
+    from torch_checks import attn_tol
+    run = family_serving(torch, dev, seed, zero_counts, counted, MOE_ARCH,
+                         lambda cfg: (0, cfg.num_layers - 1), "moe lm")
+    cfg, params, prompts, lm = (run[k] for k in ("cfg", "params", "prompts",
+                                                 "lm"))
+    layer_err = check_layers(attention, lm["captured"],
+                             tmodel.layer_windows(cfg), "moe lm check")
+
+    # one more kernel-route prefill with every layer's routing recorded and
+    # layer 0's MoE input kept: the buffer route against the dense form
+    kernel_calls = []
+    routed(tmoe, lambda: lm["prefill"](params, {"tokens": prompts}),
+           kernel_calls)
+    dropped = [int((~c["keep"]).sum()) for c in kernel_calls]
+    T, m = FAMILY_BATCH * FAMILY_PROMPT, cfg.moe
+    print(f"moe lm: assignments dropped by the capacity per layer (bf16 "
+          f"kernel-route prefill, T = {T}, top {m.top_k}, C = "
+          f"{tmoe._capacity(T, m.top_k, m.num_experts, m.capacity_factor)}):"
+          f" {dropped}")
+    x0, p0, spec, act = kernel_calls[0]["args"]
+    x0 = x0.float()
+    p0 = {k: v.float() for k, v in p0.items()}
+    dense_checks = {}
+    for factor in (spec.capacity_factor, MOE_TIGHT_FACTOR):
+        sp = dataclasses.replace(spec, capacity_factor=factor)
+        got = tmoe.moe_ffn(x0, p0, sp, act)
+        want, drops = dense_moe(torch, tmoe, mlp, x0, p0, sp, act)
+        torch.cuda.synchronize()
+        err, tol = max_abs_err(got, want), MOE_DENSE_TOL * float(
+            want.abs().max())
+        dense_checks[factor] = {"err": err, "tol": tol, "dropped": drops}
+        print(f"moe lm check: layer 0's MoE (fp32, capacity factor {factor}:"
+              f" {drops} of {x0.shape[0] * x0.shape[1] * sp.top_k} "
+              f"assignments dropped) vs its per-token dense form: max err "
+              f"{err} <= {tol}")
+        if not err <= tol:
+            raise SystemExit(f"moe lm: the MoE layer differs from its dense "
+                             f"form at capacity factor {factor}: {err} > "
+                             f"{tol}")
+    del x0, p0, got, want
+
+    # the logits against the plain attention route; the routing flips
+    # between the routes counted per layer (bf16: the kernel-route prefill
+    # above against the plain route's; fp32: the two fp32 prefills)
+    L = cfg.num_layers
+    route_calls, checks = [], {}
+
+    def flips_of(a, b):
+        return [int((x["experts"] != y["experts"]).sum())
+                for x, y in zip(a, b)]
+
+    try:
+        routed(tmoe, lambda: checks.update(logit_route_checks(
+            torch, tmodel, tflash, attention, cfg, lm["prefill"], params,
+            {"tokens": prompts}, lm["kernel_logits"], "moe lm check")),
+            route_calls)
+    finally:
+        flips = {"bfloat16": flips_of(kernel_calls, route_calls[:L]),
+                 "float32": flips_of(route_calls[L:2 * L],
+                                     route_calls[2 * L:3 * L])}
+        print(f"moe lm check: (token, slot) routings that differ between "
+              f"the kernel and the plain attention route, per layer: "
+              f"{flips}")
+    del kernel_calls, route_calls
+
+    # the kernel at layer 0's shape beside its plain version and SDPA
+    fq, fk, fv, _, fo = lm["captured"][0]
+    B_, S_, H_, hd_ = fq.shape
+    sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kernel("flash_attention_fwd moe", "attention.cu",
+           "src/repro/kernels/attention.py:67",
+           f"q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, causal, bf16",
+           lambda: attention.flash_attention_fwd(fq, fk, fv, causal=True),
+           lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
+                                                       causal=True),
+           2 * (2 * fq.numel() + fk.numel() + fv.numel()),
+           2 * S_ * (S_ + 1) * hd_ * B_ * H_, 10,
+           count=lm["launches"]["flash_attention_fwd"],
+           tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
+           library=lambda: sdpa(sq, sk, sv, is_causal=True))
+    out = dict(run["record"], layer_checks=layer_err,
+               dropped_per_layer=dropped, dense_checks={
+                   str(k): v for k, v in dense_checks.items()},
+               route_flips=flips, logit_checks=checks)
+    print(json.dumps({"moe_lm_path": out}))
+    del run, params, lm, fq, fk, fv, fo, sq, sk, sv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_serving(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 16b (see the module docstring)."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import ssm as tssm
+    run = family_serving(torch, dev, seed, zero_counts, counted, SSM_ARCH,
+                         lambda cfg: (), "ssm lm")
+    cfg, params, prompts, lm = (run[k] for k in ("cfg", "params", "prompts",
+                                                 "lm"))
+    # ssd_chunked against the step-by-step oracle at layer 0's input
+    captured = []
+    saved = tssm.ssd_chunked
+
+    def capture(*args, **kwargs):
+        if not captured:
+            captured.append((args, kwargs))
+        return saved(*args, **kwargs)
+    tssm.ssd_chunked = capture
+    try:
+        lm["prefill"](params, {"tokens": prompts})
+    finally:
+        tssm.ssd_chunked = saved
+    args, kwargs = captured[0]
+    args = [a.float() for a in args]
+    t0 = time.perf_counter()
+    y_c, h_c = tssm.ssd_chunked(*args, chunk=kwargs["chunk"])
+    y_s, h_s = tssm.ssd_sequential(*args)
+    torch.cuda.synchronize()
+    ssd = {}
+    for name, got, want in (("y", y_c, y_s), ("state", h_c, h_s)):
+        err, tol = max_abs_err(got, want), SSD_TOL * float(want.abs().max())
+        ssd[name] = {"err": err, "tol": tol}
+        if not err <= tol:
+            raise SystemExit(f"ssm lm: ssd_chunked's {name} differs from "
+                             f"ssd_sequential's at layer 0: {err} > {tol}")
+    print(f"ssm lm check: ssd_chunked vs ssd_sequential at layer 0's input "
+          f"(x {tuple(args[0].shape)}, B/C {tuple(args[3].shape)}, chunk "
+          f"{kwargs['chunk']}, fp32; {time.perf_counter() - t0} s): {ssd}")
+    del captured, args, y_c, h_c, y_s, h_s
+    steps = step_check(torch, tmodel, cfg, params, prompts, "ssm lm check")
+    out = dict(run["record"], ssd_check=ssd, step_check=steps)
+    print(json.dumps({"ssm_lm_path": out}))
+    del run, params, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_serving(torch, dev, seed: int, zero_counts, counted, kernel
+                   ) -> dict:
+    """Phase 16c (see the module docstring)."""
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from torch_checks import attn_tol
+    # a local layer and the middle (global) one
+    run = family_serving(torch, dev, seed, zero_counts, counted, HYBRID_ARCH,
+                         lambda cfg: (1, cfg.num_layers // 2), "hybrid lm")
+    cfg, params, prompts, lm = (run[k] for k in ("cfg", "params", "prompts",
+                                                 "lm"))
+    windows = tmodel.layer_windows(cfg)
+    layer_err = check_layers(attention, lm["captured"], windows,
+                             "hybrid lm check")
+    logit_checks = logit_route_checks(
+        torch, tmodel, tflash, attention, cfg, lm["prefill"], params,
+        {"tokens": prompts}, lm["kernel_logits"], "hybrid lm check")
+    steps = step_check(torch, tmodel, cfg, params, prompts,
+                       "hybrid lm check")
+
+    # the kernel at layer 1's shape (a local layer) beside its plain version
+    # and SDPA under the window's boolean mask
+    fq, fk, fv, w1, fo = lm["captured"][1]
+    B_, S_, H_, hd_ = fq.shape
+    keep = attention.allowed(S_, S_, causal=True, window=w1, device=dev)
+    pairs = int(keep.sum())
+    library, sdpa_kernels = sdpa_beside(torch, fq, fk, fv, keep)
+    print(f"hybrid lm: SDPA under the window's boolean mask: {sdpa_kernels}")
+    kernel("flash_attention_fwd hybrid", "attention.cu",
+           "src/repro/kernels/attention.py:67",
+           f"q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, causal, window "
+           f"{w1}, bf16",
+           lambda: attention.flash_attention_fwd(fq, fk, fv, causal=True,
+                                                 window=w1),
+           lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
+                                                       causal=True,
+                                                       window=w1),
+           2 * (2 * fq.numel() + fk.numel() + fv.numel()),
+           4 * hd_ * pairs * B_ * H_, 10,
+           count=lm["launches"]["flash_attention_fwd"],
+           tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
+           library=library)
+    out = dict(run["record"], layer_checks=layer_err,
+               logit_checks=logit_checks, step_check=steps,
+               sdpa_kernels=sdpa_kernels)
+    print(json.dumps({"hybrid_lm_path": out}))
+    del run, params, lm, fq, fk, fv, fo, library
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def restart_path(torch, dev, seed: int) -> dict:
@@ -4014,6 +4413,15 @@ def main() -> int:
     vlm_serving(torch, dev, args.seed, zero_counts, counted)
     window_training(torch, dev, args.seed, zero_counts, counted, kernel)
     print(f"phase 15 took {time.perf_counter() - t15} s")
+
+    # ---- 16. the MoE, SSM and hybrid families on the card ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    moe_serving(torch, dev, args.seed, zero_counts, counted, kernel)
+    ssm_serving(torch, dev, args.seed, zero_counts, counted)
+    hybrid_serving(torch, dev, args.seed, zero_counts, counted, kernel)
+    print(f"phase 16 took {time.perf_counter() - t16} s")
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -4,8 +4,9 @@ encoder-decoder (Whisper), VLM prefix (Qwen2-VL M-RoPE), local:global
 sliding-window patterns (Gemma3).
 
 The port's copy of ``repro.models.config`` (pure dataclasses, kept
-identical).  The port's model runs the dense families; the others raise
-``NotImplementedError`` in ``repro_torch.models.model``."""
+identical).  The port's model serves every family but the encoder-decoder
+and trains the dense ones; the rest raise ``NotImplementedError`` in
+``repro_torch.models.model``."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,19 +1,24 @@
-"""The dense decoder: schema-driven parameters as ``nn.Module``s, and the
-forward in train, prefill and decode mode.
+"""The decoder: schema-driven parameters as ``nn.Module``s, and the forward
+in train, prefill and decode mode.
 
 The port's twin of ``repro.models.model``.  Parameter names are the schema's
 keys: ``embed``, ``final_norm``, ``lm_head`` at the top and ``layers.<i>.<key>``
 for each decoder layer (the reference stacks those on a leading L axis for
 ``lax.scan``; here each layer is a module in a ``ModuleList``).  Shapes keep
 the reference's semantics: ``wq`` (d, H, hd), ``wo`` (H, hd, d), ``w_in``
-(d, f).  Matrices, embedding and biases are stored in the compute dtype, norm
-scales in fp32 (the reference casts matrices at use and reads norm scales in
-fp32, so this computes the same thing at half the memory).
+(d, f).  Matrices, embedding and biases are stored in the compute dtype;
+norm scales and the SSM's conv weights, dt bias, A_log and D in fp32 (the
+reference casts matrices at use and reads those in fp32, so this computes
+the same thing at half the memory).
 
-Prefill attention runs the flash kernel (``models.flash``); decode writes the
-new position into the KV cache in place (saving a copy of the whole cache per
-step, where the reference returns an updated copy) and attends with the plain
-``decode_attention``.  Training (``mode="train"``, autograd on) runs
+A layer mixes by attention (``block`` attn), the Mamba2 mixer
+(``models.ssm``, block ssm) or both, averaged (hybrid, Hymba), then runs
+the MoE FFN (``models.moe``), the dense MLP or nothing (Mamba2).  Prefill
+attention runs the flash kernel (``models.flash``); decode writes the new
+position into the KV cache in place (saving a copy of the whole cache per
+step, where the reference returns an updated copy) and attends with the
+plain ``decode_attention``; the SSM's conv and state caches are updated in
+place alike.  Training (``mode="train"``, autograd on) runs
 attention through ``flash_attention_vjp`` (the forward and backward kernels)
 and, unless ``cfg.remat == "none"``, each layer under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): ``"full"``
@@ -24,10 +29,11 @@ dtype at use as the reference does; serving keeps bf16 storage.  Ported: the
 dense families with ``qkv_bias``, ``qk_norm``, ``parallel_block``,
 ``logit_softcap``, tied and untied heads, silu/geglu/gelu, sliding windows
 with the reference's per-layer global flags (``global_flags``: Gemma3's
-local:global pattern), M-RoPE and the VLM prefix (Qwen2-VL).  MoE, SSM,
-hybrid and enc-dec raise ``NotImplementedError`` naming their ROADMAP item;
-the sharding constraints of the reference are identities on one card and
-are dropped (``param_logical`` keeps their names).
+local:global pattern), M-RoPE and the VLM prefix (Qwen2-VL); serving of the
+MoE, SSM and hybrid families.  Training those and enc-dec raise
+``NotImplementedError`` naming their ROADMAP item; the sharding constraints
+of the reference are identities on one card and are dropped
+(``param_logical`` and ``cache_logical`` keep their names).
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.engine.policy import resolve_device
 from repro_torch.models import flash
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnMask, apply_rope,
                                        decode_attention, mlp, rms_norm,
@@ -52,22 +60,35 @@ COMPUTE_DTYPE = torch.bfloat16
 
 #: global (not per-layer) parameters
 GLOBAL_KEYS = ("embed", "final_norm", "lm_head")
-#: parameters kept in fp32 whatever the compute dtype
+#: norm scales: kept in fp32 whatever the compute dtype
 NORM_KEYS = ("final_norm", "ln1", "ln2", "q_norm", "k_norm")
+#: the SSM's parameters that the reference reads in fp32: kept in fp32 too
+SSM_FP32_KEYS = ("ssm_conv_w", "ssm_conv_b", "ssm_dt_bias", "ssm_A_log",
+                 "ssm_D", "ssm_norm")
+#: per-layer cache entries: KV (attention) and conv / state (SSM)
+CACHE_KEYS = ("k", "v", "conv", "ssm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    the model families of ROADMAP A10.3."""
-    if cfg.moe is not None or cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  "yet (ROADMAP A10.3)")
-    if cfg.block != "attn" or cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: SSM / hybrid blocks are not "
-                                  "ported yet (ROADMAP A10.3)")
+    the encoder-decoder stack of ROADMAP A10.3."""
     if cfg.enc_dec or cfg.family == "audio":
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is "
                                   "not ported yet (ROADMAP A10.3)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port serves but does
+    not train yet: MoE, SSM and hybrid need the backward of the MoE
+    dispatch and of the SSD scan (ROADMAP A10.3, training)."""
+    check_supported(cfg)
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: training MoE layers is not "
+                                  "ported yet (ROADMAP A10.3, training)")
+    if cfg.block != "attn":
+        raise NotImplementedError(f"{cfg.name}: training SSM / hybrid "
+                                  "blocks is not ported yet (ROADMAP A10.3, "
+                                  "training)")
 
 
 def global_flags(cfg: ModelConfig) -> np.ndarray:
@@ -111,12 +132,32 @@ LOGICAL = {
     "q_norm": (None, None), "k_norm": (None, None),
     "w_gate": (None, "fsdp", "mlp"), "w_in": (None, "fsdp", "mlp"),
     "w_out": (None, "mlp", "fsdp"),
+    "ssm_in_proj": (None, "fsdp", "mlp"), "ssm_conv_w": (None, None, "mlp"),
+    "ssm_conv_b": (None, "mlp"), "ssm_dt_bias": (None, "heads"),
+    "ssm_A_log": (None, "heads"), "ssm_D": (None, "heads"),
+    "ssm_norm": (None, "mlp"), "ssm_out_proj": (None, "mlp", "fsdp"),
+    "router": (None, "fsdp", None),
+    "moe_w_gate": (None, "experts", "fsdp", "expert_mlp"),
+    "moe_w_in": (None, "experts", "fsdp", "expert_mlp"),
+    "moe_w_out": (None, "experts", "expert_mlp", "fsdp"),
+    "shared_w_gate": (None, "fsdp", "mlp"),
+    "shared_w_in": (None, "fsdp", "mlp"),
+    "shared_w_out": (None, "mlp", "fsdp"),
+    "shared_gate": (None, "fsdp", None),
 }
 
 
+def _ssm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(d_inner, nh, conv_dim) of the Mamba2 mixer."""
+    sp = cfg.ssm
+    d_inner = sp.expand * cfg.d_model
+    conv_dim = d_inner + 2 * sp.n_groups * sp.d_state
+    return d_inner, d_inner // sp.head_dim, conv_dim
+
+
 def _schema(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], float]]:
-    """name -> (shape, init scale) of the dense decoder.  Per-layer tensors
-    are stacked on a leading L axis, as in the reference's schema."""
+    """name -> (shape, init scale).  Per-layer tensors are stacked on a
+    leading L axis, as in the reference's schema."""
     check_supported(cfg)
     d, L = cfg.d_model, cfg.num_layers
     H, KV, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
@@ -126,18 +167,45 @@ def _schema(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], float]]:
     if not cfg.tie_embeddings:
         s["lm_head"] = ((d, cfg.vocab_padded), 0.02)
     s["ln1"] = ((L, d), 0.0)
-    s["wq"] = ((L, d, H, hd), w_scale)
-    s["wk"] = ((L, d, KV, hd), w_scale)
-    s["wv"] = ((L, d, KV, hd), w_scale)
-    s["wo"] = ((L, H, hd, d), o_scale)
-    if cfg.qkv_bias:
-        s["bq"] = ((L, H, hd), 0.0)
-        s["bk"] = ((L, KV, hd), 0.0)
-        s["bv"] = ((L, KV, hd), 0.0)
-    if cfg.qk_norm:
-        s["q_norm"] = ((L, hd), 0.0)
-        s["k_norm"] = ((L, hd), 0.0)
-    if cfg.d_ff:
+    if cfg.block in ("attn", "hybrid"):
+        s["wq"] = ((L, d, H, hd), w_scale)
+        s["wk"] = ((L, d, KV, hd), w_scale)
+        s["wv"] = ((L, d, KV, hd), w_scale)
+        s["wo"] = ((L, H, hd, d), o_scale)
+        if cfg.qkv_bias:
+            s["bq"] = ((L, H, hd), 0.0)
+            s["bk"] = ((L, KV, hd), 0.0)
+            s["bv"] = ((L, KV, hd), 0.0)
+        if cfg.qk_norm:
+            s["q_norm"] = ((L, hd), 0.0)
+            s["k_norm"] = ((L, hd), 0.0)
+    if cfg.block in ("ssm", "hybrid"):
+        sp = cfg.ssm
+        d_inner, nh, conv_dim = _ssm_dims(cfg)
+        d_proj = d_inner + conv_dim + nh
+        s["ssm_in_proj"] = ((L, d, d_proj), w_scale)
+        s["ssm_conv_w"] = ((L, sp.conv_width, conv_dim), 0.1)
+        s["ssm_conv_b"] = ((L, conv_dim), 0.0)
+        s["ssm_dt_bias"] = ((L, nh), 0.1)
+        s["ssm_A_log"] = ((L, nh), 0.1)
+        s["ssm_D"] = ((L, nh), 0.1)
+        s["ssm_norm"] = ((L, d_inner), 0.0)
+        s["ssm_out_proj"] = ((L, d_inner, d), o_scale)
+    if cfg.moe is not None:
+        m = cfg.moe
+        E, fe = m.padded_experts(), m.d_ff_expert
+        s["ln2"] = ((L, d), 0.0)
+        s["router"] = ((L, d, m.num_experts), w_scale)
+        s["moe_w_gate"] = ((L, E, d, fe), w_scale)
+        s["moe_w_in"] = ((L, E, d, fe), w_scale)
+        s["moe_w_out"] = ((L, E, fe, d), o_scale)
+        if m.num_shared:
+            fs = m.num_shared * fe
+            s["shared_w_gate"] = ((L, d, fs), w_scale)
+            s["shared_w_in"] = ((L, d, fs), w_scale)
+            s["shared_w_out"] = ((L, fs, d), o_scale)
+            s["shared_gate"] = ((L, d, 1), w_scale)
+    elif cfg.d_ff:
         s["ln2"] = ((L, d), 0.0)
         if cfg.mlp_act in ("silu", "geglu"):
             s["w_gate"] = ((L, d, f), w_scale)
@@ -147,7 +215,8 @@ def _schema(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], float]]:
 
 
 def _store_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
-    return torch.float32 if name in NORM_KEYS else dtype
+    return (torch.float32 if name in NORM_KEYS or name in SSM_FP32_KEYS
+            else dtype)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -156,18 +225,23 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 # ----------------------------------------------------------------- modules
 class DecoderLayer(nn.Module):
-    """One dense decoder layer; its parameters are the schema's per-layer
-    keys, one layer's slice each."""
+    """One decoder layer; its parameters are the schema's per-layer keys,
+    one layer's slice each."""
 
     def __init__(self, cfg: ModelConfig, tensors: dict[str, torch.Tensor]):
         super().__init__()
         self.cfg = cfg
         for name, t in tensors.items():
             self.register_parameter(name, _param(t))
-        self.attn_core = flash.FlashAttention()
+        if cfg.block in ("attn", "hybrid"):
+            self.attn_core = flash.FlashAttention()
 
-    def _attention(self, x, angles, mode, cache_k, cache_v, pos, window):
+    def _params(self, names) -> dict:
+        return {n: getattr(self, n) for n in names if hasattr(self, n)}
+
+    def _attention(self, x, angles, mode, cache, pos, window):
         cfg = self.cfg
+        cache_k, cache_v = (cache["k"], cache["v"]) if cache else (None, None)
         B, S, d = x.shape
         dt = x.dtype
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -201,17 +275,45 @@ class DecoderLayer(nn.Module):
             cache_v[:, :S] = v.to(cache_v.dtype)
         return out.reshape(B * S, H * hd) @ self.wo.to(dt).reshape(H * hd, d)
 
-    def forward(self, x, angles, mode, cache_k=None, cache_v=None, pos=0,
-                window=None):
+    def _ssm(self, x, mode, cache):
+        """The Mamba2 mixer; its conv and state caches written in place
+        (prefill fills them, decode steps them)."""
+        p = {n[len("ssm_"):]: t for n, t in self.named_parameters()
+             if n.startswith("ssm_")}
+        state = ({"conv": cache["conv"].to(x.dtype), "ssm": cache["ssm"]}
+                 if mode == "decode" else None)
+        out, new = ssm_lib.mamba2_mix(
+            p, x, self.cfg, mode="step" if mode == "decode" else "full",
+            state=state)
+        cache["conv"].copy_(new["conv"])
+        cache["ssm"].copy_(new["ssm"])
+        return out
+
+    def forward(self, x, angles, mode, cache=None, pos=0, window=None):
+        """``cache``: this layer's views of the cache entries (``k``/``v``,
+        ``conv``/``ssm``), None in training."""
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        mix = self._attention(h, angles, mode, cache_k, cache_v, pos,
-                              window).view(x.shape)
-        p = {n: getattr(self, n) for n in ("w_in", "w_gate", "w_out")
-             if hasattr(self, n)}
-        if cfg.parallel_block and cfg.d_ff:
+        mix = None
+        if cfg.block in ("attn", "hybrid"):
+            mix = self._attention(h, angles, mode, cache, pos,
+                                  window).view(x.shape)
+        if cfg.block in ("ssm", "hybrid"):
+            ssm_out = self._ssm(h, mode, cache)
+            mix = ssm_out if mix is None else mix + ssm_out
+        if cfg.block == "hybrid":
+            mix = mix * 0.5                   # average the parallel heads
+        p = self._params(("w_in", "w_gate", "w_out"))
+        if cfg.parallel_block and cfg.moe is None and cfg.d_ff:
             return x + mix + mlp(h, p, cfg.mlp_act)
         x = x + mix
+        if cfg.moe is not None:
+            mo = {"router": self.router, "w_gate": self.moe_w_gate,
+                  "w_in": self.moe_w_in, "w_out": self.moe_w_out,
+                  **self._params(("shared_w_gate", "shared_w_in",
+                                  "shared_w_out", "shared_gate"))}
+            return x + moe_lib.moe_ffn(rms_norm(x, self.ln2, cfg.norm_eps),
+                                       mo, cfg.moe, cfg.mlp_act)
         if cfg.d_ff:
             x = x + mlp(rms_norm(x, self.ln2, cfg.norm_eps), p, cfg.mlp_act)
         return x
@@ -238,9 +340,9 @@ class Model(nn.Module):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 dtype: torch.dtype | None = None) -> Model:
     """A :class:`Model` with the reference's init rule (normal * scale, zero
-    where the scale is 0) drawn from a ``torch.Generator`` on ``device``
-    seeded with ``seed``, on ``device`` (the card unless the caller asks for
-    the CPU).  The numbers differ from ``jax.random``'s.  ``dtype`` is the
+    where the scale is 0, 0.5 for the SSM's A_log, dt_bias and D) drawn
+    from a ``torch.Generator`` on ``device`` seeded with ``seed``, on
+    ``device`` (the card unless the caller asks for the CPU).  The numbers differ from ``jax.random``'s.  ``dtype`` is the
     storage of matrices, embedding and biases (default the compute dtype;
     training passes ``torch.float32`` for fp32 master weights)."""
     dev = resolve_device(device)
@@ -251,6 +353,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         sd = _store_dtype(name, dtype)
         if scale == 0.0:
             tensors[name] = torch.zeros(shape, dtype=sd, device=dev)
+        elif name.endswith(("A_log", "dt_bias", "D")):
+            tensors[name] = torch.full(shape, 0.5, dtype=sd, device=dev)
         else:
             tensors[name] = (torch.randn(shape, generator=generator,
                                          dtype=torch.float32, device=dev)
@@ -329,20 +433,48 @@ def param_logical(cfg: ModelConfig) -> dict[str, tuple]:
 # ------------------------------------------------------------------ caches
 def _empty_caches(cfg: ModelConfig, batch: int, length: int,
                   device) -> dict[str, torch.Tensor]:
-    """Zeroed per-layer KV caches (L, batch, length, KV, hd) in the compute
-    dtype."""
-    shape = (cfg.num_layers, batch, length, cfg.num_kv_heads, cfg.head_dim)
-    return {nm: torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
-            for nm in ("k", "v")}
+    """Zeroed per-layer caches: for attention KV (L, batch, length, KV, hd)
+    in the compute dtype; for the SSM the conv inputs (L, batch, K-1,
+    conv_dim) in the compute dtype and the state (L, batch, nh, hp, ds) in
+    fp32 (the reference's keys and shapes)."""
+    L = cfg.num_layers
+    out = {}
+    if cfg.block in ("attn", "hybrid"):
+        shape = (L, batch, length, cfg.num_kv_heads, cfg.head_dim)
+        for nm in ("k", "v"):
+            out[nm] = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+    if cfg.block in ("ssm", "hybrid"):
+        sp = cfg.ssm
+        _, nh, conv_dim = _ssm_dims(cfg)
+        out["conv"] = torch.zeros((L, batch, sp.conv_width - 1, conv_dim),
+                                  dtype=COMPUTE_DTYPE, device=device)
+        out["ssm"] = torch.zeros((L, batch, nh, sp.head_dim, sp.d_state),
+                                 dtype=torch.float32, device=device)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """Decode state: full-length KV caches and the next position."""
+    """Decode state: full-length KV caches, the SSM's conv and state caches
+    and the next position."""
     check_supported(cfg)
     cache = _empty_caches(cfg, batch, max_len, resolve_device(device))
     cache["pos"] = 0
     return cache
+
+
+def cache_logical(cfg: ModelConfig) -> dict[str, tuple]:
+    """The reference's logical axis names per cache entry (identities on
+    one card, kept for parity)."""
+    check_supported(cfg)
+    names: dict[str, tuple] = {"pos": ()}
+    if cfg.block in ("attn", "hybrid"):
+        names["k"] = (None, "batch", None, "kv_heads", "head_dim")
+        names["v"] = (None, "batch", None, "kv_heads", "head_dim")
+    if cfg.block in ("ssm", "hybrid"):
+        names["conv"] = (None, "batch", None, "mlp")
+        names["ssm"] = (None, "batch", "heads", None, "state")
+    return names
 
 
 # ----------------------------------------------------------------- forward
@@ -372,10 +504,10 @@ def _train_layers(params: Model, cfg: ModelConfig, x, angles):
                          f"{cfg.remat!r}")
     for layer, window in zip(params.layers, layer_windows(cfg)):
         if cfg.remat == "none":
-            x = layer(x, angles, "train", None, None, 0, window)
+            x = layer(x, angles, "train", None, 0, window)
         else:
             x = torch_checkpoint.checkpoint(
-                layer, x, angles, "train", None, None, 0, window,
+                layer, x, angles, "train", None, 0, window,
                 use_reentrant=False, context_fn=_remat_context(cfg))
     return x
 
@@ -406,7 +538,7 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
                          f"{mode!r}")
     if mode == "train" and cache is not None:
         raise ValueError("mode='train' takes no cache")
-    check_supported(cfg)
+    (check_trainable if mode == "train" else check_supported)(cfg)
     B, S = tokens.shape
     dt = COMPUTE_DTYPE
     dev = params.embed.device
@@ -438,8 +570,9 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
             return (x if return_hidden else _head_logits(params, cfg, x)), None
         for i, (layer, window) in enumerate(zip(params.layers,
                                                 layer_windows(cfg))):
-            x = layer(x, angles, mode, caches["k"][i], caches["v"][i], pos0,
-                      window)
+            x = layer(x, angles, mode, {nm: caches[nm][i] for nm in
+                                        CACHE_KEYS if nm in caches},
+                      pos0, window)
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         if mode == "prefill":
             x = x[:, -1:]

@@ -1,5 +1,6 @@
-"""Serving steps: batched prefill (last-position logits + a KV cache padded
-to the decode horizon), single-token decode, a batched greedy loop, and
+"""Serving steps: batched prefill (last-position logits + a cache: KV padded
+to the decode horizon, and an SSM's conv and state caches), single-token
+decode, a batched greedy loop, and
 batched structured retrieval over a bitmap index (the paper's query
 workload served through the engine's bucketed batch executor).
 

@@ -21,12 +21,18 @@ and a kv_len (``torch_checks.FLASH_WINDOW_CASES`` and
 ``FLASH_OFFSET_CASES``, shared with ``chip_smoke.py``'s phase 2),
 including rows that see no key (zeros, lse NEG_INF).
 
+The MoE FFN and the Mamba2 mixer on the card against the same functions
+on the CPU at smoke sizes, and ``greedy_generate`` of the MoE, SSM and
+hybrid smoke configs on the card (one flash launch an attention layer, the
+CPU's tokens in fp32).
+
 The serving layer on the card: a four-thread storm through
 ``BitmapDB.serve()`` over a 2^20-record index (every answer the ``ref``
 backend's, the fallback ladder never engaged, every wave on the kernels),
 a ``measure_calibration`` that must rank ``cuda`` first, and ``explain``
 on a card session.
 """
+import contextlib
 import itertools
 
 import numpy as np
@@ -723,6 +729,136 @@ def test_prefill_launches_the_kernel_once_per_layer(dev):
     torch.cuda.synchronize()
     assert out.shape == (2, 3)
     assert tfa.flash_attention_fwd.launches - before == cfg.num_layers
+
+
+FAMILIES = ["qwen2_moe_a2_7b", "granite_moe_3b_a800m", "mamba2_2_7b",
+            "hymba_1_5b"]
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Any operation that waits for the card raises inside the block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _family_params(arch, seed=0):
+    """A family's smoke config and random fp32 weights as numpy (the port's
+    schema: the same weights load on the card and on the CPU)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model
+    cfg = get_smoke_config(arch)
+    cpu = model.init_params(cfg, seed=seed, device="cpu",
+                            dtype=torch.float32)
+    return cfg, model.params_to_numpy(cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "granite_moe_3b_a800m"])
+def test_moe_ffn_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """Smoke-size ``moe_ffn`` (T = 3 x 29 tokens, capacity factor 0.5: the
+    capacity drops some assignments) on the card against the same function
+    on the CPU, the
+    routing and ``keep`` equal and the output within 1e-4 of its largest
+    magnitude (fp32) or 1/32 plus 1e-3 (bf16); two card runs
+    bit-identical (no scatter-add on the card), and no host sync (every
+    shape static)."""
+    import dataclasses
+    from repro_torch.models import moe
+    cfg, params = _family_params(arch)
+    spec = dataclasses.replace(cfg.moe, capacity_factor=0.5)
+    p = {"router": params["router"][0] * 20,
+         **{k[len("moe_"):]: params[k][0] for k in
+            ("moe_w_gate", "moe_w_in", "moe_w_out")},
+         **{k: params[k][0] for k in ("shared_w_gate", "shared_w_in",
+                                      "shared_w_out", "shared_gate")
+            if k in params}}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 29, cfg.d_model)).astype(np.float32)).to(dtype)
+    cpu_p = {k: torch.from_numpy(v) for k, v in p.items()}
+    card_p = {k: v.to(dev) for k, v in cpu_p.items()}
+    want = moe.moe_ffn(x, cpu_p, spec, cfg.mlp_act)
+    xd = x.to(dev)
+    torch.cuda.synchronize()
+    with _no_host_sync():
+        got = moe.moe_ffn(xd, card_p, spec, cfg.mlp_act)
+    again = moe.moe_ffn(xd, card_p, spec, cfg.mlp_act)
+    assert torch.equal(got, again)
+    T = x.shape[0] * x.shape[1]
+    C = moe._capacity(T, spec.top_k, spec.num_experts, spec.capacity_factor)
+    if dtype == torch.float32:
+        routes = [moe.route(xx.reshape(T, -1), pp["router"], spec)[1]
+                  for xx, pp in ((x, cpu_p), (x.to(dev), card_p))]
+        assert torch.equal(routes[0], routes[1].cpu())
+        keeps = [moe.dispatch(r, spec.num_experts, C)[1] for r in routes]
+        assert torch.equal(keeps[0], keeps[1].cpu())
+        assert not keeps[0].all()
+    frac, floor = (1e-4, 0.0) if dtype == torch.float32 else (1 / 32, 1e-3)
+    tol = frac * float(want.float().abs().max()) + floor
+    assert float((got.cpu().float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b"])
+def test_mamba2_mix_on_the_card_matches_the_cpu(dev, arch):
+    """Smoke-size ``mamba2_mix`` in fp32, a prompt of 37 (chunk 16: padded)
+    then three steps, on the card against the CPU: outputs and states
+    within 1e-4 of their largest magnitude; no host sync."""
+    from repro_torch.models import ssm
+    cfg, params = _family_params(arch)
+    p = {k[len("ssm_"):]: torch.from_numpy(v[0]) for k, v in params.items()
+         if k.startswith("ssm_")}
+    card_p = {k: v.to(dev) for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32))
+
+    def near(got, want):
+        tol = 1e-4 * float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= tol
+    xd = x.to(dev)
+    torch.cuda.synchronize()
+    want, ws = ssm.mamba2_mix(p, x[:, :37], cfg, mode="full")
+    with _no_host_sync():
+        got, gs = ssm.mamba2_mix(card_p, xd[:, :37], cfg, mode="full")
+    near(got, want)
+    for i in range(37, 40):
+        want, ws = ssm.mamba2_mix(p, x[:, i:i + 1], cfg, mode="step",
+                                  state=ws)
+        with _no_host_sync():
+            got, gs = ssm.mamba2_mix(card_p, xd[:, i:i + 1], cfg,
+                                     mode="step", state=gs)
+        near(got, want)
+        for nm in ("conv", "ssm"):
+            near(gs[nm], ws[nm])
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_greedy_generate_on_the_card(dev, arch, monkeypatch):
+    """``greedy_generate`` of each family's smoke config on the card: one
+    flash launch an attention layer per prefill (none for Mamba2); in
+    fp32 the tokens equal the CPU's, in bf16 they are in the vocabulary."""
+    from repro_torch.models import model
+    from repro_torch.serve.step import greedy_generate
+    cfg, params = _family_params(arch)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 37)))
+    attn_layers = cfg.num_layers if cfg.block != "ssm" else 0
+    card = model.params_from_numpy(cfg, params, device=dev)
+    before = tfa.flash_attention_fwd.launches
+    out = greedy_generate(card, cfg, tokens.to(dev), steps=4)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches - before == attn_layers
+    assert out.shape == (2, 4)
+    assert 0 <= int(out.min()) and int(out.max()) < cfg.vocab_size
+    monkeypatch.setattr(model, "COMPUTE_DTYPE", torch.float32)
+    card = model.params_from_numpy(cfg, params, device=dev,
+                                   dtype=torch.float32)
+    cpu = model.params_from_numpy(cfg, params, device="cpu",
+                                  dtype=torch.float32)
+    got = greedy_generate(card, cfg, tokens.to(dev), steps=4)
+    assert torch.equal(got.cpu(), greedy_generate(cpu, cfg, tokens, steps=4))
 
 
 # ------------------------------------------- cost model and service
