@@ -369,6 +369,61 @@ Phases (any failure exits non-zero and prints no result):
    ``flash_attention_fwd hybrid``).  The S - 1 check is not made for the
    MoE: there the capacity drops make a prefill and its continuation
    differ by design.
+17. The rest of ROADMAP A10.3, after phase 16: the encoder-decoder served
+   and trained, and training of the MoE, SSM and hybrid families, each at
+   its published width with random weights from ``--seed`` (fp32 master
+   weights and AdamW moments in training, 16 B a parameter), the card
+   freed between the parts, every figure printed beside the card's name
+   and power limit.  a: Whisper-small (12 + 12 layers, d_model 768, 12
+   heads x 64) serving 8 segments of 1500 frames (fp32 standard normal x
+   0.02; the log-mel frontend is a stub, as in the reference) with
+   224-token prompts and 32 greedy steps through ``family_serving``: 36
+   flash launches a prefill (12 encoder, 12 self, 12 cross), no plain
+   version; prefill and decode timed, busy and idle, the peak memory; the
+   kernel against its plain version at decoder layer 0's self-attention,
+   the encoder's layer 0 and decoder layer 0's cross-attention (both
+   bidirectional, Skv = 1500); the logits and the encoder's output against
+   the plain route within LOGIT_TOL in bf16 and fp32; a prefill of 223
+   plus one decode step against the prefill of 224 (``step_check``); rows
+   5e and 5x (the forward at the encoder's and the cross-attention's
+   shapes beside its plain version, SDPA without a mask, and the bound
+   4 B H Sq Skv hd / 989e12).  b-e: ``family_training``: on
+   TRAIN_ROUTE_BATCHES batches the loss and chosen gradients by three
+   routes, split as 13a splits them (kernels; forward kernel with the
+   plain backward; plain): the loss kernel vs plain within ROUTE_TOL, the
+   gradients kernel vs the mixed route (the backward kernel's share)
+   within ROUTE_TOL and, in b and c, kernel vs plain too; every gradient
+   finite; one counted step (two forward launches and one backward launch
+   a flash module, no plain version), with both kernels held against
+   their plain versions at the flash modules it captures
+   (``check_captured``); TRAIN_TIMED steps timed (median), tokens/s, the
+   peak memory, one step profiled.  b: Whisper-small at full depth, 8 x
+   (1500 frames, 448 tokens), layer 0's enc_wq, wq and xattn_wq
+   gradients, the encoder's, self- and cross-attention of layer 0
+   captured; rows 5be and 5bx (the backward at
+   the encoder's and the cross-attention's training shapes on the step's
+   unit-RMS dout, beside SDPA's backward; bound 2.5x the forward's flops).
+   c: Qwen2-MoE-A2.7B cut to MOE_TRAIN_LAYERS = 4 of 24 layers (2.9e9
+   parameters at 24 layers; 16 B each is 46.5 GB, plus the 64 stored for
+   60 experts), 4 x 2048: two runs of the loss and backward from the same
+   state bit-identical, the drops per layer, and after the steps, with the
+   model freed, layer 0's MoE gradients at its captured input against its
+   per-token dense form's (``dense_moe``, differentiated) within
+   MOE_GRAD_TOL at the config's capacity factor and at MOE_TIGHT_FACTOR;
+   layer 0's wq, wk, wv, its attention captured.
+   d: Mamba2-2.7B at full depth unless its fp32 state passes
+   TRAIN_STATE_SHARE of the card (a cut is printed), 2 x 2048: the chunked
+   SSD's gradients (x, dt, B, C) at layer 0's captured input cut to
+   SSD_GRAD_SEQ positions against ``ssd_sequential``'s autograd within
+   SSD_GRAD_TOL (``ssd_grad_check``).  e: Hymba-1.5B at full depth, 2 x
+   2048: the windowed backward at head_dim 64 on its 29 local layers (the
+   profiled step must show no CUDA-core backward kernel; layer 1, local,
+   and the middle, global, layer captured), the SSD check of d and layer
+   0's wq, wk, wv held kernel vs mixed route in bf16 and kernel vs plain
+   route in fp32 within FP32_ROUTE_TOL, not kernel vs plain in bf16: at
+   Hymba's shape the forward's bf16 rounding alone (mixed vs plain, no
+   backward kernel) moves them past ROUTE_TOL, so kernel vs plain is
+   printed there.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -397,7 +452,13 @@ inputs, max|plain| printed beside each tolerance; the profiler must see
 the tensor-core pair (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``)
 for bf16 at head_dim 64 and 128 and the CUDA-core pair
 (``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``) for fp32 and for
-bf16 at head_dim 32.  Then both flash kernels under a mask, at
+bf16 at head_dim 32.  Both flash kernels, bidirectional, at Whisper's
+shapes (``tests/torch_checks.py``'s ``ENCDEC_FLASH_CASES``: batch 8, 12/12
+heads of 64, Sq = Skv = 1500 and Sq = 224, 448 against Skv = 1500, fp32
+and bf16) through ``flash_mask_ratios``, each case one forward and two
+backward launches by the counters, and for bf16 no CUDA-core kernel in
+the profiler's record (``check_flash_encdec``).  Then both flash kernels
+under a mask, at
 ``tests/torch_checks.py``'s ``FLASH_WINDOW_CASES`` (S = 63, 200, 1000,
 2048 x window 1, 64, 100, 1024 x head_dim 64, 128, 256 x H/KV 1 and 7 (2
 at 256) x fp32 and bf16, causal) and ``FLASH_OFFSET_CASES`` (a chunk of
@@ -514,6 +575,39 @@ SSD_TOL = 1e-4
 #: attention) round to bf16 at other places in every layer, as phase 7's
 #: two attention routes do; its bf16 route tolerance
 STEP_TOL = LOGIT_TOL["bfloat16"]
+ENCDEC_ARCH = "whisper-small"   # 17a and b: the encoder-decoder
+#: 17a: 8 segments of 1500 frames (30 s each, Whisper's window), its
+#: 224-token previous-text prompt limit, 32 greedy steps
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS = 8, 224, 32
+ENCDEC_TRAIN_SEQ = 448      # 17b: Whisper's text context
+MOE_TRAIN_LAYERS = 4        # 17c: Qwen2-MoE-A2.7B's 24 layers cut to 4
+MOE_TRAIN_BATCH = 4         # 17c: batches of 4 x FAMILY_TRAIN_SEQ
+SSM_TRAIN_BATCH = 2         # 17d and e: batches of 2 x FAMILY_TRAIN_SEQ
+FAMILY_TRAIN_SEQ = 2048
+TRAIN_ROUTE_BATCHES = 2     # phase 17: batches of the route comparison
+TRAIN_TIMED = 3             # phase 17: steps timed (the median is kept)
+#: 17d and e: the fp32 training state (16 B/param) may take this share of
+#: the card before the depth is cut (the rest holds the activations)
+TRAIN_STATE_SHARE = 0.75
+#: 17c: layer 0's MoE gradients at its captured input against the per-token
+#: dense form's, fp32 (the same products summed in other orders, through
+#: the router's softmax and 60 experts), each within this fraction of the
+#: dense form's largest magnitude of that gradient
+MOE_GRAD_TOL = 1e-3
+#: 17d and e: the chunked SSD's gradients (x, dt, B, C) at layer 0's
+#: captured input cut to SSD_GRAD_SEQ positions against the step-by-step
+#: oracle's autograd, fp32, each within this fraction of the oracle's
+#: largest magnitude of that gradient (the repaired form reads ~1e-5 on the
+#: CPU at 512 positions; the reference's form gives NaN at chunk 128)
+SSD_GRAD_SEQ = 512
+SSD_GRAD_TOL = 1e-3
+#: 17e: the loss and layer 0's gradients with the compute dtype fp32, kernel
+#: vs plain attention route, relative (the L2 norm of the difference for a
+#: gradient): the same products summed in other orders (read 1e-5)
+FP32_ROUTE_TOL = 1e-3
+#: the card's ``nvidia-smi`` name and power limit, set by main(): printed
+#: beside phase 17's figures
+CARD = {"smi": ""}
 
 
 def serving_mix(planner, m: int, count: int, seed: int) -> list:
@@ -2007,6 +2101,57 @@ def check_flash_masked(torch, dev, rng, attention) -> None:
                   f"{sorted(seen)[:4]})")
 
 
+def check_flash_encdec(torch, dev, rng, attention) -> None:
+    """Phase 2's Whisper cases (see the module docstring): both flash
+    kernels, bidirectional, at ``torch_checks.ENCDEC_FLASH_CASES``, each
+    case one forward and two backward launches by the wrappers' counters;
+    the profiler must see no kernel of the CUDA-core route for bf16 (head
+    dim 64: the tensor cores)."""
+    from torch_checks import (ENCDEC_FLASH_CASES, ENCDEC_FLASH_SHAPE,
+                              flash_bwd_inputs, flash_mask_ratios)
+    sh = ENCDEC_FLASH_SHAPE
+    fwd, bwd = attention.flash_attention_fwd, attention.flash_attention_bwd
+    for sq, skv, dt in ENCDEC_FLASH_CASES:
+        q, k, v, dout = flash_bwd_inputs(rng, sq, sh["hd"], sh["g"], dt, dev,
+                                         batch=sh["batch"], kv=sh["kv"],
+                                         skv=skv)
+        case = (f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, bidirectional, "
+                f"{dt}")
+        f0, b0 = fwd.launches, bwd.launches
+        ratios = flash_mask_ratios(attention, q, k, v, dout, causal=False)
+        torch.cuda.synchronize()
+        launched = (fwd.launches - f0, bwd.launches - b0)
+        if launched != (1, 2) or not all(r <= 1 for r in ratios.values()):
+            raise SystemExit(f"flash kernels at Whisper's shape {case}: "
+                             f"err/tol {ratios} (repeat: two backward "
+                             f"launches differ); launches (forward, "
+                             f"backward) {launched}, want (1, 2)")
+        print(f"check flash at Whisper's shape {case}: err/tol {ratios}; "
+              f"launches (forward, backward) {launched}")
+        if dt != torch.bfloat16:
+            continue
+        out, lse = fwd(q, k, v, causal=False, return_lse=True)
+        got = dict.fromkeys((n for names in MASK_KERNELS.values()
+                             for n in names), 0)
+        for _ in range(3):              # the profiler now and then misses
+            seen = {}
+            device_profile(torch, lambda: (
+                fwd(q, k, v, causal=False),
+                bwd(q, k, v, out, lse, dout, causal=False)), 1, seen)
+            for n in got:
+                got[n] += launches_named(seen, n)
+            if all(got[n] for n in MASK_KERNELS["tensor cores"]):
+                break
+        others = {n: got[n] for n in MASK_KERNELS["CUDA cores"] if got[n]}
+        if others:
+            raise SystemExit(f"flash at Whisper's shape {case}: the profiler "
+                             f"saw {others}, kernels of the CUDA-core route")
+        print(f"check flash at Whisper's shape {case}: no CUDA-core kernel; "
+              f"of {MASK_KERNELS['tensor cores']} the profiler saw "
+              f"{[got[n] for n in MASK_KERNELS['tensor cores']]} launches")
+        del q, k, v, dout, out, lse
+
+
 def check_step_backward(seen: dict, layers: int, label: str) -> dict:
     """The backward kernels the profiler saw over one train step (``seen``,
     {kernel: launches}): one launch a layer of each tensor-core kernel and
@@ -2442,6 +2587,15 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
     return out_rec
 
 
+def flash_modules(params) -> int:
+    """The model's flash-attention modules (``FlashAttention``: a decoder
+    layer's self- and cross-attention, an encoder layer's): one kernel
+    launch each a prefill, two (forward and remat recompute) and one
+    backward launch each a train step under remat."""
+    from repro_torch.models.flash import FlashAttention
+    return sum(isinstance(m, FlashAttention) for m in params.modules())
+
+
 def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
                steps: int, zero_counts, counted, label: str, layers
                ) -> dict:
@@ -2468,11 +2622,12 @@ def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
     launches = {n: fn.launches for n, fn in counted.items()}
     print(f"{label} path: greedy_generate B={B} prompt {S} steps {steps}: "
           f"{gen_s} s (first run), launches {launches}, no plain attention")
-    attn_layers = sum(hasattr(layer, "attn_core") for layer in params.layers)
+    attn_layers = flash_modules(params)
     if fwd.launches != attn_layers:
         raise SystemExit(f"{label}: flash_attention_fwd launched "
                          f"{fwd.launches} times in one prefill, want "
-                         f"{attn_layers} (one an attention layer)")
+                         f"{attn_layers} (one an attention layer: encoder, "
+                         f"self and cross)")
     if gen.shape != (B, steps) or not (
             0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
         raise SystemExit(f"{label} path: bad tokens {tuple(gen.shape)}")
@@ -2507,7 +2662,8 @@ def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
     same = int((torch.stack(toks, 1) == gen).sum())
     print(f"{label} timing: prefill {prefill_ms} ms ({B} x {S} tokens), "
           f"decode {decode_ms} ms/step, {tok_s} generated tokens/s; "
-          f"{same}/{gen.numel()} tokens equal to the first run's")
+          f"{same}/{gen.numel()} tokens equal to the first run's "
+          f"[{CARD['smi']}]")
     return {"gen_s": gen_s, "launches": launches, "prefill": prefill,
             "decode": decode, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "tok_s": tok_s,
@@ -2542,15 +2698,17 @@ def check_layers(attention, captured: dict, windows: list, label: str
 
 
 def logit_route_checks(torch, tmodel, tflash, attention, cfg, prefill,
-                       params, batch, kernel_logits, label: str) -> dict:
+                       params, batch, kernel_logits, label: str,
+                       windows: list | None = None) -> dict:
     """A prefill's last-position logits by the kernel route (bf16:
     ``kernel_logits``) against the same prefill with the plain attention
     swapped in (``plain_routes``, which must receive each layer's window),
     in bf16 and again with the compute dtype set to fp32 (the weights are
     cast at use, as the reference does): within LOGIT_TOL of their largest
     magnitude, with argmax equal on every batch row whose top-2 margin
-    exceeds that tolerance."""
-    windows = tmodel.layer_windows(cfg)
+    exceeds that tolerance.  ``windows``: the windows the plain route must
+    receive, one a flash call in order (default each layer's)."""
+    windows = tmodel.layer_windows(cfg) if windows is None else windows
 
     def route_logits(dtype, plain):
         seen = []
@@ -3009,14 +3167,17 @@ def window_training(torch, dev, seed: int, zero_counts, counted, kernel
 
 
 def family_serving(torch, dev, seed: int, zero_counts, counted, arch: str,
-                   layers_of, label: str) -> dict:
-    """Phase 16's serving run of one model at its published config: random
-    bf16 weights from ``seed``, FAMILY_BATCH prompts of FAMILY_PROMPT
-    tokens, ``lm_serving`` (``greedy_generate`` counted, prefill and decode
-    timed, the flash module of each layer of ``layers_of(cfg)`` captured),
-    the peak
-    memory over it, and the card's busy time and idle share over one
-    prefill and one decode step."""
+                   layers_of, label: str, batch: int = FAMILY_BATCH,
+                   prompt: int = FAMILY_PROMPT, steps: int = FAMILY_STEPS
+                   ) -> dict:
+    """Phase 16's (and 17a's) serving run of one model at its published
+    config: random bf16 weights from ``seed``, ``batch`` prompts of
+    ``prompt`` tokens (an encoder-decoder's with ``enc_frames`` frame
+    embeddings each, fp32 standard normal x 0.02 from ``seed``),
+    ``lm_serving`` (``greedy_generate`` of ``steps`` tokens counted,
+    prefill and decode timed, the flash module of each layer of
+    ``layers_of(cfg)`` captured), the peak memory over it, and the card's
+    busy time and idle share over one prefill and one decode step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention
     from repro_torch.models import model as tmodel
@@ -3034,47 +3195,56 @@ def family_serving(torch, dev, seed: int, zero_counts, counted, arch: str,
           f"parameters (config: {cfg.param_count()}), "
           f"{torch.cuda.memory_allocated()} bytes on the card, made in "
           f"{init_s} s")
-    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT))).to(dev)
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt))).to(dev)
+    inputs = {"tokens": prompts}
+    if cfg.enc_dec:
+        inputs["frames"] = torch.from_numpy((rng.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model)) * 0.02).astype(
+                np.float32)).to(dev)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    lm = lm_serving(torch, tstep, attention, params, cfg, {"tokens": prompts},
-                    FAMILY_STEPS, zero_counts, counted, label,
-                    layers_of(cfg))
+    lm = lm_serving(torch, tstep, attention, params, cfg, inputs, steps,
+                    zero_counts, counted, label, layers_of(cfg))
     peak = torch.cuda.max_memory_allocated()
     print(f"{label}: peak memory over greedy_generate, prefill and decode "
-          f"{peak} bytes")
+          f"{peak} bytes [{CARD['smi']}]")
     prefill, decode = lm["prefill"], lm["decode"]
     prof = {"prefill": profile(
-        f"{label}: one prefill ({FAMILY_BATCH} x {FAMILY_PROMPT})",
-        *device_profile(torch, lambda: prefill(params, {"tokens": prompts})))}
-    logits, cache = prefill(params, {"tokens": prompts})
+        f"{label}: one prefill ({batch} x {prompt})",
+        *device_profile(torch, lambda: prefill(params, inputs)))}
+    logits, cache = prefill(params, inputs)
     nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
     prof["decode"] = profile(f"{label}: one decode step", *device_profile(
         torch, lambda: decode(params, {"tokens": nxt, "cache": cache})))
     del logits, cache, nxt
-    record = {"arch": cfg.name, "params": nparam, "batch": FAMILY_BATCH,
-              "prompt": FAMILY_PROMPT, "steps": FAMILY_STEPS,
+    record = {"arch": cfg.name, "params": nparam, "batch": batch,
+              "prompt": prompt, "steps": steps,
               "init_s": init_s, "greedy_first_s": lm["gen_s"],
               "prefill_ms": lm["prefill_ms"],
               "decode_ms_per_step": lm["decode_ms"],
               "generated_tokens_per_s": lm["tok_s"],
               "launches": lm["launches"], "peak_bytes": peak,
               "profile": prof}
-    return {"cfg": cfg, "params": params, "prompts": prompts, "lm": lm,
-            "record": record}
+    return {"cfg": cfg, "params": params, "prompts": prompts,
+            "inputs": inputs, "lm": lm, "record": record}
 
 
-def step_check(torch, tmodel, cfg, params, prompts, label: str) -> dict:
-    """A prefill of S - 1 tokens plus one decode step (the conv, SSM and KV
-    caches carried on the card) against a prefill of S: the last-position
-    logits within STEP_TOL of their largest magnitude, the argmax equal on
-    every row whose top-2 margin exceeds it."""
+def step_check(torch, tmodel, cfg, params, prompts, label: str,
+               extra: dict | None = None) -> dict:
+    """A prefill of S - 1 tokens plus one decode step (the conv, SSM, KV
+    and cross-attention caches carried on the card) against a prefill of
+    S: the last-position logits within STEP_TOL of their largest
+    magnitude, the argmax equal on every row whose top-2 margin exceeds
+    it.  ``extra``: more prefill inputs (an encoder-decoder's frames)."""
     S, V = prompts.shape[1], cfg.vocab_size
-    want = tmodel.model_forward(params, cfg, prompts, mode="prefill")[0]
+    extra = extra or {}
+    want = tmodel.model_forward(params, cfg, prompts, mode="prefill",
+                                **extra)[0]
     _, cache = tmodel.model_forward(params, cfg, prompts[:, :-1],
-                                    mode="prefill", max_len=S)
+                                    mode="prefill", max_len=S, **extra)
     got = tmodel.model_forward(params, cfg, prompts[:, -1:], cache=cache,
                                mode="decode")[0]
     want, got = want[:, -1, :V].float(), got[:, -1, :V].float()
@@ -3341,6 +3511,688 @@ def hybrid_serving(torch, dev, seed: int, zero_counts, counted, kernel
                sdpa_kernels=sdpa_kernels)
     print(json.dumps({"hybrid_lm_path": out}))
     del run, params, lm, fq, fk, fv, fo, library
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
+                    label: str, *, batch: int, seq: int, route_names,
+                    layers: int | None = None, capture=(),
+                    hold_plain: bool = True, fp32_route: bool = False,
+                    before_opt=None) -> dict:
+    """One training run of phase 17 at ``arch``'s published width (depth
+    cut to ``layers`` if given), remat full, fp32 master weights and AdamW
+    moments from ``seed``, batches of ``batch`` x ``seq`` random tokens
+    (an encoder-decoder's with fp32 frames, standard normal x 0.02):
+
+    * on TRAIN_ROUTE_BATCHES batches the loss and the gradients
+      ``route_names`` by three routes, as phase 13a splits them: the
+      kernels; the forward kernel with the plain backward ("mixed"); the
+      plain attention (``plain_routes``, which must receive each flash
+      call's window, in the forward and again in the remat recompute).
+      The loss, kernel vs plain, within ROUTE_TOL; each gradient, kernel
+      vs mixed (the backward kernel's share: the same forward) within
+      ROUTE_TOL in the L2 norm of the difference, and kernel vs plain too
+      unless ``hold_plain`` is False (then printed: where the forward's
+      bf16 rounding alone, mixed vs plain, moves the gradient past
+      ROUTE_TOL, the plain route is no oracle at that bound); every
+      gradient of the kernel route finite (a model without attention runs
+      the kernel route alone);
+    * with ``fp32_route``, on the first batch the loss and ``route_names``
+      with the compute dtype fp32, kernel vs plain route, within
+      FP32_ROUTE_TOL (accumulation order only);
+    * ``before_opt(params, cfg, batches)``, before the AdamW moments take
+      their memory, for the caller's own checks (its dict joins the record);
+    * one counted step (every counter zeroed just before and read just
+      after, the flash wrappers' plain versions made to raise): two forward
+      launches (forward and recompute) and one backward launch a flash
+      module; the flash modules named in ``capture`` (name -> module getter)
+      record their first call's q, k, v, mask, out and the out's gradient,
+      and both kernels are held there against their plain versions
+      (``check_captured``);
+    * TRAIN_TIMED steps timed (median), tokens/s, the peak memory, and one
+      step profiled (busy time, idle share, the time by kernel group; at
+      head_dim 64 / 128 no backward kernel of the CUDA-core pair)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, remat="full",
+                              num_layers=layers or full.num_layers)
+    need = STATE_BYTES_PER_PARAM * cfg.param_count()
+    if cfg.num_layers != full.num_layers:
+        print(f"{label} cut: {full.name} at its published width with "
+              f"num_layers {full.num_layers} -> {cfg.num_layers}: fp32 master"
+              f" weights, gradients and AdamW moments take "
+              f"{STATE_BYTES_PER_PARAM} B/param, {STATE_BYTES_PER_PARAM} x "
+              f"{full.param_count()} = {STATE_BYTES_PER_PARAM * full.param_count()}"
+              f" B at full depth, {need} B at {cfg.num_layers} layers, of "
+              f"{CARD_BYTES} B on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, device=dev,
+                                dtype=torch.float32)
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in params.parameters())
+    n_attn = flash_modules(params)
+    print(f"{label}: {cfg.name} ({cfg.num_layers} layers"
+          f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_dec else ''}, "
+          f"block {cfg.block}, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads x {cfg.head_dim}, moe {cfg.moe}, ssm "
+          f"{cfg.ssm}, window {cfg.sliding_window}): {nparam} parameters "
+          f"(config {cfg.param_count()}), {need} B of fp32 training state "
+          f"at {STATE_BYTES_PER_PARAM} B/param; {n_attn} flash modules; "
+          f"batches of {batch} x {seq}, remat full; made in "
+          f"{time.perf_counter() - t0} s")
+
+    def make_batch(i):
+        r = np.random.default_rng(seed + 1000 * (i + 1))
+        tokens = torch.from_numpy(r.integers(0, cfg.vocab_size,
+                                             (batch, seq))).to(dev)
+        b = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+        if cfg.enc_dec:
+            b["frames"] = torch.from_numpy((r.standard_normal(
+                (batch, cfg.enc_frames, cfg.d_model)) * 0.02).astype(
+                    np.float32)).to(dev)
+        return b
+    batches = [make_batch(i) for i in range(TRAIN_ROUTE_BATCHES)]
+
+    # the windows each flash call receives, in forward order: the encoder's
+    # layers, then each decoder layer's self-attention and cross-attention
+    want_windows = [None] * (cfg.enc_layers if cfg.enc_dec else 0)
+    for w in tmodel.layer_windows(cfg):
+        want_windows += ([w] if cfg.block != "ssm" else []) + (
+            [None] if cfg.enc_dec else [])
+    if len(want_windows) != n_attn:
+        raise SystemExit(f"{label}: {n_attn} flash modules, {want_windows}")
+
+    vjps = {"kernel": None,
+            "mixed": plain_routes(torch, attention, kernel_forward=True)[1],
+            "plain": None}
+
+    def route(b, which: str, dtype=torch.bfloat16):
+        seen = []
+        vjp = (plain_routes(torch, attention, windows=seen)[1]
+               if which == "plain" else vjps[which])
+        tmodel.COMPUTE_DTYPE = dtype
+        try:
+            with swapped(tflash, vjp=vjp):
+                params.requires_grad_(True)
+                loss, _ = tmodel.lm_loss(params, cfg, b)
+                loss.backward()
+        finally:
+            tmodel.COMPUTE_DTYPE = torch.bfloat16
+        if which == "plain" and (seen[:n_attn] != want_windows
+                                 or len(seen) != 2 * n_attn):
+            raise SystemExit(f"{label}: the plain route received the windows "
+                             f"{seen}, want {want_windows} (forward) and "
+                             f"again (the remat recompute)")
+        grads = {n: params.get_parameter(n).grad.clone()
+                 for n in route_names}
+        bad = [] if which != "kernel" else [
+            n for n, p in params.named_parameters()
+            if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+        no_grad = sum(p.grad is None for p in params.parameters())
+        params.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads, bad, no_grad
+
+    def rel(a, b):
+        err = {"loss": abs(a[0] - b[0]) / abs(b[0])}
+        for n in route_names:
+            err[n] = float((a[1][n] - b[1][n]).norm() / b[1][n].norm())
+        return err
+
+    route_errs = []
+    for b_i, b in enumerate(batches):
+        got = {"kernel": route(b, "kernel")}
+        bad, no_grad = got["kernel"][2:]
+        print(f"{label} check, batch {b_i}: kernel-route loss "
+              f"{got['kernel'][0]}; {nparam} parameters' gradients, "
+              f"{len(bad)} with a NaN or inf {bad[:4]}, {no_grad} tensors "
+              f"given none")
+        if bad or not np.isfinite(got["kernel"][0]):
+            raise SystemExit(f"{label}: a gradient or the loss is not "
+                             f"finite: {bad}")
+        if not n_attn:
+            continue
+        got.update((w, route(b, w)) for w in ("mixed", "plain"))
+        torch.cuda.synchronize()
+        err = {"kernel_vs_plain": rel(got["kernel"], got["plain"]),
+               "kernel_vs_mixed": rel(got["kernel"], got["mixed"]),
+               "mixed_vs_plain": rel(got["mixed"], got["plain"])}
+        print(f"{label} check, batch {b_i}: loss kernel route "
+              f"{got['kernel'][0]}, plain route {got['plain'][0]}; relative "
+              f"differences {err} (tolerances {ROUTE_TOL}: the loss kernel "
+              f"vs plain, the gradients kernel vs mixed"
+              f"{' and kernel vs plain' if hold_plain else ''})")
+        held = [err["kernel_vs_mixed"]] + (
+            [err["kernel_vs_plain"]] if hold_plain else [])
+        if not (err["kernel_vs_plain"]["loss"] <= ROUTE_TOL["loss"]
+                and all(e[n] <= ROUTE_TOL["grad"] for e in held
+                        for n in route_names)):
+            raise SystemExit(f"{label}: the kernel route differs from the "
+                             f"plain or mixed route on batch {b_i}")
+        route_errs.append(err)
+        del got
+    fp32_err = None
+    if fp32_route:
+        fp32_err = rel(route(batches[0], "kernel", torch.float32),
+                       route(batches[0], "plain", torch.float32))
+        print(f"{label} check, fp32 compute, batch 0: kernel vs plain route "
+              f"relative differences {fp32_err} (tolerance "
+              f"{FP32_ROUTE_TOL})")
+        if not all(e <= FP32_ROUTE_TOL for e in fp32_err.values()):
+            raise SystemExit(f"{label}: in fp32 the kernel route differs "
+                             f"from the plain route")
+    extra = before_opt(params, cfg, batches) if before_opt else {}
+
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, TrainConfig(ocfg))
+    captured = {}
+
+    def hook_of(name):
+        def hook(module, args, kwargs, output):
+            if name in captured:
+                return                      # the recompute under remat
+            captured[name] = {
+                "qkv": [t.detach() for t in args], "out": output.detach(),
+                "mask": {"causal": kwargs.get("causal", True),
+                         "window": kwargs.get("window")}}
+            output.register_hook(
+                lambda g: captured[name].update(dout=g.detach()))
+        return hook
+    hooks = [get(params).register_forward_hook(hook_of(name),
+                                               with_kwargs=True)
+             for name, get in dict(capture).items()]
+    zero_counts()
+    try:
+        with no_plain_attention(attention):
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batches[0])
+            losses = [float(m["loss"])]
+            first_s = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = {n: fn.launches for n, fn in counted.items()}
+    print(f"{label} step 1: {first_s} s (first), loss {losses[0]}, launches "
+          f"{launches}, no plain attention")
+    if (launches["flash_attention_fwd"] != 2 * n_attn
+            or launches["flash_attention_bwd"] != n_attn):
+        raise SystemExit(f"{label} step: want {2 * n_attn} forward and "
+                         f"{n_attn} backward kernel launches, saw {launches}")
+    layer_checks = check_captured(torch, attention, captured, label)
+    times = []
+    for i in range(TRAIN_TIMED):
+        b = batches[(i + 1) % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))         # waits for the step
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = batch * seq
+    print(f"{label} steps: losses {losses}; step {step_s * 1e3} ms (median "
+          f"of {TRAIN_TIMED}: {[x * 1e3 for x in times]}), {tokens / step_s} "
+          f"tokens/s ({batch} x {seq} decoder tokens a step); peak {peak} "
+          f"bytes allocated [{CARD['smi']}]")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{label}: losses {losses} not finite")
+    for _ in range(3):                  # the profiler now and then sees none
+        seen = {}
+        wall, busy, by_name = device_profile(
+            torch, lambda: step(params, opt, batches[0]), 1, seen)
+        if seen:
+            break
+    prof = profile(f"{label}: one train step [{CARD['smi']}]", wall, busy,
+                   by_name)
+    groups = {"flash backward kernel": ("flash_bwd",),
+              "flash forward kernel": ("flash_fwd",),
+              "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass", "sm90"),
+              "elementwise and reductions": ("elementwise", "reduce",
+                                             "Reduce")}
+    split = dict.fromkeys(groups, 0.0)
+    split["other"] = 0.0
+    for k_, v in by_name.items():
+        g_ = next((g for g, keys in groups.items()
+                   if any(x in k_ for x in keys)), "other")
+        split[g_] += v
+    prof["split_ms"] = split
+    bwd_seen = {n: launches_named(seen, n)
+                for pair in BWD_KERNELS.values() for n in pair}
+    print(f"  by group: " + "; ".join(f"{g} {v} ms" for g, v in split.items())
+          + f"; backward kernels seen {bwd_seen}")
+    if n_attn and cfg.head_dim in (64, 128) and any(
+            bwd_seen[n] for n in BWD_KERNELS["CUDA cores"]):
+        raise SystemExit(f"{label}: bf16 at head_dim {cfg.head_dim} must run "
+                         f"the tensor-core backward, the profiler saw "
+                         f"{bwd_seen}")
+    record = {"card": CARD["smi"], "arch": cfg.name,
+              "layers": cfg.num_layers,
+              "published_layers": full.num_layers, "params": nparam,
+              "state_bytes": need, "batch": batch, "seq": seq,
+              "route_errs": route_errs, "fp32_route_err": fp32_err,
+              "layer_checks": layer_checks, "launches": launches,
+              "first_step_s": first_s, "step_ms": step_s * 1e3,
+              "step_ms_all": [x * 1e3 for x in times],
+              "tokens_per_s": tokens / step_s, "peak_bytes": peak,
+              "losses": losses, "profile": prof,
+              "bwd_kernels_seen": bwd_seen, **extra}
+    return {"cfg": cfg, "params": params, "opt": opt, "batches": batches,
+            "captured": captured, "record": record, "n_attn": n_attn}
+
+
+def check_captured(torch, attention, captured: dict, label: str) -> dict:
+    """Both flash kernels at each flash module captured in a train step
+    (``family_training``'s ``capture``): the forward kernel must give the
+    step's output again and agree with its plain version by both bf16
+    checks of phase 2; the backward kernel, on the step's dout brought to
+    unit RMS by a power of two (exact), with its plain version within
+    ``bwd_tol``."""
+    from torch_checks import attn_tol, bf16_attn_err, unit_rms
+    out_checks = {}
+    for name, c in captured.items():
+        (cq, ck, cv), mask = c["qkv"], c["mask"]
+        out, lse = attention.flash_attention_fwd(cq, ck, cv, return_lse=True,
+                                                 **mask)
+        want = attention.flash_attention_fwd_plain(
+            cq.float(), ck.float(), cv.float(), **mask)
+        err, tol = max_abs_err(out, want), attn_tol(want, out.dtype)
+        elem = bf16_attn_err(out, want)
+        udout = unit_rms(c["dout"])
+        got = attention.flash_attention_bwd(cq, ck, cv, out, lse, udout,
+                                            **mask)
+        grads = attention.flash_attention_bwd_plain(
+            cq.float(), ck.float(), cv.float(), out.float(), lse,
+            udout.float(), **mask)
+        errs = bwd_errors(got, grads, cq.dtype)
+        same = torch.equal(out, c["out"])
+        out_checks[name] = {"mask": mask, "q": list(cq.shape),
+                            "kv": list(ck.shape), "forward_err": err,
+                            "forward_tol": tol, "element": elem,
+                            "same_as_step": same, **errs}
+        if not (same and err <= tol and elem <= 1 and all(
+                e["err/tol"] <= 1 for e in errs.values())):
+            raise SystemExit(f"{label}: the flash kernels at the captured "
+                             f"{name} attention: {out_checks[name]}")
+        del out, lse, want, got, grads, udout
+    if out_checks:
+        print(f"{label} check: both flash kernels vs plain at the captured "
+              f"layers (bf16, dout at unit RMS): {out_checks}")
+    return out_checks
+
+
+def ssd_grad_check(torch, params, cfg, batch: dict, label: str, seed: int
+                   ) -> dict:
+    """The chunked SSD's gradients with respect to x, dt, B and C at layer
+    0's captured inputs (one forward of ``batch``), cut to SSD_GRAD_SEQ
+    positions, against ``ssd_sequential``'s autograd in fp32, each within
+    SSD_GRAD_TOL of the oracle's largest magnitude of that gradient, all
+    finite (the reference's form gives NaN here)."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import ssm as tssm
+    captured = []
+    saved = tssm.ssd_chunked
+
+    def capture(*args, **kwargs):
+        if not captured:
+            captured.append(([a.detach().float().clone() for a in args],
+                             kwargs))
+        return saved(*args, **kwargs)
+    tssm.ssd_chunked = capture
+    try:
+        with torch.no_grad():
+            tmodel.lm_loss(params, cfg, batch)
+    finally:
+        tssm.ssd_chunked = saved
+    (x, dt, A, B_, C_, D), kwargs = captured[0]
+    S = SSD_GRAD_SEQ
+    x, dt, B_, C_ = (a[:, :S].contiguous() for a in (x, dt, B_, C_))
+    r = np.random.default_rng(seed)
+    gy = torch.from_numpy(r.standard_normal(x.shape).astype(
+        np.float32)).to(x.device)
+    gh = torch.from_numpy(r.standard_normal(
+        (x.shape[0], x.shape[2], x.shape[3], B_.shape[-1])).astype(
+            np.float32)).to(x.device)
+
+    def grads_of(fn, **kw):
+        args = [a.clone().requires_grad_(i in (0, 1, 3, 4))
+                for i, a in enumerate((x, dt, A, B_, C_, D))]
+        y, h = fn(*args, **kw)
+        ((y * gy).sum() + (h * gh).sum()).backward()
+        return [args[i].grad for i in (0, 1, 3, 4)]
+    t0 = time.perf_counter()
+    got = grads_of(tssm.ssd_chunked, chunk=kwargs["chunk"])
+    want = grads_of(tssm.ssd_sequential)
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b in zip(("x", "dt", "B", "C"), got, want):
+        err, tol = max_abs_err(a, b), SSD_GRAD_TOL * float(b.abs().max())
+        finite = bool(torch.isfinite(a).all())
+        out[name] = {"err": err, "tol": tol, "finite": finite}
+        if not (finite and err <= tol):
+            raise SystemExit(f"{label}: ssd_chunked's gradient with respect "
+                             f"to {name} differs from ssd_sequential's: "
+                             f"{err} > {tol} or not finite")
+    print(f"{label} check: ssd_chunked's gradients vs ssd_sequential's "
+          f"autograd at layer 0's input (x {tuple(x.shape)}, B/C "
+          f"{tuple(B_.shape)}, chunk {kwargs['chunk']}, fp32; "
+          f"{time.perf_counter() - t0} s): {out}")
+    return out
+
+
+def encdec_serving(torch, dev, seed: int, zero_counts, counted, kernel,
+                   records) -> dict:
+    """Phase 17a (see the module docstring)."""
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from torch_checks import attn_tol, bf16_attn_err
+    run = family_serving(torch, dev, seed, zero_counts, counted, ENCDEC_ARCH,
+                         lambda cfg: (0,), "whisper lm", batch=ENCDEC_BATCH,
+                         prompt=ENCDEC_PROMPT, steps=ENCDEC_STEPS)
+    cfg, params, prompts, inputs, lm = (run[k] for k in (
+        "cfg", "params", "prompts", "inputs", "lm"))
+    n_attn = flash_modules(params)
+    if n_attn != cfg.enc_layers + 2 * cfg.num_layers:
+        raise SystemExit(f"whisper lm: {n_attn} flash modules")
+    layer_err = check_layers(attention, lm["captured"],
+                             tmodel.layer_windows(cfg), "whisper lm check")
+    # one more prefill with the encoder's layer 0 and decoder layer 0's
+    # cross-attention captured: the kernel against its plain version there
+    captured = {}
+
+    def capture(name):
+        def hook(module, args, kwargs, output):
+            captured[name] = (*args, kwargs.get("causal"), output)
+        return hook
+    hooks = [params.enc_layers[0].attn_core.register_forward_hook(
+        capture("encoder"), with_kwargs=True),
+        params.layers[0].xattn_core.register_forward_hook(
+        capture("cross"), with_kwargs=True)]
+    try:
+        lm["prefill"](params, inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    for name, (cq, ck, cv, causal, cout) in captured.items():
+        want = attention.flash_attention_fwd_plain(
+            cq.float(), ck.float(), cv.float(), causal=False)
+        err, tol = max_abs_err(cout, want), attn_tol(want, cout.dtype)
+        elem = bf16_attn_err(cout, want)
+        if causal is not False or not (err <= tol and elem <= 1):
+            raise SystemExit(f"whisper lm: the {name} attention at layer 0 "
+                             f"(causal {causal}): {err} > {tol} or element "
+                             f"err/tol {elem} > 1")
+        layer_err[name] = {"err": err, "tol": tol, "element": elem}
+        print(f"whisper lm check: the {name} attention at layer 0 (q "
+              f"{tuple(cq.shape)}, k/v {tuple(ck.shape)}, bidirectional, "
+              f"bf16): kernel vs plain max err {err} <= {tol}, element "
+              f"err/tol {elem}")
+    logit_checks = logit_route_checks(
+        torch, tmodel, tflash, attention, cfg, lm["prefill"], params,
+        inputs, lm["kernel_logits"], "whisper lm check",
+        windows=[None] * n_attn)
+
+    # the encoder's output by the two routes, bf16 and fp32
+    def encoded(dtype, plain):
+        seen = []
+        tmodel.COMPUTE_DTYPE = dtype
+        try:
+            with torch.no_grad(), swapped(tflash, serve=plain_routes(
+                    torch, attention, windows=seen)[0] if plain else None):
+                out = tmodel._encoder(params, cfg, inputs["frames"],
+                                      train=False)
+        finally:
+            tmodel.COMPUTE_DTYPE = torch.bfloat16
+        if plain and seen != [None] * cfg.enc_layers:
+            raise SystemExit(f"whisper lm: the plain encoder route received "
+                             f"{seen}")
+        return out.float()
+    enc_checks = {}
+    for name, frac in LOGIT_TOL.items():
+        dt = getattr(torch, name)
+        got, want = encoded(dt, False), encoded(dt, True)
+        err, tol = max_abs_err(got, want), frac * float(want.abs().max())
+        enc_checks[name] = {"err": err, "tol": tol}
+        print(f"whisper lm check {name}: the encoder's output, kernel vs "
+              f"plain route: max err {err} <= {tol} ({frac} of max "
+              f"{float(want.abs().max())})")
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"whisper lm {name}: the encoder's output "
+                             f"differs between the routes: {err} > {tol}")
+        del got, want
+    steps = step_check(torch, tmodel, cfg, params, prompts,
+                       "whisper lm check", extra={"frames": inputs["frames"]})
+
+    # rows 5e and 5x: the kernel at the encoder's and the cross-attention's
+    # prefill shapes beside its plain version and SDPA (no mask)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name in ("encoder", "cross"):
+        fq, fk, fv, _, fo = captured[name]
+        B_, Sq, H_, hd_ = fq.shape
+        sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+        kernel(f"flash_attention_fwd {name}", "attention.cu",
+               "src/repro/kernels/attention.py:67",
+               f"q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, bidirectional, "
+               f"bf16",
+               lambda: attention.flash_attention_fwd(fq, fk, fv,
+                                                     causal=False),
+               lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
+                                                           causal=False),
+               2 * (2 * fq.numel() + fk.numel() + fv.numel()),
+               4 * B_ * H_ * Sq * fk.shape[1] * hd_, 10,
+               count=lm["launches"]["flash_attention_fwd"],
+               tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
+               library=lambda: sdpa(sq, sk, sv))
+        records[-1]["prefill_launches"] = n_attn
+        del sq, sk, sv
+    out = dict(run["record"], card=CARD["smi"], layer_checks=layer_err,
+               logit_checks=logit_checks, encoder_checks=enc_checks,
+               step_check=steps, flash_launches_per_prefill=n_attn)
+    print(json.dumps({"whisper_lm_path": out}))
+    del run, params, lm, captured, inputs, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_training(torch, dev, seed: int, zero_counts, counted, kernel,
+                    records) -> dict:
+    """Phase 17b (see the module docstring)."""
+    from repro_torch.kernels import attention
+    from torch_checks import bwd_tol, unit_rms
+    run = family_training(
+        torch, dev, seed, zero_counts, counted, ENCDEC_ARCH, "whisper train",
+        batch=ENCDEC_BATCH, seq=ENCDEC_TRAIN_SEQ,
+        route_names=("enc_layers.0.enc_wq", "layers.0.wq",
+                     "layers.0.xattn_wq"),
+        capture={"encoder": lambda p: p.enc_layers[0].attn_core,
+                 "self": lambda p: p.layers[0].attn_core,
+                 "cross": lambda p: p.layers[0].xattn_core})
+    launches = run["record"]["launches"]
+    del run["params"], run["opt"], run["batches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # rows 5be and 5bx: the backward kernel at the encoder's and the
+    # cross-attention's training shapes on the step's dout brought to unit
+    # RMS (exact), beside its plain version and SDPA's backward
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name in ("encoder", "cross"):
+        c = run["captured"][name]
+        (cq, ck, cv), udout = c["qkv"], unit_rms(c["dout"])
+        out, lse = attention.flash_attention_fwd(cq, ck, cv, causal=False,
+                                                 return_lse=True)
+        B_, Sq, H_, hd_ = cq.shape
+        want = attention.flash_attention_bwd_plain(cq, ck, cv, out, lse,
+                                                   udout, causal=False)
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (cq, ck, cv))
+        so = sdpa(sq, sk, sv)
+        sdo = udout.transpose(1, 2).contiguous()
+        kernel(f"flash_attention_bwd {name}", "attention.cu",
+               "src/repro/models/flash.py:262",
+               f"q {tuple(cq.shape)}, k/v {tuple(ck.shape)}, bidirectional, "
+               f"bf16",
+               lambda: attention.flash_attention_bwd(cq, ck, cv, out, lse,
+                                                     udout, causal=False),
+               lambda: attention.flash_attention_bwd_plain(
+                   cq, ck, cv, out, lse, udout, causal=False),
+               2 * (4 * cq.numel() + 4 * ck.numel()) + 4 * lse.numel(),
+               2.5 * 4 * B_ * H_ * Sq * ck.shape[1] * hd_, 10,
+               count=launches["flash_attention_bwd"],
+               tol=[bwd_tol(w, torch.bfloat16) for w in want],
+               peak_ops=PEAK_BF16,
+               library=lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
+                                                   retain_graph=True))
+        records[-1]["train_launches"] = launches["flash_attention_bwd"]
+        del want, so, sq, sk, sv, sdo, out, lse, udout
+    for r in records:
+        if r["name"] in ("flash_attention_fwd encoder",
+                         "flash_attention_fwd cross"):
+            r["train_launches"] = launches["flash_attention_fwd"]
+    out = run["record"]
+    print(json.dumps({"whisper_train_path": out}))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_training(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 17c (see the module docstring)."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.layers import mlp
+    held = {}
+
+    def before_opt(params, cfg, batches):
+        # two runs of the same loss and backward from the same state
+        def grads_of(b):
+            params.requires_grad_(True)
+            loss, _ = tmodel.lm_loss(params, cfg, b)
+            loss.backward()
+            g = {n: p.grad for n, p in params.named_parameters()}
+            params.zero_grad(set_to_none=True)
+            return loss.detach(), g
+        l1, g1 = grads_of(batches[0])
+        l2, g2 = grads_of(batches[0])
+        differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+        print(f"moe train check: two runs of the loss and backward from the "
+              f"same state: losses {float(l1)} and {float(l2)}, "
+              f"{len(g1) - len(differ)}/{len(g1)} gradients bit-identical "
+              f"{differ[:6]}")
+        if differ or not torch.equal(l1, l2):
+            raise SystemExit(f"moe train: gradients differ between two runs: "
+                             f"{differ}")
+        del g1, g2
+        # the drops per layer and layer 0's MoE input, from one forward
+        calls = []
+        with torch.no_grad():
+            routed(tmoe, lambda: tmodel.lm_loss(params, cfg, batches[0]),
+                   calls)
+        dropped = [int((~c["keep"]).sum()) for c in calls]
+        x, p, spec, act = calls[0]["args"]
+        held.update(x=x.detach().float().clone(), spec=spec, act=act,
+                    p={k: v.detach().float().clone() for k, v in p.items()})
+        T, m = x.shape[0] * x.shape[1], cfg.moe
+        print(f"moe train: assignments dropped by the capacity per layer (T "
+              f"= {T}, top {m.top_k}, C = "
+              f"{tmoe._capacity(T, m.top_k, m.num_experts, m.capacity_factor)}"
+              f"): {dropped}")
+        return {"dropped_per_layer": dropped, "grads_bit_identical": True}
+
+    run = family_training(
+        torch, dev, seed, zero_counts, counted, MOE_ARCH, "moe train",
+        batch=MOE_TRAIN_BATCH, seq=FAMILY_TRAIN_SEQ,
+        layers=MOE_TRAIN_LAYERS,
+        route_names=("layers.0.wq", "layers.0.wk", "layers.0.wv"),
+        capture={"layer 0": lambda p: p.layers[0].attn_core},
+        before_opt=before_opt)
+    out = run["record"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # layer 0's MoE gradients against its per-token dense form's, fp32
+    x0, p0, spec, act = held["x"], held["p"], held["spec"], held["act"]
+    gy = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        tuple(x0.shape)).astype(np.float32)).to(dev)
+
+    def grads_of(fn):
+        x = x0.clone().requires_grad_()
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        (fn(x, p) * gy).sum().backward()
+        return {"x": x.grad, **{k: v.grad for k, v in p.items()}}
+    dense_checks = {}
+    for factor in (spec.capacity_factor, MOE_TIGHT_FACTOR):
+        sp = dataclasses.replace(spec, capacity_factor=factor)
+        t0 = time.perf_counter()
+        got = grads_of(lambda x, p: tmoe.moe_ffn(x, p, sp, act))
+        drops = []
+        want = grads_of(lambda x, p: drops.append(dense_moe(
+            torch, tmoe, mlp, x, p, sp, act)) or drops[-1][0])
+        torch.cuda.synchronize()
+        errs = {"dropped": drops[0][1]}
+        for name, w in want.items():
+            errs[name] = max_abs_err(got[name], w) / max(
+                float(w.abs().max()), 1e-30)
+        dense_checks[factor] = errs
+        print(f"moe train check: layer 0's MoE gradients (fp32, capacity "
+              f"factor {factor}, {drops[0][1]} assignments dropped) vs its "
+              f"per-token dense form's, max err over max|dense| per tensor: "
+              f"{errs} (tolerance {MOE_GRAD_TOL}; "
+              f"{time.perf_counter() - t0} s)")
+        if not all(e <= MOE_GRAD_TOL for n, e in errs.items()
+                   if n != "dropped"):
+            raise SystemExit(f"moe train: the MoE gradients differ from the "
+                             f"dense form's at capacity factor {factor}")
+        del got, want
+    out["dense_grad_checks"] = {str(k): v for k, v in dense_checks.items()}
+    print(json.dumps({"moe_train_path": out}))
+    del held, x0, p0, gy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_training(torch, dev, seed: int, zero_counts, counted, arch: str,
+                 label: str, route_names=(), capture=()) -> dict:
+    """Phase 17d (Mamba2) and 17e (Hymba): see the module docstring.  With
+    attention (Hymba) the gradients are held kernel vs mixed route and in
+    fp32 kernel vs plain route, not kernel vs plain in bf16: there the
+    forward's bf16 rounding alone moves layer 0's gradients past ROUTE_TOL
+    (mixed vs plain 0.0647 on batch 0 of a first card run, with the
+    backward kernel's share 0.023 and fp32 kernel vs plain 1e-5)."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    layers = full.num_layers
+    while STATE_BYTES_PER_PARAM * dataclasses.replace(
+            full, num_layers=layers).param_count() > TRAIN_STATE_SHARE * \
+            CARD_BYTES:
+        layers -= 1
+    held = {}
+
+    def before_opt(params, cfg, batches):
+        held["ssd"] = ssd_grad_check(torch, params, cfg, batches[0], label,
+                                     seed)
+        return {}
+    run = family_training(
+        torch, dev, seed, zero_counts, counted, arch, label,
+        batch=SSM_TRAIN_BATCH, seq=FAMILY_TRAIN_SEQ, route_names=route_names,
+        layers=layers if layers != full.num_layers else None,
+        capture=capture, hold_plain=False, fp32_route=bool(route_names),
+        before_opt=before_opt)
+    out = dict(run["record"], ssd_grad_check=held["ssd"])
+    print(json.dumps({f"{label.split()[0]}_train_path": out}))
+    del run
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3706,6 +4558,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    CARD["smi"] = smi
     t0 = time.perf_counter()
     report = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s")
@@ -3932,6 +4785,7 @@ def main() -> int:
               f"{want} launch")
     check_flash_backward(torch, dev, rng, attention)
     check_flash_masked(torch, dev, rng, attention)
+    check_flash_encdec(torch, dev, rng, attention)
 
     # ---- 3. the main path ----------------------------------------------
     t0 = time.perf_counter()
@@ -4422,6 +5276,23 @@ def main() -> int:
     ssm_serving(torch, dev, args.seed, zero_counts, counted)
     hybrid_serving(torch, dev, args.seed, zero_counts, counted, kernel)
     print(f"phase 16 took {time.perf_counter() - t16} s")
+
+    # ---- 17. the encoder-decoder, and training the families --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    encdec_serving(torch, dev, args.seed, zero_counts, counted, kernel,
+                   records)
+    encdec_training(torch, dev, args.seed, zero_counts, counted, kernel,
+                    records)
+    moe_training(torch, dev, args.seed, zero_counts, counted)
+    ssm_training(torch, dev, args.seed, zero_counts, counted, SSM_ARCH,
+                 "ssm train")
+    ssm_training(torch, dev, args.seed, zero_counts, counted, HYBRID_ARCH,
+                 "hybrid train", ("layers.0.wq", "layers.0.wk", "layers.0.wv"),
+                 {"layer 1 (local)": lambda p: p.layers[1].attn_core,
+                  "layer 16 (global)": lambda p: p.layers[16].attn_core})
+    print(f"phase 17 took {time.perf_counter() - t17} s")
 
     print(json.dumps({"kernels": records}))
     print(smi)

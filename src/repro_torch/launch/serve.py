@@ -6,7 +6,8 @@ one card.
     python -m repro_torch.launch.serve --demo --device cpu
 
 Weights are random (seed 0); prompts are random token ids from the same
-seed.  It runs on the card unless ``--device cpu`` is given (with
+seed, and an encoder-decoder's frame embeddings (B, enc_frames, d_model)
+standard normal x 0.02 from it.  It runs on the card unless ``--device cpu`` is given (with
 ``--demo``, the architecture's reduced smoke config, for a CPU run).
 """
 from __future__ import annotations
@@ -40,10 +41,15 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    kw = {}
+    if cfg.enc_dec:
+        kw["frames"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.enc_frames, cfg.d_model)) * 0.02).to(
+                device=dev, dtype=torch.float32)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    out = greedy_generate(params, cfg, prompts, steps=args.steps)
+    out = greedy_generate(params, cfg, prompts, steps=args.steps, **kw)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import check_supported, init_cache
+from repro_torch.models.model import init_cache
 
 
 def demo_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
@@ -20,8 +20,9 @@ def demo_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
     empty cache of ``seq`` positions.  A VLM's train and prefill batches
     also hold ``visual`` (batch, visual_prefix, d_model) fp32 patch
     embeddings, standard normal x 0.02, and ``mrope_positions`` (3, batch,
-    seq) int32, arange(seq) in every stream."""
-    check_supported(cfg)
+    seq) int32, arange(seq) in every stream; an encoder-decoder's also hold
+    ``frames`` (batch, enc_frames, d_model) fp32 frame embeddings, standard
+    normal x 0.02."""
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"kind must be train, prefill or decode, got "
                          f"{kind!r}")
@@ -41,4 +42,8 @@ def demo_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
         out["mrope_positions"] = torch.arange(
             seq, dtype=torch.int32, device=dev)[None, None].expand(
                 3, batch, seq).contiguous()
+    if cfg.enc_dec:
+        out["frames"] = torch.randn(
+            (batch, cfg.enc_frames, cfg.d_model), generator=generator,
+            device=dev, dtype=torch.float32) * 0.02
     return out

@@ -4,9 +4,8 @@ encoder-decoder (Whisper), VLM prefix (Qwen2-VL M-RoPE), local:global
 sliding-window patterns (Gemma3).
 
 The port's copy of ``repro.models.config`` (pure dataclasses, kept
-identical).  The port's model serves every family but the encoder-decoder
-and trains the dense ones; the rest raise ``NotImplementedError`` in
-``repro_torch.models.model``."""
+identical).  The port's model (``repro_torch.models.model``) serves and
+trains every family."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,10 +1,12 @@
-"""The decoder: schema-driven parameters as ``nn.Module``s, and the forward
+"""The model: schema-driven parameters as ``nn.Module``s, and the forward
 in train, prefill and decode mode.
 
 The port's twin of ``repro.models.model``.  Parameter names are the schema's
-keys: ``embed``, ``final_norm``, ``lm_head`` at the top and ``layers.<i>.<key>``
-for each decoder layer (the reference stacks those on a leading L axis for
-``lax.scan``; here each layer is a module in a ``ModuleList``).  Shapes keep
+keys: ``embed``, ``final_norm``, ``lm_head`` and ``enc_final_norm`` at the
+top, ``layers.<i>.<key>`` for each decoder layer and ``enc_layers.<i>.<key>``
+for each encoder layer of an encoder-decoder (the reference stacks those on
+a leading L or ``enc_layers`` axis for ``lax.scan``; here each layer is a
+module in a ``ModuleList``).  Shapes keep
 the reference's semantics: ``wq`` (d, H, hd), ``wo`` (H, hd, d), ``w_in``
 (d, f).  Matrices, embedding and biases are stored in the compute dtype;
 norm scales and the SSM's conv weights, dt bias, A_log and D in fp32 (the
@@ -18,22 +20,39 @@ attention runs the flash kernel (``models.flash``); decode writes the new
 position into the KV cache in place (saving a copy of the whole cache per
 step, where the reference returns an updated copy) and attends with the
 plain ``decode_attention``; the SSM's conv and state caches are updated in
-place alike.  Training (``mode="train"``, autograd on) runs
-attention through ``flash_attention_vjp`` (the forward and backward kernels)
-and, unless ``cfg.remat == "none"``, each layer under
+place alike.
+
+An encoder-decoder (Whisper) runs its encoder over precomputed frame
+embeddings (``frames`` (B, F, d); the conv / log-mel frontend is a stub,
+as in the reference) plus sinusoidal positions: per layer RMSNorm,
+bidirectional flash attention, RMSNorm and the gelu MLP, then
+``enc_final_norm``.  Each decoder layer then cross-attends: RMSNorm of the
+residual plus the layer's mix, q against k/v projected from the encoder
+output (no bias, qk-norm or rope), through the flash kernel with
+``causal=False`` in train and prefill; prefill writes those k/v to the
+``xk``/``xv`` caches, and decode reads them with the plain
+``decode_attention`` and never writes them.
+
+Training (``mode="train"``, autograd on) runs attention through
+``flash_attention_vjp`` (the forward and backward kernels) and, unless
+``cfg.remat == "none"``, each layer (encoder layers too) under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): ``"full"``
 saves each layer's input only, ``"dots"`` also the weight products' outputs
-(a selective-checkpoint policy on ``aten.mm``).  Training holds fp32 master
-weights (``init_params(..., dtype=torch.float32)``), cast to the compute
-dtype at use as the reference does; serving keeps bf16 storage.  Ported: the
-dense families with ``qkv_bias``, ``qk_norm``, ``parallel_block``,
+(a selective-checkpoint policy on ``aten.mm``/``aten.addmm``, the
+reference's ``dots_with_no_batch_dims_saveable``: the experts' ``bmm`` and
+the SSD's batched fp32 products have a batch dimension and are recomputed,
+as the reference recomputes them).  A layer's recompute routes its MoE
+tokens exactly as its forward did: the routing is a stable sort of the same
+numbers.  Training holds fp32 master weights (``init_params(...,
+dtype=torch.float32)``), cast to the compute dtype at use as the reference
+does; serving keeps bf16 storage.  Every family of the reference serves and
+trains: the dense ones with ``qkv_bias``, ``qk_norm``, ``parallel_block``,
 ``logit_softcap``, tied and untied heads, silu/geglu/gelu, sliding windows
 with the reference's per-layer global flags (``global_flags``: Gemma3's
-local:global pattern), M-RoPE and the VLM prefix (Qwen2-VL); serving of the
-MoE, SSM and hybrid families.  Training those and enc-dec raise
-``NotImplementedError`` naming their ROADMAP item; the sharding constraints
-of the reference are identities on one card and are dropped
-(``param_logical`` and ``cache_logical`` keep their names).
+local:global pattern), M-RoPE and the VLM prefix (Qwen2-VL), MoE, SSM,
+hybrid and the encoder-decoder.  The sharding constraints of the reference
+are identities on one card and are dropped (``param_logical`` and
+``cache_logical`` keep their names).
 """
 from __future__ import annotations
 
@@ -59,36 +78,19 @@ from repro_torch.models.loss import fused_ce_loss
 COMPUTE_DTYPE = torch.bfloat16
 
 #: global (not per-layer) parameters
-GLOBAL_KEYS = ("embed", "final_norm", "lm_head")
+GLOBAL_KEYS = ("embed", "final_norm", "lm_head", "enc_final_norm")
+#: the encoder's per-layer parameters, stacked on ``cfg.enc_layers``
+ENC_KEYS = ("enc_wq", "enc_wk", "enc_wv", "enc_wo", "enc_w_in", "enc_w_out",
+            "enc_ln1", "enc_ln2")
 #: norm scales: kept in fp32 whatever the compute dtype
-NORM_KEYS = ("final_norm", "ln1", "ln2", "q_norm", "k_norm")
+NORM_KEYS = ("final_norm", "ln1", "ln2", "q_norm", "k_norm", "enc_ln1",
+             "enc_ln2", "enc_final_norm", "ln_x")
 #: the SSM's parameters that the reference reads in fp32: kept in fp32 too
 SSM_FP32_KEYS = ("ssm_conv_w", "ssm_conv_b", "ssm_dt_bias", "ssm_A_log",
                  "ssm_D", "ssm_norm")
-#: per-layer cache entries: KV (attention) and conv / state (SSM)
-CACHE_KEYS = ("k", "v", "conv", "ssm")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    the encoder-decoder stack of ROADMAP A10.3."""
-    if cfg.enc_dec or cfg.family == "audio":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is "
-                                  "not ported yet (ROADMAP A10.3)")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port serves but does
-    not train yet: MoE, SSM and hybrid need the backward of the MoE
-    dispatch and of the SSD scan (ROADMAP A10.3, training)."""
-    check_supported(cfg)
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: training MoE layers is not "
-                                  "ported yet (ROADMAP A10.3, training)")
-    if cfg.block != "attn":
-        raise NotImplementedError(f"{cfg.name}: training SSM / hybrid "
-                                  "blocks is not ported yet (ROADMAP A10.3, "
-                                  "training)")
+#: per-layer cache entries: KV (attention), conv / state (SSM) and the
+#: encoder output's cross-attention KV (encoder-decoder)
+CACHE_KEYS = ("k", "v", "conv", "ssm", "xk", "xv")
 
 
 def global_flags(cfg: ModelConfig) -> np.ndarray:
@@ -144,6 +146,18 @@ LOGICAL = {
     "shared_w_in": (None, "fsdp", "mlp"),
     "shared_w_out": (None, "mlp", "fsdp"),
     "shared_gate": (None, "fsdp", None),
+    "enc_wq": (None, "fsdp", "heads", "head_dim"),
+    "enc_wk": (None, "fsdp", "kv_heads", "head_dim"),
+    "enc_wv": (None, "fsdp", "kv_heads", "head_dim"),
+    "enc_wo": (None, "heads", "head_dim", "fsdp"),
+    "enc_w_in": (None, "fsdp", "mlp"), "enc_w_out": (None, "mlp", "fsdp"),
+    "enc_ln1": (None, None), "enc_ln2": (None, None),
+    "enc_final_norm": (None,),
+    "xattn_wq": (None, "fsdp", "heads", "head_dim"),
+    "xattn_wk": (None, "fsdp", "kv_heads", "head_dim"),
+    "xattn_wv": (None, "fsdp", "kv_heads", "head_dim"),
+    "xattn_wo": (None, "heads", "head_dim", "fsdp"),
+    "ln_x": (None, None),
 }
 
 
@@ -157,8 +171,8 @@ def _ssm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
 
 def _schema(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], float]]:
     """name -> (shape, init scale).  Per-layer tensors are stacked on a
-    leading L axis, as in the reference's schema."""
-    check_supported(cfg)
+    leading L axis (the encoder's on ``cfg.enc_layers``), as in the
+    reference's schema."""
     d, L = cfg.d_model, cfg.num_layers
     H, KV, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     w_scale = 0.02
@@ -211,6 +225,22 @@ def _schema(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], float]]:
             s["w_gate"] = ((L, d, f), w_scale)
         s["w_in"] = ((L, d, f), w_scale)
         s["w_out"] = ((L, f, d), o_scale)
+    if cfg.enc_dec:
+        Le = cfg.enc_layers
+        s["enc_wq"] = ((Le, d, H, hd), w_scale)
+        s["enc_wk"] = ((Le, d, KV, hd), w_scale)
+        s["enc_wv"] = ((Le, d, KV, hd), w_scale)
+        s["enc_wo"] = ((Le, H, hd, d), o_scale)
+        s["enc_w_in"] = ((Le, d, f), w_scale)
+        s["enc_w_out"] = ((Le, f, d), o_scale)
+        s["enc_ln1"] = ((Le, d), 0.0)
+        s["enc_ln2"] = ((Le, d), 0.0)
+        s["enc_final_norm"] = ((d,), 0.0)
+        s["xattn_wq"] = ((L, d, H, hd), w_scale)
+        s["xattn_wk"] = ((L, d, KV, hd), w_scale)
+        s["xattn_wv"] = ((L, d, KV, hd), w_scale)
+        s["xattn_wo"] = ((L, H, hd, d), o_scale)
+        s["ln_x"] = ((L, d), 0.0)
     return s
 
 
@@ -235,6 +265,8 @@ class DecoderLayer(nn.Module):
             self.register_parameter(name, _param(t))
         if cfg.block in ("attn", "hybrid"):
             self.attn_core = flash.FlashAttention()
+        if cfg.enc_dec:
+            self.xattn_core = flash.FlashAttention()
 
     def _params(self, names) -> dict:
         return {n: getattr(self, n) for n in names if hasattr(self, n)}
@@ -275,9 +307,38 @@ class DecoderLayer(nn.Module):
             cache_v[:, :S] = v.to(cache_v.dtype)
         return out.reshape(B * S, H * hd) @ self.wo.to(dt).reshape(H * hd, d)
 
+    def _cross_attention(self, x, mode, cache, enc_out):
+        """Attention of x to the encoder output, bidirectional, with no
+        bias, qk-norm or rope: k/v projected from ``enc_out`` in train and
+        prefill (which writes them to the ``xk``/``xv`` caches), read from
+        those caches in decode."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        dt = x.dtype
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = (x.reshape(B * S, d) @ self.xattn_wq.to(dt).reshape(d, H * hd)
+             ).view(B, S, H, hd)
+        if mode == "decode":
+            out = decode_attention(q, cache["xk"], cache["xv"],
+                                   AttnMask(False, None, 0, None))
+        else:
+            F_ = enc_out.shape[1]
+            e2 = enc_out.reshape(B * F_, d)
+            xk = (e2 @ self.xattn_wk.to(dt).reshape(d, KV * hd)
+                  ).view(B, F_, KV, hd)
+            xv = (e2 @ self.xattn_wv.to(dt).reshape(d, KV * hd)
+                  ).view(B, F_, KV, hd)
+            out = self.xattn_core(q, xk, xv, causal=False,
+                                  train=mode == "train")
+            if mode == "prefill":
+                cache["xk"].copy_(xk)
+                cache["xv"].copy_(xv)
+        return (out.reshape(B * S, H * hd)
+                @ self.xattn_wo.to(dt).reshape(H * hd, d))
+
     def _ssm(self, x, mode, cache):
         """The Mamba2 mixer; its conv and state caches written in place
-        (prefill fills them, decode steps them)."""
+        (prefill fills them, decode steps them; training writes none)."""
         p = {n[len("ssm_"):]: t for n, t in self.named_parameters()
              if n.startswith("ssm_")}
         state = ({"conv": cache["conv"].to(x.dtype), "ssm": cache["ssm"]}
@@ -285,13 +346,17 @@ class DecoderLayer(nn.Module):
         out, new = ssm_lib.mamba2_mix(
             p, x, self.cfg, mode="step" if mode == "decode" else "full",
             state=state)
-        cache["conv"].copy_(new["conv"])
-        cache["ssm"].copy_(new["ssm"])
+        if mode != "train":
+            cache["conv"].copy_(new["conv"])
+            cache["ssm"].copy_(new["ssm"])
         return out
 
-    def forward(self, x, angles, mode, cache=None, pos=0, window=None):
+    def forward(self, x, angles, mode, cache=None, pos=0, window=None,
+                enc_out=None):
         """``cache``: this layer's views of the cache entries (``k``/``v``,
-        ``conv``/``ssm``), None in training."""
+        ``conv``/``ssm``, ``xk``/``xv``), None in training; ``enc_out``:
+        the encoder's output (B, F, d) for cross-attention in train and
+        prefill."""
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         mix = None
@@ -303,6 +368,10 @@ class DecoderLayer(nn.Module):
             mix = ssm_out if mix is None else mix + ssm_out
         if cfg.block == "hybrid":
             mix = mix * 0.5                   # average the parallel heads
+        if cfg.enc_dec:
+            xh = rms_norm(x + mix, self.ln_x, cfg.norm_eps)
+            mix = mix + self._cross_attention(xh, mode, cache,
+                                              enc_out).view(x.shape)
         p = self._params(("w_in", "w_gate", "w_out"))
         if cfg.parallel_block and cfg.moe is None and cfg.d_ff:
             return x + mix + mlp(h, p, cfg.mlp_act)
@@ -319,21 +388,58 @@ class DecoderLayer(nn.Module):
         return x
 
 
-class Model(nn.Module):
-    """The decoder stack: ``embed``, ``layers`` (a ``ModuleList`` of
-    :class:`DecoderLayer`), ``final_norm`` and, untied, ``lm_head``."""
+class EncoderLayer(nn.Module):
+    """One encoder layer of an encoder-decoder: RMSNorm, bidirectional
+    attention (through its own ``attn_core``, so hooks see it) and ``wo``,
+    then RMSNorm and the gelu MLP, each added to the residual.  Its
+    parameters are the schema's ``enc_*`` keys, one layer's slice each."""
 
     def __init__(self, cfg: ModelConfig, tensors: dict[str, torch.Tensor]):
         super().__init__()
-        check_supported(cfg)
+        self.cfg = cfg
+        for name, t in tensors.items():
+            self.register_parameter(name, _param(t))
+        self.attn_core = flash.FlashAttention()
+
+    def forward(self, x, train: bool):
+        cfg = self.cfg
+        B, F_, d = x.shape
+        dt = x.dtype
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        h = rms_norm(x, self.enc_ln1, cfg.norm_eps).reshape(B * F_, d)
+        q = (h @ self.enc_wq.to(dt).reshape(d, H * hd)).view(B, F_, H, hd)
+        k = (h @ self.enc_wk.to(dt).reshape(d, KV * hd)).view(B, F_, KV, hd)
+        v = (h @ self.enc_wv.to(dt).reshape(d, KV * hd)).view(B, F_, KV, hd)
+        out = self.attn_core(q, k, v, causal=False, train=train)
+        x = x + (out.reshape(B * F_, H * hd)
+                 @ self.enc_wo.to(dt).reshape(H * hd, d)).view(B, F_, d)
+        h2 = rms_norm(x, self.enc_ln2, cfg.norm_eps)
+        return x + mlp(h2, {"w_in": self.enc_w_in, "w_out": self.enc_w_out},
+                       "gelu")
+
+
+class Model(nn.Module):
+    """The stack: ``embed``, ``layers`` (a ``ModuleList`` of
+    :class:`DecoderLayer`), ``final_norm`` and, untied, ``lm_head``; for an
+    encoder-decoder also ``enc_layers`` (of :class:`EncoderLayer`) and
+    ``enc_final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, tensors: dict[str, torch.Tensor]):
+        super().__init__()
         self.cfg = cfg
         for name in GLOBAL_KEYS:
             if name in tensors:
                 self.register_parameter(name, _param(tensors[name]))
-        per_layer = {n: t for n, t in tensors.items() if n not in GLOBAL_KEYS}
+        per_layer = {n: t for n, t in tensors.items()
+                     if n not in GLOBAL_KEYS and n not in ENC_KEYS}
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, {n: t[i] for n, t in per_layer.items()})
             for i in range(cfg.num_layers))
+        if cfg.enc_dec:
+            enc = {n: t for n, t in tensors.items() if n in ENC_KEYS}
+            self.enc_layers = nn.ModuleList(
+                EncoderLayer(cfg, {n: t[i] for n, t in enc.items()})
+                for i in range(cfg.enc_layers))
 
 
 # ------------------------------------------------------------ construction
@@ -381,18 +487,23 @@ def params_from_numpy(cfg: ModelConfig, params: dict, *, device="cuda",
     return Model(cfg, tensors)
 
 
+def _layer_names(cfg: ModelConfig, name: str) -> list[str]:
+    """The :class:`Model` parameter names of a per-layer schema key, one a
+    layer: ``enc_layers.<i>.<key>`` for the encoder's keys (the reference's
+    ``_split_layer_params``), ``layers.<i>.<key>`` for the others."""
+    if name in ENC_KEYS:
+        return [f"enc_layers.{i}.{name}" for i in range(cfg.enc_layers)]
+    return [f"layers.{i}.{name}" for i in range(cfg.num_layers)]
+
+
 def stack_layers(cfg: ModelConfig, named: dict) -> dict[str, torch.Tensor]:
     """Tensors keyed by :class:`Model` parameter name (``embed``,
-    ``layers.<i>.<key>``) -> the reference's flat names, per-layer tensors
-    stacked on a leading L axis (a copy, on their device)."""
-    out = {}
-    for name in _schema(cfg):
-        if name in GLOBAL_KEYS:
-            out[name] = named[name]
-        else:
-            out[name] = torch.stack([named[f"layers.{i}.{name}"]
-                                     for i in range(cfg.num_layers)])
-    return out
+    ``layers.<i>.<key>``, ``enc_layers.<i>.<key>``) -> the reference's flat
+    names, per-layer tensors stacked on a leading L (or ``enc_layers``)
+    axis (a copy, on their device)."""
+    return {name: named[name] if name in GLOBAL_KEYS else
+            torch.stack([named[n] for n in _layer_names(cfg, name)])
+            for name in _schema(cfg)}
 
 
 def unstack_layers(cfg: ModelConfig, flat: dict) -> dict[str, torch.Tensor]:
@@ -404,8 +515,8 @@ def unstack_layers(cfg: ModelConfig, flat: dict) -> dict[str, torch.Tensor]:
         if name in GLOBAL_KEYS:
             out[name] = flat[name]
         else:
-            for i in range(cfg.num_layers):
-                out[f"layers.{i}.{name}"] = flat[name][i]
+            for i, n in enumerate(_layer_names(cfg, name)):
+                out[n] = flat[name][i]
     return out
 
 
@@ -431,12 +542,14 @@ def param_logical(cfg: ModelConfig) -> dict[str, tuple]:
 
 
 # ------------------------------------------------------------------ caches
-def _empty_caches(cfg: ModelConfig, batch: int, length: int,
-                  device) -> dict[str, torch.Tensor]:
+def _empty_caches(cfg: ModelConfig, batch: int, length: int, device,
+                  frames: int | None = None) -> dict[str, torch.Tensor]:
     """Zeroed per-layer caches: for attention KV (L, batch, length, KV, hd)
     in the compute dtype; for the SSM the conv inputs (L, batch, K-1,
     conv_dim) in the compute dtype and the state (L, batch, nh, hp, ds) in
-    fp32 (the reference's keys and shapes)."""
+    fp32; for an encoder-decoder the cross-attention KV ``xk``/``xv`` (L,
+    batch, frames, KV, hd) in the compute dtype, ``frames`` defaulting to
+    ``cfg.enc_frames`` (the reference's keys and shapes)."""
     L = cfg.num_layers
     out = {}
     if cfg.block in ("attn", "hybrid"):
@@ -450,14 +563,19 @@ def _empty_caches(cfg: ModelConfig, batch: int, length: int,
                                   dtype=COMPUTE_DTYPE, device=device)
         out["ssm"] = torch.zeros((L, batch, nh, sp.head_dim, sp.d_state),
                                  dtype=torch.float32, device=device)
+    if cfg.enc_dec:
+        shape = (L, batch, cfg.enc_frames if frames is None else frames,
+                 cfg.num_kv_heads, cfg.head_dim)
+        for nm in ("xk", "xv"):
+            out[nm] = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
     return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """Decode state: full-length KV caches, the SSM's conv and state caches
-    and the next position."""
-    check_supported(cfg)
+    """Decode state: full-length KV caches, the SSM's conv and state caches,
+    an encoder-decoder's cross-attention KV over ``cfg.enc_frames`` and the
+    next position."""
     cache = _empty_caches(cfg, batch, max_len, resolve_device(device))
     cache["pos"] = 0
     return cache
@@ -466,7 +584,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def cache_logical(cfg: ModelConfig) -> dict[str, tuple]:
     """The reference's logical axis names per cache entry (identities on
     one card, kept for parity)."""
-    check_supported(cfg)
     names: dict[str, tuple] = {"pos": ()}
     if cfg.block in ("attn", "hybrid"):
         names["k"] = (None, "batch", None, "kv_heads", "head_dim")
@@ -474,6 +591,9 @@ def cache_logical(cfg: ModelConfig) -> dict[str, tuple]:
     if cfg.block in ("ssm", "hybrid"):
         names["conv"] = (None, "batch", None, "mlp")
         names["ssm"] = (None, "batch", "heads", None, "state")
+    if cfg.enc_dec:
+        names["xk"] = (None, "batch", None, "kv_heads", "head_dim")
+        names["xv"] = (None, "batch", None, "kv_heads", "head_dim")
     return names
 
 
@@ -481,9 +601,11 @@ def cache_logical(cfg: ModelConfig) -> dict[str, tuple]:
 def _remat_context(cfg: ModelConfig):
     """``context_fn`` of ``torch.utils.checkpoint`` for ``cfg.remat``:
     ``"full"`` saves nothing inside the layer (the default contexts);
-    ``"dots"`` saves the outputs of the weight products (``aten.mm``, the
-    reference's ``dots_with_no_batch_dims_saveable``) and recomputes the
-    rest, attention included."""
+    ``"dots"`` saves the outputs of the weight products (``aten.mm`` and
+    ``aten.addmm``, the reference's ``dots_with_no_batch_dims_saveable``)
+    and recomputes the rest, attention included: the experts' ``torch.bmm``
+    and the SSD's batched fp32 products have a batch dimension, so they are
+    recomputed, as the reference recomputes its batched dots."""
     if cfg.remat != "dots":
         return torch_checkpoint.noop_context_fn
     policy_cls = torch_checkpoint.CheckpointPolicy
@@ -496,25 +618,55 @@ def _remat_context(cfg: ModelConfig):
         torch_checkpoint.create_selective_checkpoint_contexts, policy)
 
 
-def _train_layers(params: Model, cfg: ModelConfig, x, angles):
-    """The layer stack with autograd on, each layer under
+def _layer_call(cfg: ModelConfig, train: bool, layer, *args):
+    """``layer(*args)``, under ``torch.utils.checkpoint`` when training
+    with ``cfg.remat`` other than ``"none"``."""
+    if not train or cfg.remat == "none":
+        return layer(*args)
+    return torch_checkpoint.checkpoint(layer, *args, use_reentrant=False,
+                                       context_fn=_remat_context(cfg))
+
+
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal position embeddings (..., d) fp32: sin then cos of
+    position x 10000^(-i / (d/2 - 1)), the reference's."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encoder(params: Model, cfg: ModelConfig, frames: torch.Tensor,
+             train: bool) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings (B, F, d): frames plus
+    sinusoidal positions in fp32, cast to the compute dtype, the
+    :class:`EncoderLayer` stack (each under ``torch.utils.checkpoint`` when
+    training with remat, as the reference's ``jax.checkpoint``), then
+    ``enc_final_norm``."""
+    B, F_, d = frames.shape
+    dev = params.embed.device
+    x = (frames.to(device=dev, dtype=torch.float32)
+         + _sinusoidal(torch.arange(F_, device=dev), d)).to(COMPUTE_DTYPE)
+    for layer in params.enc_layers:
+        x = _layer_call(cfg, train, layer, x, train)
+    return rms_norm(x, params.enc_final_norm, cfg.norm_eps)
+
+
+def _train_layers(params: Model, cfg: ModelConfig, x, angles, enc_out):
+    """The decoder stack with autograd on, each layer under
     ``torch.utils.checkpoint`` unless ``cfg.remat == "none"``."""
-    if cfg.remat not in ("none", "full", "dots"):
-        raise ValueError(f"remat must be none, full or dots, got "
-                         f"{cfg.remat!r}")
     for layer, window in zip(params.layers, layer_windows(cfg)):
-        if cfg.remat == "none":
-            x = layer(x, angles, "train", None, 0, window)
-        else:
-            x = torch_checkpoint.checkpoint(
-                layer, x, angles, "train", None, 0, window,
-                use_reentrant=False, context_fn=_remat_context(cfg))
+        x = _layer_call(cfg, True, layer, x, angles, "train", None, 0,
+                        window, enc_out)
     return x
 
 
 def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
                   mode: str, visual: torch.Tensor | None = None,
                   mrope_positions: torch.Tensor | None = None,
+                  frames: torch.Tensor | None = None,
                   cache: dict | None = None, max_len: int | None = None,
                   return_hidden: bool = False):
     """Returns (logits, new_cache).
@@ -523,7 +675,10 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
     place of the first V token embeddings.  ``mrope_positions`` (3, B, S),
     with ``cfg.rope == "mrope"``: each stream's positions (default
     pos0 + arange(S) in all three, the reference's, as in decode).  Each
-    layer attends under its window (:func:`layer_windows`).
+    layer attends under its window (:func:`layer_windows`).  ``frames``
+    (B, F, d), with ``cfg.enc_dec``: the encoder's input frame embeddings,
+    needed in train and prefill (decode reads the cross-attention KV that
+    prefill cached).
 
     train   : tokens (B, S) -> logits (B, S, Vp), cache None, with autograd;
               ``return_hidden`` returns the final-norm hidden states
@@ -538,7 +693,12 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
                          f"{mode!r}")
     if mode == "train" and cache is not None:
         raise ValueError("mode='train' takes no cache")
-    (check_trainable if mode == "train" else check_supported)(cfg)
+    if mode == "train" and cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got "
+                         f"{cfg.remat!r}")
+    if cfg.enc_dec and mode != "decode" and frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: mode={mode!r} "
+                         f"needs frames (B, F, d_model)")
     B, S = tokens.shape
     dt = COMPUTE_DTYPE
     dev = params.embed.device
@@ -549,7 +709,9 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
         else:
             pos0 = 0
             caches = (None if mode == "train" else
-                      _empty_caches(cfg, B, max(S, max_len or S), dev))
+                      _empty_caches(cfg, B, max(S, max_len or S), dev,
+                                    None if frames is None
+                                    else frames.shape[1]))
         x = params.embed[tokens.long()].to(dt)
         if cfg.vlm and visual is not None:
             V = visual.shape[1]
@@ -564,15 +726,17 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
                                      cfg.rope_theta, cfg.mrope_sections)
             else:
                 angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        enc_out = (_encoder(params, cfg, frames, mode == "train")
+                   if cfg.enc_dec and mode != "decode" else None)
         if mode == "train":
-            x = rms_norm(_train_layers(params, cfg, x, angles),
+            x = rms_norm(_train_layers(params, cfg, x, angles, enc_out),
                          params.final_norm, cfg.norm_eps)
             return (x if return_hidden else _head_logits(params, cfg, x)), None
         for i, (layer, window) in enumerate(zip(params.layers,
                                                 layer_windows(cfg))):
             x = layer(x, angles, mode, {nm: caches[nm][i] for nm in
                                         CACHE_KEYS if nm in caches},
-                      pos0, window)
+                      pos0, window, enc_out)
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         if mode == "prefill":
             x = x[:, -1:]
@@ -597,17 +761,14 @@ def lm_loss(params: Model, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy through the fused chunked loss (full
     (B, S, V) logits are never materialized; see ``models.loss``).  batch:
-    ``tokens`` and ``labels`` (B, S), label -1 masked, and for a VLM
-    ``visual`` and ``mrope_positions`` (:func:`model_forward`).  Returns
-    (loss, {"loss", "tokens"}), differentiable in the parameters."""
-    if "frames" in batch:
-        raise NotImplementedError("frames inputs (the encoder-decoder "
-                                  "stack) are not ported yet (ROADMAP "
-                                  "A10.3)")
+    ``tokens`` and ``labels`` (B, S), label -1 masked, for a VLM
+    ``visual`` and ``mrope_positions``, for an encoder-decoder ``frames``
+    (:func:`model_forward`).  Returns (loss, {"loss", "tokens"}),
+    differentiable in the parameters."""
     hidden, _ = model_forward(params, cfg, batch["tokens"], mode="train",
                               visual=batch.get("visual"),
                               mrope_positions=batch.get("mrope_positions"),
-                              return_hidden=True)
+                              frames=batch.get("frames"), return_hidden=True)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     loss, tokens = fused_ce_loss(hidden, head.to(hidden.dtype),
                                  batch["labels"], valid_vocab=cfg.vocab_size)

@@ -11,6 +11,14 @@ expert starts come from ``searchsorted`` over the sorted assignments (not
 ``bincount``, which sizes its output from the data on the card), and the k
 gate-weighted contributions of a token are summed through a (T, k, d)
 view, where ``index_add_`` on the card would add in no fixed order.
+
+The backward is deterministic as well.  The token rows enter the buffer
+through an expanded view, (T, d) -> (T, k, d) -> (T*k, d), whose backward
+sums each token's k rows in a fixed order (an index gather would sum them
+by ``index_put_(accumulate=True)``, in no fixed order on the card).  The
+other index ops have unique slots: each kept assignment owns its buffer
+row, the dropped ones all go to the drop row, which is cut off, and their
+gather back carries a zero weight.
 """
 from __future__ import annotations
 
@@ -70,11 +78,10 @@ def moe_ffn(x: torch.Tensor, p: dict, spec, act: str = "silu"
     xf = x.reshape(T, d)
     gates, experts = route(xf, p["router"], spec)
     pos, keep = dispatch(experts, E, C)
-    a_token = torch.arange(T, device=x.device).repeat_interleave(k)
     # the buffer's last row takes the dropped assignments and is cut off
     slot = torch.where(keep, experts.reshape(-1) * C + pos, E_buf * C)
     buf = torch.zeros((E_buf * C + 1, d), dtype=dt, device=x.device)
-    buf[slot] = xf[a_token]
+    buf[slot] = xf[:, None].expand(T, k, d).reshape(T * k, d)
     buf = buf[:-1].view(E_buf, C, d)
 
     h = torch.bmm(buf, p["w_in"].to(dt))

@@ -16,6 +16,14 @@ contraction is one batched product over (batch, chunk, head), so the
 largest intermediate is (B, nc, nh, cl, cl) in fp32 (a pairwise einsum
 path could build a (B, nc, cl, cl, nh, hp) tensor: ~21 GB at Mamba2-2.7B's
 prefill of 4 x 2048).
+
+A difference by design: ``ssd_chunked`` builds the intra-chunk decay as
+``exp(where(tril, cum_i - cum_j, -inf))`` where the reference writes
+``where(tril, exp(cum_i - cum_j), 0)``.  The forward is the same number
+for number; at the published chunk of 128 the reference's form overflows
+``exp`` above the diagonal and its gradient is NaN, while this one's is
+finite and equals ``ssd_sequential``'s autograd.  Every other ``exp`` here
+takes a value <= 0.
 """
 from __future__ import annotations
 
@@ -81,9 +89,13 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 128, h0=None):
 
     cum = torch.cumsum(dtr * A[:, None], dim=-1)               # inclusive
     # decay from position j (exclusive) to i (inclusive), i >= j
+    # masked before the exp: above the diagonal cum_i - cum_j is a positive
+    # sum that overflows exp at the published chunk of 128, and where()'s
+    # backward multiplies its zero by that inf (NaN); exp(-inf) is exactly
+    # the 0 the reference writes there, so the forward is unchanged
     tri = torch.ones((cl, cl), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
-                    0.0)                                       # b,n,h,i,j
+    L = torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                              -torch.inf))                     # b,n,h,i,j
 
     # intra-chunk: y[i] += C_i . sum_{j<=i} L_ij dt_j (B_j ⊗ x_j); C_i . B_j
     # is a group's, shared by its heads

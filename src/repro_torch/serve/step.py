@@ -1,5 +1,6 @@
 """Serving steps: batched prefill (last-position logits + a cache: KV padded
-to the decode horizon, and an SSM's conv and state caches), single-token
+to the decode horizon, an SSM's conv and state caches, and an
+encoder-decoder's cross-attention KV), single-token
 decode, a batched greedy loop, and
 batched structured retrieval over a bitmap index (the paper's query
 workload served through the engine's bucketed batch executor).
@@ -18,7 +19,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int | None = None):
         return model_forward(params, cfg, batch["tokens"], mode="prefill",
                              visual=batch.get("visual"),
                              mrope_positions=batch.get("mrope_positions"),
-                             max_len=max_len)
+                             frames=batch.get("frames"), max_len=max_len)
     return prefill_step
 
 
@@ -84,8 +85,9 @@ def greedy_generate(params, cfg: ModelConfig, tokens: torch.Tensor,
                     ) -> torch.Tensor:
     """Batched greedy loop (prefill + steps - 1 decodes): tokens (B, S) ->
     generated ids (B, steps).  ``kw`` goes to the prefill (a VLM's
-    ``visual`` and ``mrope_positions``); decode positions follow the
-    prefill's, pos0 + arange, in every M-RoPE stream."""
+    ``visual`` and ``mrope_positions``, an encoder-decoder's ``frames``);
+    decode positions follow the prefill's, pos0 + arange, in every M-RoPE
+    stream."""
     B, S = tokens.shape
     max_len = max_len or (S + steps)
     logits, cache = model_forward(params, cfg, tokens, mode="prefill",

@@ -24,7 +24,14 @@ including rows that see no key (zeros, lse NEG_INF).
 The MoE FFN and the Mamba2 mixer on the card against the same functions
 on the CPU at smoke sizes, and ``greedy_generate`` of the MoE, SSM and
 hybrid smoke configs on the card (one flash launch an attention layer, the
-CPU's tokens in fp32).
+CPU's tokens in fp32).  Whisper's bidirectional flash shapes
+(``torch_checks.ENCDEC_FLASH_CASES``: 1500 x 1500, 224 and 448 x 1500),
+forward and backward, against the plain versions; one smoke-width fp32
+training step of each family trained since the encoder-decoder slice
+(Whisper, the MoEs, Mamba2, Hymba) on the card against the same step on
+the CPU, with its launch counts; Whisper's greedy tokens on the card equal
+to the CPU's; and the MoE's gradients bit-identical across two runs on
+the card.
 
 The serving layer on the card: a four-thread storm through
 ``BitmapDB.serve()`` over a 2^20-record index (every answer the ``ref``
@@ -45,7 +52,8 @@ from repro_torch.kernels import bit_transpose as tbt
 from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
-from torch_checks import (COUNTED_CASES, FLASH_BWD_CASES,
+from torch_checks import (COUNTED_CASES, ENCDEC_FLASH_CASES,
+                          ENCDEC_FLASH_SHAPE, FLASH_BWD_CASES,
                           FLASH_OFFSET_CASES, FLASH_WINDOW_CASES,
                           STACKED_CASES, any_int32_cam_inputs, attn_tol,
                           bf16_attn_err,
@@ -583,6 +591,19 @@ def test_flash_kernels_offset(dev, sq, skv, q_offset, kv_len, window, causal,
     assert all(r <= 1 for r in ratios.values()), ratios
 
 
+@pytest.mark.parametrize("sq,skv,dtype", ENCDEC_FLASH_CASES)
+def test_flash_kernels_at_whisper_shapes(dev, sq, skv, dtype):
+    """Both flash kernels, bidirectional, at Whisper-small's encoder and
+    cross-attention shapes, against their plain versions
+    (``torch_checks.flash_mask_ratios``)."""
+    sh = ENCDEC_FLASH_SHAPE
+    rng = np.random.default_rng(sq)
+    q, k, v, dout = flash_bwd_inputs(rng, sq, sh["hd"], sh["g"], dtype, dev,
+                                     batch=sh["batch"], kv=sh["kv"], skv=skv)
+    ratios = flash_mask_ratios(tfa, q, k, v, dout, causal=False)
+    assert all(r <= 1 for r in ratios.values()), ratios
+
+
 def test_flash_rows_with_no_key_are_zero_on_the_card(dev):
     """A row that sees no key: output 0 and lse NEG_INF from both kernels
     (the plain version's choice), its gradients 0."""
@@ -1001,3 +1022,119 @@ def test_fabric_host_rows_on_the_card(dev):
     assert _waves_off_the_kernels(waves0) == {}
     assert proc["waves_by_backend"].get("cuda", 0) >= 1
     assert proc["launches"]["bulk_program"] >= 1
+
+
+# ------------------------- training the families, and Whisper, on the card
+TRAINED = ["whisper_small", "qwen2_moe_a2_7b", "granite_moe_3b_a800m",
+           "mamba2_2_7b", "hymba_1_5b"]
+
+
+def _smoke_batch(cfg, seed: int, batch: int = 2, seq: int = 40) -> dict:
+    """Tokens, labels and, for an encoder-decoder, frames (standard normal
+    x 0.02), as CPU tensors."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    out = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.enc_dec:
+        out["frames"] = torch.from_numpy((rng.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model)) * 0.02).astype(np.float32))
+    return out
+
+
+def _loss_and_grads(model_mod, cfg, params, batch):
+    params.requires_grad_(True)
+    loss, _ = model_mod.lm_loss(params, cfg, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in params.named_parameters()
+             if p.grad is not None}
+    params.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+@pytest.mark.parametrize("arch", TRAINED)
+def test_family_train_step_on_the_card_matches_the_cpu(dev, arch,
+                                                       monkeypatch):
+    """A smoke-width fp32 step (remat full): the loss rtol 1e-5 and every
+    gradient within 1e-4 of its largest magnitude plus 1e-7 of the CPU's
+    (``tests/test_torch_train.py``'s rule against the reference); the
+    forward kernel twice and the backward kernel once an attention layer
+    (Whisper: encoder, self and cross), then a ``make_train_step`` step
+    with a finite loss."""
+    from repro_torch.models import model
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    monkeypatch.setattr(model, "COMPUTE_DTYPE", torch.float32)
+    cfg, params = _family_params(arch, seed=3)
+    batch = _smoke_batch(cfg, 4)
+    cpu = model.params_from_numpy(cfg, params, device="cpu",
+                                  dtype=torch.float32)
+    card = model.params_from_numpy(cfg, params, device=dev,
+                                   dtype=torch.float32)
+    want_loss, want = _loss_and_grads(model, cfg, cpu, batch)
+    f0, b0 = tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd.launches
+    got_loss, got = _loss_and_grads(model, cfg, card,
+                                    {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    attn = ((cfg.num_layers if cfg.block != "ssm" else 0)
+            + (cfg.num_layers + cfg.enc_layers if cfg.enc_dec else 0))
+    assert tfa.flash_attention_fwd.launches - f0 == 2 * attn
+    assert tfa.flash_attention_bwd.launches - b0 == attn
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(
+        float(want_loss))
+    assert set(got) == set(want)
+    for name, g in want.items():
+        tol = 1e-4 * float(g.abs().max()) + 1e-7
+        assert float((got[name].cpu() - g).abs().max()) <= tol, name
+    opt = init_opt_state(card, OptimConfig())
+    card, opt, m = make_train_step(cfg, TrainConfig())(
+        card, opt, {k: v.to(dev) for k, v in batch.items()})
+    assert bool(torch.isfinite(m["loss"])) and int(opt["step"]) == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "granite_moe_3b_a800m"])
+def test_moe_backward_is_bit_identical_on_the_card(dev, arch):
+    """bf16 compute from fp32 masters, capacity factor 0.5 (drops): two
+    runs of the loss and its backward from the same state give
+    bit-identical gradients (the token rows enter the expert buffer
+    through a view whose backward sums in a fixed order)."""
+    import dataclasses
+    from repro_torch.models import model
+    cfg, params = _family_params(arch, seed=5)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    card = model.params_from_numpy(cfg, params, device=dev,
+                                   dtype=torch.float32)
+    batch = {k: v.to(dev) for k, v in _smoke_batch(cfg, 6, 4, 64).items()}
+    loss1, g1 = _loss_and_grads(model, cfg, card, batch)
+    loss2, g2 = _loss_and_grads(model, cfg, card, batch)
+    assert torch.equal(loss1, loss2) and set(g1) == set(g2)
+    assert all(torch.equal(g1[n], g2[n]) for n in g1), [
+        n for n in g1 if not torch.equal(g1[n], g2[n])]
+
+
+def test_whisper_greedy_generate_on_the_card(dev, monkeypatch):
+    """Whisper's smoke config on the card: a prefill launches the flash
+    kernel three times a layer pair (encoder, self, cross); in fp32 the
+    greedy tokens equal the CPU's."""
+    from repro_torch.models import model
+    from repro_torch.serve.step import greedy_generate
+    cfg, params = _family_params("whisper_small")
+    batch = _smoke_batch(cfg, 0, 2, 37)
+    tokens, frames = batch["tokens"], batch["frames"]
+    card = model.params_from_numpy(cfg, params, device=dev)
+    before = tfa.flash_attention_fwd.launches
+    out = greedy_generate(card, cfg, tokens.to(dev), steps=4,
+                          frames=frames.to(dev))
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches - before
+            == cfg.enc_layers + 2 * cfg.num_layers)
+    assert out.shape == (2, 4)
+    monkeypatch.setattr(model, "COMPUTE_DTYPE", torch.float32)
+    card = model.params_from_numpy(cfg, params, device=dev,
+                                   dtype=torch.float32)
+    cpu = model.params_from_numpy(cfg, params, device="cpu",
+                                  dtype=torch.float32)
+    got = greedy_generate(card, cfg, tokens.to(dev), steps=4,
+                          frames=frames.to(dev))
+    want = greedy_generate(cpu, cfg, tokens, steps=4, frames=frames)
+    assert torch.equal(got.cpu(), want)

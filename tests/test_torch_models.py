@@ -34,6 +34,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.serve import step as jstep  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.launch.shapes import demo_batch  # noqa: E402
 from repro_torch.kernels import attention as tattention  # noqa: E402
 from repro_torch.models import flash as tflash  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -362,38 +363,59 @@ def test_launch_serve_demo_on_cpu(capsys):
     assert "qwen2-7b-smoke on cpu: 6 tokens" in out
 
 
-# ------------------------------------------- (g) what is not ported raises
+# ------------------------------------- (g) every family builds and trains
 @pytest.mark.parametrize("arch", ["whisper_small"])
-def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tmodel.init_params(get_smoke_config(arch), device="cpu")
+def test_encoder_decoder_configs_build_and_serve(arch):
+    """Whisper builds, prefills and decodes (held against the reference in
+    ``tests/test_torch_encdec_train.py``)."""
+    cfg = get_smoke_config(arch)
+    model = tmodel.init_params(cfg, device="cpu")
+    batch = demo_batch(cfg, "prefill", 2, 6, torch.Generator().manual_seed(0))
+    logits, cache = tmodel.model_forward(model, cfg, batch["tokens"],
+                                         frames=batch["frames"],
+                                         mode="prefill", max_len=8)
+    assert logits.shape == (2, 1, cfg.vocab_padded)
+    assert cache["xk"].shape == (cfg.num_layers, 2, cfg.enc_frames,
+                                 cfg.num_kv_heads, cfg.head_dim)
+    logits, cache = tmodel.model_forward(model, cfg, batch["tokens"][:, :1],
+                                         cache=cache, mode="decode")
+    assert bool(torch.isfinite(logits).all()) and cache["pos"] == 7
 
 
 @pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "granite_moe_3b_a800m",
                                   "mamba2_2_7b", "hymba_1_5b"])
-def test_training_the_served_families_raises(arch):
-    """MoE, SSM and hybrid serve (``tests/test_torch_moe_ssm.py``); their
-    training waits for the backward of the MoE dispatch and the SSD scan."""
+def test_training_the_served_families_runs(arch):
+    """MoE, SSM and hybrid serve and train (their losses and gradients are
+    held against the reference in ``tests/test_torch_train.py``): one
+    train-mode forward and one loss with finite gradients, the decode
+    caches untouched by training."""
     cfg = get_smoke_config(arch)
-    model = tmodel.init_params(cfg, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.3, training"):
-        tmodel.model_forward(model, cfg, tokens, mode="train")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.3, training"):
-        tmodel.lm_loss(model, cfg, {"tokens": tokens, "labels": tokens})
+    model = tmodel.init_params(cfg, device="cpu", dtype=torch.float32)
+    batch = demo_batch(cfg, "train", 1, 8, torch.Generator().manual_seed(1))
+    logits, cache = tmodel.model_forward(model, cfg, batch["tokens"],
+                                         mode="train")
+    assert cache is None and logits.shape == (1, 8, cfg.vocab_padded)
+    model.requires_grad_(True)
+    loss, aux = tmodel.lm_loss(model, cfg, batch)
+    loss.backward()
+    assert bool(torch.isfinite(loss)) and float(aux["tokens"]) == 8
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters() if p.grad is not None)
 
 
-def test_unported_modes_and_options_raise():
-    """Training runs (``tests/test_torch_train.py``); training an unported
-    family (the MoE smoke config) still raises, and so do an enc-dec
-    batch's frames.  Windows, offsets, M-RoPE and the VLM prefix run
+def test_modes_and_options_of_every_family():
+    """Training runs for every family (``tests/test_torch_train.py``);
+    an encoder-decoder's batch needs its frames and a bad mode raises.
+    Windows, offsets, M-RoPE and the VLM prefix run
     (``tests/test_torch_window_vlm.py``)."""
-    cfg = get_smoke_config("qwen2_7b")
-    model = tmodel.init_params(cfg, device="cpu")
+    cfg = get_smoke_config("whisper_small")
+    model = tmodel.init_params(cfg, device="cpu", dtype=torch.float32)
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP A10"):
-        tmodel.lm_loss(model, get_smoke_config("qwen2_moe_a2_7b"),
-                       {"tokens": tokens, "labels": tokens})
-    with pytest.raises(NotImplementedError, match="encoder-decoder.*A10.3"):
-        tmodel.lm_loss(model, cfg, {"tokens": tokens, "labels": tokens,
-                                    "frames": torch.zeros((1, 4, 64))})
+    with pytest.raises(ValueError, match="frames"):
+        tmodel.lm_loss(model, cfg, {"tokens": tokens, "labels": tokens})
+    loss, _ = tmodel.lm_loss(model, cfg, {
+        "tokens": tokens, "labels": tokens,
+        "frames": torch.zeros((1, cfg.enc_frames, cfg.d_model))})
+    assert bool(torch.isfinite(loss))
+    with pytest.raises(ValueError, match="mode"):
+        tmodel.model_forward(model, cfg, tokens, mode="eval")

@@ -60,6 +60,9 @@ from torch_checks import bf16_spacing  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 DENSE = ["qwen2_7b", "granite_20b", "command_r_plus_104b"]
+#: the encoder-decoder, MoE, SSM and hybrid families
+FAMILIES = ["whisper_small", "qwen2_moe_a2_7b", "granite_moe_3b_a800m",
+            "mamba2_2_7b", "hymba_1_5b"]
 
 
 def t(a) -> torch.Tensor:
@@ -95,11 +98,17 @@ def _reference_params(cfg, seed: int) -> dict:
 
 
 def _train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """Tokens, labels (three masked) and, for an encoder-decoder, frames
+    (standard normal x 0.02, the reference's ``demo_batch``)."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
     labels = np.roll(tokens, -1, axis=1)
     labels[0, :3] = -1                                   # masked positions
-    return {"tokens": tokens, "labels": labels}
+    out = {"tokens": tokens, "labels": labels}
+    if cfg.enc_dec:
+        out["frames"] = (rng.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
 
 
 # ------------------------------------------------------ flash attention
@@ -269,7 +278,7 @@ def test_fused_ce_loss_bf16_backward_matches_reference():
 
 # ------------------------------------------------------------ lm_loss
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_lm_loss_and_grads_match_reference_fp32(fp32, arch, remat):
     cfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
     jcfg = dataclasses.replace(jget_smoke(arch), remat=remat)
@@ -420,11 +429,13 @@ def test_train_step_matches_reference_two_steps(fp32):
             close(mine, js[mom][name], scaled_tol(js[mom][name], 1e-4, 0.0))
 
 
-def test_accum_one_matches_accum_four():
-    """The reference holds accumulation against one batch on its MoE smoke
-    config; MoE is not ported, so the port holds it on qwen2_7b's (same
-    batch, same bounds: loss within 2e-2, parameters within 3e-4)."""
-    cfg = get_smoke_config("qwen2_7b")
+@pytest.mark.parametrize("arch", ["qwen2_7b", "granite_moe_3b_a800m"])
+def test_accum_one_matches_accum_four(arch):
+    """The reference's accumulation test (``tests/test_system.py``, on its
+    MoE smoke config), here on the MoE's and on qwen2_7b's: the same batch
+    of 8 x 16, the same bounds (loss within 2e-2, parameters within
+    3e-4)."""
+    cfg = get_smoke_config(arch)
     batch = demo_batch(cfg, "train", 8, 16, torch.Generator().manual_seed(0))
     o = tadamw.OptimConfig(peak_lr=1e-3)
     out = {}

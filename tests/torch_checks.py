@@ -102,6 +102,19 @@ FLASH_OFFSET_CASES = (
 )
 
 
+#: Whisper-small's bidirectional flash cases (Sq, Skv, dtype): the encoder
+#: over its 1500 frames, the 224-token prompt's cross-attention and the
+#: 448-token text context's in training, each against the 1500 frames; at
+#: batch 8 with 12 query and 12 KV heads of 64 (:data:`ENCDEC_FLASH_SHAPE`).
+#: 1500 is no tile multiple, so the edge tiles are masked by bounds.
+#: Shared by the card tests and chip_smoke.py's phase 2.
+ENCDEC_FLASH_CASES = tuple(
+    (sq, 1500, dt) for sq in (1500, 224, 448)
+    for dt in (torch.float32, torch.bfloat16))
+#: batch, KV heads, H/KV and head_dim of :data:`ENCDEC_FLASH_CASES`
+ENCDEC_FLASH_SHAPE = {"batch": 8, "kv": 12, "g": 1, "hd": 64}
+
+
 def grid_positions(batch: int, seq: int, patches: int, side: int
                    ) -> np.ndarray:
     """Qwen2-VL's M-RoPE layout (3, batch, seq) int32, so that the streams
