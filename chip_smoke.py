@@ -424,6 +424,34 @@ Phases (any failure exits non-zero and prints no result):
    Hymba's shape the forward's bf16 rounding alone (mixed vs plain, no
    backward kernel) moves them past ROUTE_TOL, so kernel vs plain is
    printed there.
+18. The dry run (``repro_torch.launch.dryrun``), held against the card.
+   a: all 40 cells (10 architectures x 4 shapes) on the one-card mesh,
+   each step traced on the meta device in DRYRUN_JOBS worker processes,
+   and their argument bytes on 16x16 and 2x16x16: one table of status or
+   skip reason, per-device argument GB per mesh, flops (and the model
+   flops), the one-card temp and ``fits_card`` (the predicted peak,
+   ``dryrun.PEAK_BOUND`` over, within 80 GB).  b: every cell that fits,
+   run once on the card with its arguments made from ``--seed`` in the
+   traced dtypes (decode at pos = S - 1): the arguments' bytes equal to
+   the dry run's, ``max_memory_allocated`` over what was resident before
+   within ``dryrun.PEAK_BOUND`` of the predicted peak (arguments + temp),
+   the flash launches equal to the traced calls, the non-attention flops
+   (``dryrun.FlopCount``: ``FlopCounterMode``'s formulas without its
+   module tracker, which keeps the activations alive) equal to the
+   trace's, a finite output; the step's wall time printed only.  A kind
+   (train, prefill, decode) with no cell that fits is named.  c: the
+   configurations that phases 13a, 15c, 16a-c and 17a-e ran (as cut:
+   depth, batch, sequence, cache length), traced in the same workers
+   while b runs.  Each phase read one of its steps' peak alone
+   (``step_alone``: a train phase its first timed step, a serving phase
+   one more prefill): the bytes of that step's arguments equal to the
+   trace's, and the step's peak over what was allocated before it within
+   ``dryrun.PEAK_BOUND`` of the traced temp.  The phase's whole peak is
+   printed and held too, against the memory resident before it, what it
+   held beside its step (the data pipeline, captures; measured) and the
+   step's arguments and temp, and the peak of its window before that
+   step (a train phase of 17 also after its set-up and route checks, and
+   after its first, hooked step) is printed beside the step's.  The phase's seconds are printed.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -608,6 +636,23 @@ FP32_ROUTE_TOL = 1e-3
 #: the card's ``nvidia-smi`` name and power limit, set by main(): printed
 #: beside phase 17's figures
 CARD = {"smi": ""}
+#: phase 18c's record of each phase that reads a peak (13a, 15c, 16a-c,
+#: 17a-e): label -> the step it ran (config as cut, kind, batch, sequence,
+#: cache length, token dtype, parameter dtype) and its memory: ``resident``
+#: (allocated before the phase made anything), ``peak``
+#: (``max_memory_allocated`` over its window), ``end`` (allocated when it
+#: read the peak: the step's arguments and what the phase holds beside
+#: them), ``args`` (the step's arguments' bytes) and one step's own peak
+#: (``step_alone``)
+PHASE_PEAKS = {}
+#: phase 18: the phases whose peaks 18c predicts, by PHASE_PEAKS label
+PEAK_PHASES = {"13a": "13a", "15c": "15c", "16a": "moe lm", "16b": "ssm lm",
+               "16c": "hybrid lm", "17a": "whisper lm",
+               "17b": "whisper train", "17c": "moe train",
+               "17d": "ssm train", "17e": "hybrid train"}
+#: phase 18a: worker processes tracing the cells (the card machine has 8
+#: cores; the main process runs 18b meanwhile)
+DRYRUN_JOBS = 7
 
 
 def serving_mix(planner, m: int, count: int, seed: int) -> list:
@@ -2275,6 +2320,7 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
           f"{STATE_BYTES_PER_PARAM} x {full.param_count()} = {need} B > "
           f"{CARD_BYTES} B on the card; at {TRAIN_LAYERS} layers "
           f"{STATE_BYTES_PER_PARAM * cfg.param_count()} B")
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tmodel.init_params(cfg, seed=seed, device=dev,
@@ -2461,11 +2507,13 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
     # hundredths of a nat in six steps at this learning rate (inside the
     # noise between batches); on a fixed batch, memorized as in the
     # reference's learning test, it falls by nats.
-    times = []
-    for _ in range(TRAIN_STEPS):
+    times, alone = [], {}
+    for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, first)
+        with (step_alone(torch, alone) if i == 0
+              else contextlib.nullcontext()):
+            params, opt, m = step(params, opt, first)
         losses.append(float(m["loss"]))       # waits for the step
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
@@ -2478,7 +2526,10 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
     attn = (2 * TRAIN_SEQ * (TRAIN_SEQ + 1) * cfg.head_dim * TRAIN_BATCH
             * cfg.num_heads * cfg.num_layers)
     flops = 6 * n_prod * tokens + 2 * n_layers * tokens + 4.5 * attn
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(alone["carried"], torch.cuda.max_memory_allocated())
+    note_peak(torch, "13a", cfg, "train", TRAIN_BATCH, TRAIN_SEQ, resident,
+              peak, (params, opt, first), alone,
+              token_dtype=first["tokens"].dtype)
     print(f"train steps: losses {losses}; step {step_s * 1e3} ms (median of "
           f"{TRAIN_STEPS}; {[t * 1e3 for t in times]}), {tokens / step_s} "
           f"tokens/s, {flops} model flops a step = "
@@ -2594,6 +2645,38 @@ def flash_modules(params) -> int:
     backward launch each a train step under remat."""
     from repro_torch.models.flash import FlashAttention
     return sum(isinstance(m, FlashAttention) for m in params.modules())
+
+
+def note_peak(torch, label: str, cfg, kind: str, batch: int, seq: int,
+              resident: int, peak: int, args: tuple, alone: dict,
+              **step) -> None:
+    """Keep a phase's step and memory for phase 18c (``PHASE_PEAKS``):
+    ``args`` are the measured step's arguments (the model, and the
+    optimizer state and batch, or the prefill's inputs), ``alone`` its
+    :func:`step_alone` record."""
+    from repro_torch.launch.dryrun import tree_bytes
+    args = tuple(dict(a.named_parameters()) if isinstance(
+        a, torch.nn.Module) else a for a in args)
+    PHASE_PEAKS[label] = {"cfg": cfg, "kind": kind, "batch": batch,
+                          "seq": seq, "resident": resident, "peak": peak,
+                          "end": torch.cuda.memory_allocated(),
+                          "args": tree_bytes(args), **alone, **step}
+
+
+@contextlib.contextmanager
+def step_alone(torch, alone: dict):
+    """Read the card's peak around one step alone, for phase 18c:
+    ``alone`` gets the peak of the phase's window so far (``carried``,
+    read before the reset: the phase's peak is then ``max(carried,
+    max_memory_allocated())``), the bytes allocated before the step
+    (``before``) and the step's peak over them (``step_peak``)."""
+    torch.cuda.synchronize()
+    alone["carried"] = torch.cuda.max_memory_allocated()
+    alone["before"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    yield alone
+    torch.cuda.synchronize()
+    alone["step_peak"] = torch.cuda.max_memory_allocated() - alone["before"]
 
 
 def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
@@ -2982,6 +3065,7 @@ def window_training(torch, dev, seed: int, zero_counts, counted, kernel
           f"{STATE_BYTES_PER_PARAM * full.param_count()} B before "
           f"activations; at {WIN_TRAIN_LAYERS} layers "
           f"{STATE_BYTES_PER_PARAM * cfg.param_count()} B")
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     params = tmodel.init_params(cfg, seed=seed, device=dev,
                                 dtype=torch.float32)
@@ -3059,12 +3143,17 @@ def window_training(torch, dev, seed: int, zero_counts, counted, kernel
         raise SystemExit(f"window train step: want {2 * cfg.num_layers} "
                          f"forward and {cfg.num_layers} backward launches, "
                          f"saw {launches}")
+    alone = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, opt, m = step(params, opt, batch)
+    with step_alone(torch, alone):
+        params, opt, m = step(params, opt, batch)
     second_loss = float(m["loss"])
     step_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(alone["carried"], torch.cuda.max_memory_allocated())
+    note_peak(torch, "15c", cfg, "train", WIN_TRAIN_BATCH, WIN_PROMPT,
+              resident, peak, (params, opt, batch), alone,
+              token_dtype=batch["tokens"].dtype)
     print(f"window train step 2: {step_ms} ms ({WIN_TRAIN_BATCH} x "
           f"{WIN_PROMPT} tokens, remat full), loss {second_loss}; peak "
           f"{peak} bytes allocated")
@@ -3183,6 +3272,7 @@ def family_serving(torch, dev, seed: int, zero_counts, counted, arch: str,
     from repro_torch.models import model as tmodel
     from repro_torch.serve import step as tstep
     cfg = get_config(arch)
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = tmodel.init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
@@ -3209,6 +3299,12 @@ def family_serving(torch, dev, seed: int, zero_counts, counted, arch: str,
     lm = lm_serving(torch, tstep, attention, params, cfg, inputs, steps,
                     zero_counts, counted, label, layers_of(cfg))
     peak = torch.cuda.max_memory_allocated()
+    alone = {}                  # the prefill once more, its peak alone
+    with step_alone(torch, alone):
+        lm["prefill"](params, inputs)
+    note_peak(torch, label, cfg, "prefill", batch, prompt, resident, peak,
+              (params, inputs), alone, max_len=prompt + steps,
+              token_dtype=prompts.dtype, param_dtype=tmodel.COMPUTE_DTYPE)
     print(f"{label}: peak memory over greedy_generate, prefill and decode "
           f"{peak} bytes [{CARD['smi']}]")
     prefill, decode = lm["prefill"], lm["decode"]
@@ -3574,6 +3670,7 @@ def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
               f"{CARD_BYTES} B on the card")
     gc.collect()
     torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tmodel.init_params(cfg, seed=seed, device=dev,
@@ -3691,6 +3788,7 @@ def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
             raise SystemExit(f"{label}: in fp32 the kernel route differs "
                              f"from the plain route")
     extra = before_opt(params, cfg, batches) if before_opt else {}
+    checks_peak = torch.cuda.max_memory_allocated()    # the route checks'
 
     ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
     opt = init_opt_state(params, ocfg)
@@ -3721,6 +3819,7 @@ def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
     finally:
         for h in hooks:
             h.remove()
+    first_peak = torch.cuda.max_memory_allocated()    # + the first step
     launches = {n: fn.launches for n, fn in counted.items()}
     print(f"{label} step 1: {first_s} s (first), loss {losses[0]}, launches "
           f"{launches}, no plain attention")
@@ -3729,16 +3828,22 @@ def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
         raise SystemExit(f"{label} step: want {2 * n_attn} forward and "
                          f"{n_attn} backward kernel launches, saw {launches}")
     layer_checks = check_captured(torch, attention, captured, label)
-    times = []
+    times, alone = [], {}
     for i in range(TRAIN_TIMED):
         b = batches[(i + 1) % len(batches)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, b)
+        with (step_alone(torch, alone) if i == 0
+              else contextlib.nullcontext()):
+            params, opt, m = step(params, opt, b)
         losses.append(float(m["loss"]))         # waits for the step
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(alone["carried"], torch.cuda.max_memory_allocated())
+    note_peak(torch, label, cfg, "train", batch, seq, resident, peak,
+              (params, opt, batches[1 % len(batches)]), alone,
+              checks_peak=checks_peak, first_peak=first_peak,
+              token_dtype=batches[0]["tokens"].dtype)
     tokens = batch * seq
     print(f"{label} steps: losses {losses}; step {step_s * 1e3} ms (median "
           f"of {TRAIN_TIMED}: {[x * 1e3 for x in times]}), {tokens / step_s} "
@@ -4485,6 +4590,220 @@ def witness_path(torch, dev, host_blocks, wave, p3, zero_counts, read_counts,
                baselined=len(supp),
                client_to_shard=[list(p) for p in client])
     print(json.dumps({"witness_path": out}))
+
+
+def dryrun_cost(arch: str, shape_name: str) -> int:
+    """A rank for phase 18a's queue, most expensive first: the SSM and
+    hybrid train and prefill cells walk their SSD chunk loop per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES
+    cfg, kind = get_config(arch), SHAPES[shape_name].kind
+    return (kind == "train") * 2 + (kind == "prefill") + \
+        (cfg.block != "attn") * 3
+
+
+def card_cell(torch, dev, dryrun, cell: dict, seed: int, zero_counts,
+              counted) -> dict:
+    """Phase 18b: one cell that 18a says fits the card, run for real: its
+    arguments made from ``seed`` in the traced dtypes (parameters normal x
+    0.02, optimizer state and cache zero, decode at pos = S - 1), the step
+    run once under ``dryrun.FlopCount`` (``FlopCounterMode``'s formulas)
+    with the launch counters zeroed, timed (printed only).  Fails unless
+    the arguments' bytes are the cell's, the peak over what was resident
+    before is within ``dryrun.PEAK_BOUND`` of the prediction, the flash
+    launches are the traced calls, the non-attention flops are the
+    trace's and the output (logits, or a train step's loss) is finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.shapes import SHAPES
+    from torch_checks import STEP_FILLS, materialize
+    label = f"{cell['arch']} {cell['shape']}"
+    cfg, shape = get_config(cell["arch"]), SHAPES[cell["shape"]]
+    mesh = dryrun.card_mesh()
+    with set_mesh(mesh):
+        fn, args, _, _, accum = dryrun.build_step_and_specs(cfg, shape, mesh)
+    if shape.kind == "train":           # the whole step: every microbatch
+        fn = dryrun.train_fn(cfg, accum)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    real = [materialize(a, dev, gen, cfg.vocab_size, f)
+            for a, f in zip(args, STEP_FILLS[shape.kind])]
+    torch.cuda.synchronize()
+    arg_bytes = dryrun.tree_bytes(real)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with dryrun.FlopCount() as fc:
+        out = fn(*real)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    launches = {n: counted[n].launches for n in cell["flash_calls"]}
+    logits = out[0] if shape.kind != "train" else out[2]["loss"]
+    finite = bool(torch.isfinite(logits).all())
+    del out, logits, real
+    gc.collect()
+    torch.cuda.empty_cache()
+    predicted = cell["peak_bytes"]
+    rec = {"cell": label, "argument_bytes": arg_bytes,
+           "predicted_peak": predicted, "peak": peak,
+           "peak_over_predicted": peak / predicted,
+           "launches": launches, "traced_calls": cell["flash_calls"],
+           "flops": fc.flops,
+           "traced_matmul_flops": cell["matmul_flops"], "wall_s": wall_s}
+    print(f"dryrun 18b {label}: arguments {arg_bytes} B (dry run "
+          f"{cell['memory']['argument_size_in_bytes']}); peak {peak} B over "
+          f"{resident} resident, predicted {predicted} (args + temp "
+          f"{cell['memory']['temp_size_in_bytes']}): ratio "
+          f"{peak / predicted}; flash launches {launches}, traced "
+          f"{cell['flash_calls']}; non-attention flops {rec['flops']}, "
+          f"traced {cell['matmul_flops']}; step {wall_s} s under the counter "
+          f"(printed only) "
+          f"[{CARD['smi']}]")
+    if arg_bytes != cell["memory"]["argument_size_in_bytes"]:
+        raise SystemExit(f"{label}: arguments {arg_bytes} B, the dry run "
+                         f"says {cell['memory']['argument_size_in_bytes']}")
+    if abs(peak - predicted) > dryrun.PEAK_BOUND * predicted:
+        raise SystemExit(f"{label}: peak {peak} B outside "
+                         f"{dryrun.PEAK_BOUND} of the predicted {predicted}")
+    if launches != cell["flash_calls"]:
+        raise SystemExit(f"{label}: flash launches {launches}, traced "
+                         f"{cell['flash_calls']}")
+    if rec["flops"] != cell["matmul_flops"]:
+        raise SystemExit(f"{label}: {rec['flops']} non-attention flops on "
+                         f"the card, {cell['matmul_flops']} traced")
+    if not finite:
+        raise SystemExit(f"{label}: the step's output is not finite")
+    return rec
+
+
+def dryrun_path(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 18 (see the module docstring)."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shapes import SHAPES
+    t18 = time.perf_counter()
+    card = dryrun.card_mesh()
+    cells = sorted(((a, s) for a in ARCHS for s in SHAPES),
+                   key=lambda c: -dryrun_cost(*c))
+    phases = {ph: PHASE_PEAKS[lab] for ph, lab in PEAK_PHASES.items()
+              if lab in PHASE_PEAKS}
+    missing = sorted(set(PEAK_PHASES) - set(phases))
+    if missing:
+        raise SystemExit(f"dryrun 18c: phases {missing} recorded no peak")
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(DRYRUN_JOBS,
+                                                mp_context=ctx) as ex:
+        card_futs = {c: ex.submit(dryrun.run_cell_or_error, *c, card)
+                     for c in cells}
+        peak_futs = {ph: ex.submit(
+            dryrun.config_peak, r["cfg"], r["kind"], r["batch"], r["seq"],
+            max_len=r.get("max_len"),
+            param_dtype=r.get("param_dtype", torch.float32),
+            token_dtype=r["token_dtype"]) for ph, r in phases.items()}
+        # 18a: the production meshes' argument bytes here meanwhile
+        prod = {}
+        for m in (make_production_mesh(), make_production_mesh(
+                multi_pod=True)):
+            for a, s_ in cells:
+                prod[a, s_, m.name] = dryrun.run_cell(a, s_, m)
+        # 18b: each cell that fits runs for real as soon as its trace is
+        # back, while the workers trace the rest and 18c
+        print(f"dryrun 18b: {torch.cuda.memory_allocated()} B allocated "
+              f"before the cells")
+        res, runs, t18b = {}, [], 0.0
+        for f in concurrent.futures.as_completed(card_futs.values()):
+            c = f.result()
+            res[c["arch"], c["shape"]] = c
+            if c["status"] == "error":
+                raise SystemExit(f"dryrun {c['arch']} {c['shape']}: "
+                                 f"{c['error']}\n{c['traceback']}")
+            if c.get("fits_card"):
+                t0 = time.perf_counter()
+                runs.append(card_cell(torch, dev, dryrun, c, seed,
+                                      zero_counts, counted))
+                t18b += time.perf_counter() - t0
+        t18a = time.perf_counter() - t18
+        print(f"dryrun 18a: {len(res)} cells on the one-card mesh (traced on "
+              f"meta, {DRYRUN_JOBS} workers) and on 16x16 and 2x16x16 "
+              f"(argument bytes), with 18b's runs, in {t18a} s")
+        print("  arch, shape: status | argument GB on card / 16x16 / "
+              "2x16x16 | flops (model flops) | temp GB on card | fits_card")
+        for a in ARCHS:
+            for s_ in SHAPES:
+                c = res[a, s_]
+                if c["status"] == "skipped":
+                    print(f"  {a}, {s_}: skipped ({c['reason']})")
+                    continue
+                gb = [x["memory"]["argument_size_in_bytes"] / 1e9 for x in (
+                    c, prod[a, s_, "16x16"], prod[a, s_, "2x16x16"])]
+                print(f"  {a}, {s_}: ok | {gb[0]} / {gb[1]} / {gb[2]} | "
+                      f"{c['flops']} ({c['model_flops']}) | "
+                      f"{c['memory']['temp_size_in_bytes'] / 1e9} | "
+                      f"{c['fits_card']}")
+        fits = [c for c in res.values() if c.get("fits_card")]
+        kinds = {SHAPES[c["shape"]].kind for c in fits}
+        print(f"dryrun 18a: {len(fits)} cells fit the card (the predicted "
+              f"peak, {dryrun.PEAK_BOUND} over, within {dryrun.CARD_BYTES} "
+              f"B): "
+              f"{[(c['arch'], c['shape']) for c in fits]}; no cell of kind "
+              f"{sorted({'train', 'prefill', 'decode'} - kinds)} fits")
+        peaks = {ph: f.result() for ph, f in peak_futs.items()}
+    # 18c: the earlier phases' steps and peaks against the dry run's
+    bound = dryrun.PEAK_BOUND
+    held_rows = []
+    for ph, r in phases.items():
+        p_ = peaks[ph]
+        held = r["end"] - r["resident"] - p_["argument_bytes"]
+        predicted = r["resident"] + held + p_["argument_bytes"] + p_["temp"]
+        row = {"phase": ph, "args": r["args"],
+               "traced_args": p_["argument_bytes"], "before": r["before"],
+               "step_peak": r["step_peak"], "temp": p_["temp"],
+               "temp_ratio": r["step_peak"] / p_["temp"],
+               "resident": r["resident"], "held": held,
+               "predicted": predicted, "peak": r["peak"],
+               "ratio": r["peak"] / predicted, "carried": r["carried"],
+               "checks_peak": r.get("checks_peak"),
+               "first_peak": r.get("first_peak")}
+        held_rows.append(row)
+        step_top = r["before"] + r["step_peak"]
+        where = ("before that step" if r["carried"] >= r["peak"] else
+                 "by that step" if step_top >= r["peak"] else "after it")
+        steps_17 = ("" if r.get("checks_peak") is None else
+                    f", its set-up and route checks {r['checks_peak']}, "
+                    f"then its first (hooked) step {r['first_peak']}")
+        print(f"dryrun 18c {ph} ({r['cfg'].name}, {r['cfg'].num_layers} "
+              f"layers, {r['kind']} {r['batch']} x {r['seq']}"
+              f"{', cache ' + str(r['max_len']) if r.get('max_len') else ''}"
+              f"): arguments {r['args']} B, the dry run's "
+              f"{p_['argument_bytes']}; one step alone {r['step_peak']} B "
+              f"over the {r['before']} allocated before it, traced temp "
+              f"{p_['temp']}: ratio {row['temp_ratio']}; the phase: resident "
+              f"{r['resident']} + held {held} (measured) + arguments + temp "
+              f"= {predicted} B predicted, measured {r['peak']}: ratio "
+              f"{row['ratio']}; the phase's peak set {where} (the step "
+              f"reached {step_top}, the phase before it {r['carried']}"
+              f"{steps_17}) [{CARD['smi']}]")
+    bad = [h for h in held_rows if h["args"] != h["traced_args"]
+           or abs(h["temp_ratio"] - 1) > bound
+           or abs(h["ratio"] - 1) > bound or h["held"] < 0]
+    total = time.perf_counter() - t18
+    print(f"phase 18 took {total} s (18a {t18a} s, 18b {t18b} s)")
+    if bad:
+        raise SystemExit(f"dryrun 18c: arguments unlike the dry run's, or a "
+                         f"step's temp or a phase's peak outside {bound} of "
+                         f"the prediction (or the phase holding less than "
+                         f"its arguments): {bad}")
+    out = {"cells": len(res), "fits": [r["cell"] for r in runs],
+           "card_runs": runs, "phase_peaks": held_rows, "phase_s": total,
+           "dryrun_18a_s": t18a, "card": CARD["smi"]}
+    print(json.dumps({"dryrun_path": out}))
+    return out
 
 
 def main() -> int:
@@ -5293,6 +5612,11 @@ def main() -> int:
                  {"layer 1 (local)": lambda p: p.layers[1].attn_core,
                   "layer 16 (global)": lambda p: p.layers[16].attn_core})
     print(f"phase 17 took {time.perf_counter() - t17} s")
+
+    # ---- 18. the dry run, held against the card --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_path(torch, dev, args.seed, zero_counts, counted)
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -179,6 +179,17 @@ def on_card(kernel: str, *tensors) -> bool:
     return kind == "cuda"
 
 
+def on_meta(kernel: str, *tensors) -> bool:
+    """True when every tensor lies on the meta device (a dry-run trace: a
+    wrapper that has a meta route checks its arguments and returns outputs
+    of the kernel's shapes, launching nothing and running no plain
+    version), False when none does; a mix raises."""
+    kinds = {t.device.type == "meta" for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"{kernel}: meta and real tensors mixed")
+    return kinds == {True}
+
+
 def require(kernel: str, cond: bool, what: str) -> None:
     """Argument check of a kernel wrapper."""
     if not cond:

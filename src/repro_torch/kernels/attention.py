@@ -37,6 +37,14 @@ from registers); fp32 and the other head dims on the CUDA cores
 (``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``).  A failure of either
 raises; neither falls back to the other.
 
+On meta tensors (a dry run's trace, ``repro_torch.launch.dryrun``) both
+wrappers make the card's argument checks but the pointer alignment,
+return meta outputs of the kernel's shapes (the backward also makes its
+delta workspace, as the card route does), and add the call and its flops to
+their ``traced`` and ``traced_flops`` counters: 4·B·H·hd per allowed pair
+(:func:`allowed_pairs`) forward, 2.5 times that backward.  They never launch
+nor run a plain version there, and leave ``launches`` alone.
+
 The forward replaces ``src/repro/kernels/attention.py::flash_attention_fwd``;
 the backward replaces the plain-JAX backward of
 ``repro.models.flash.flash_attention_vjp`` (``_flash_bwd_dense``), which is
@@ -83,6 +91,31 @@ def allowed(sq: int, skv: int, *, causal: bool, window=None, q_offset=0,
     return keep
 
 
+def allowed_pairs(sq: int, skv: int, *, causal: bool, window=None,
+                  q_offset=0, kv_len=None) -> int:
+    """How many entries of :func:`allowed` are True, without the (Sq, Skv)
+    matrix: query q (absolute position a = q + q_offset) sees keys
+    max(0, a - window + 1) ..min(a, kv_len - 1) under ``causal``, all
+    kv_len keys otherwise."""
+    kl = skv if kv_len is None else max(0, min(int(kv_len), skv))
+    if not causal:
+        return sq * kl
+    a = torch.arange(sq, dtype=torch.int64) + int(q_offset)
+    hi = torch.clamp(a, max=kl - 1)
+    lo = (torch.zeros_like(a) if window is None
+          else torch.clamp(a - int(window) + 1, min=0))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def flash_flops(B: int, H: int, hd: int, pairs: int, *,
+                backward: bool = False) -> int:
+    """The forward's flops, 4·B·H·hd per allowed pair (q k^T and p v, two
+    flops a multiply-add); the backward's are 2.5 times those (the bound
+    column of ``PERF.md``'s rows 5 and 5b)."""
+    f = 4 * B * H * hd * pairs
+    return f * 5 // 2 if backward else f
+
+
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window=None, q_offset: int = 0, kv_len=None,
@@ -117,14 +150,17 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def _card_checks(name: str, hd: int, tensors) -> None:
+def _card_checks(name: str, hd: int, tensors, *, meta: bool = False
+                 ) -> None:
     """What the kernels take beyond the plain version: a head_dim they are
-    instantiated for, contiguous and 16-byte aligned tensors."""
+    instantiated for, contiguous and (but on meta tensors, which have no
+    address) 16-byte aligned tensors."""
     _build.require(name, hd in HEAD_DIMS,
                    f"head_dim {hd} not in {HEAD_DIMS}")
     _build.require(name, all(t.is_contiguous() for t in tensors),
                    "inputs must be contiguous")
-    _build.require(name, all(t.data_ptr() % 16 == 0 for t in tensors),
+    _build.require(name, meta or all(t.data_ptr() % 16 == 0
+                                     for t in tensors),
                    "inputs must be 16-byte aligned")
 
 
@@ -158,7 +194,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     128 keys on the tensor cores, 64 queries by 32 or 64 keys on the CUDA
     cores)."""
     name = "flash_attention_fwd"
-    card = _build.on_card(name, q, k, v)
+    meta = _build.on_meta(name, q, k, v)
+    card = not meta and _build.on_card(name, q, k, v)
     _build.require(name, q.dtype in DTYPES and k.dtype == q.dtype
                    and v.dtype == q.dtype,
                    f"q/k/v must share one dtype of {DTYPES}, got "
@@ -177,25 +214,34 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    and KV >= 1 and H % KV == 0,
                    f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     w, qo, kl = _mask_args(name, S, Skv, window, q_offset, kv_len)
-    if not card:
+    if not (card or meta):
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window, q_offset=q_offset,
                                          kv_len=kv_len, return_lse=return_lse)
-    _card_checks(name, hd, (q, k, v))
+    _card_checks(name, hd, (q, k, v), meta=meta)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    _build.launch(name, q.device, _build.ptr(q), _build.ptr(k),
-                  _build.ptr(v), _build.ptr(out),
-                  None if lse is None else _build.ptr(lse), B, S, Skv, H, KV,
-                  hd, int(causal), w, qo, kl, int(q.dtype == torch.bfloat16))
-    flash_attention_fwd.launches += 1
+    if meta:
+        flash_attention_fwd.traced += 1
+        flash_attention_fwd.traced_flops += flash_flops(
+            B, H, hd, allowed_pairs(S, Skv, causal=causal, window=window,
+                                    q_offset=qo, kv_len=kv_len))
+    else:
+        _build.launch(name, q.device, _build.ptr(q), _build.ptr(k),
+                      _build.ptr(v), _build.ptr(out),
+                      None if lse is None else _build.ptr(lse), B, S, Skv, H,
+                      KV, hd, int(causal), w, qo, kl,
+                      int(q.dtype == torch.bfloat16))
+        flash_attention_fwd.launches += 1
     if not return_lse:
         return out
     return out, (lse[:, 0] if q.dim() == 3 else lse)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.traced = 0
+flash_attention_fwd.traced_flops = 0
 
 
 # ---------------------------------------------------------------- backward
@@ -250,7 +296,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Launches the kernel on CUDA tensors (both of its launches count as
     one), runs the plain version on CPU tensors."""
     name = "flash_attention_bwd"
-    card = _build.on_card(name, q, k, v, out, lse, dout)
+    meta = _build.on_meta(name, q, k, v, out, lse, dout)
+    card = not meta and _build.on_card(name, q, k, v, out, lse, dout)
     _build.require(name, q.dtype in DTYPES and all(
         t.dtype == q.dtype for t in (k, v, out, dout)),
                    f"q/k/v/out/dout must share one dtype of {DTYPES}")
@@ -267,13 +314,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"k/v {tuple(k.shape)} or lse {tuple(lse.shape)} do not "
                    f"fit q {tuple(q.shape)}")
     w, qo, kl = _mask_args(name, S, Skv, window, q_offset, kv_len)
-    if not card:
+    if not (card or meta):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
                                          q_offset=q_offset, kv_len=kv_len)
-    _card_checks(name, hd, (q, k, v, out, lse, dout))
+    _card_checks(name, hd, (q, k, v, out, lse, dout), meta=meta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if meta:
+        flash_attention_bwd.traced += 1
+        flash_attention_bwd.traced_flops += flash_flops(
+            B, H, hd, allowed_pairs(S, Skv, causal=causal, window=window,
+                                    q_offset=qo, kv_len=kv_len),
+            backward=True)
+        return dq, dk, dv
     _build.launch(name, q.device,
                   *(_build.ptr(t) for t in (q, k, v, out, lse, dout, dq, dk,
                                             dv, delta)),
@@ -284,3 +338,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.traced = 0
+flash_attention_bwd.traced_flops = 0

@@ -50,7 +50,8 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
                          f"{mrope_sections}")
     stream_of_slot = torch.repeat_interleave(
         torch.arange(len(mrope_sections), device=positions.device),
-        torch.tensor(mrope_sections, device=positions.device))   # (half,)
+        torch.tensor(mrope_sections, device=positions.device),
+        output_size=half)                                    # (half,)
     pos = positions[stream_of_slot]                          # (half, B, S)
     return pos.movedim(0, -1).float() * inv_freq
 

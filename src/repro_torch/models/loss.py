@@ -22,9 +22,10 @@ import torch
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D) with an fp32 result: bf16 operands on the card go to
-    the tensor cores with fp32 accumulation and output; elsewhere the fp32
-    product of the (exactly widened) operands."""
-    if a.is_cuda and a.dtype != torch.float32:
+    the tensor cores with fp32 accumulation and output (and so do meta
+    operands, so that a dry run traces the card's allocations and flops);
+    elsewhere the fp32 product of the (exactly widened) operands."""
+    if a.device.type in ("cuda", "meta") and a.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 

@@ -38,6 +38,12 @@ The serving layer on the card: a four-thread storm through
 backend's, the fallback ladder never engaged, every wave on the kernels),
 a ``measure_calibration`` that must rank ``cuda`` first, and ``explain``
 on a card session.
+
+The dry run (``repro_torch.launch.dryrun``): the flash wrappers' meta
+route leaves the card route's launches and outputs as they were, and one
+small cell's predicted peak (arguments plus the traced temp) holds
+``max_memory_allocated`` within 20%, with the traced launches and
+non-attention flops.
 """
 import contextlib
 import itertools
@@ -1138,3 +1144,71 @@ def test_whisper_greedy_generate_on_the_card(dev, monkeypatch):
                           frames=frames.to(dev))
     want = greedy_generate(cpu, cfg, tokens, steps=4, frames=frames)
     assert torch.equal(got.cpu(), want)
+
+
+def test_flash_meta_route_leaves_the_card_route_alone(dev):
+    """Meta calls between two card calls: the card's launch counters count
+    the card calls only, the traced counters the meta ones, and the card
+    outputs are bit-identical."""
+    torch.manual_seed(0)
+    q = torch.randn(2, 256, 4, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(2, 256, 2, 64, device=dev, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    dout = torch.randn_like(q)
+    fwd, bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd
+
+    def card():
+        out, lse = fwd(q, k, v, causal=True, window=100, return_lse=True)
+        return (out, lse, *bwd(q, k, v, out, lse, dout, causal=True,
+                               window=100))
+    f0, b0, tf0, tb0 = fwd.launches, bwd.launches, fwd.traced, bwd.traced
+    first = card()
+    m = [t.to("meta") for t in (q, k, v, dout)]
+    out, lse = fwd(*m[:3], causal=True, window=100, return_lse=True)
+    bwd(*m[:3], out, lse, m[3], causal=True, window=100)
+    second = card()
+    torch.cuda.synchronize()
+    assert (fwd.launches - f0, bwd.launches - b0) == (2, 2)
+    assert (fwd.traced - tf0, bwd.traced - tb0) == (1, 1)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_dry_run_predicts_a_small_cells_peak_on_the_card(dev):
+    """Whisper-small, one fp32 train step of 2 x (1500 frames, 448
+    tokens) under ``dryrun.FlopCount``: the arguments' bytes exact, the
+    peak over what was resident within ``dryrun.PEAK_BOUND`` (20%) of the
+    prediction, the flash launches the traced calls and the non-attention
+    flops the trace's."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec, batch_specs
+    from repro_torch.optim.adamw import OptimConfig, abstract_opt_state
+    from torch_checks import STEP_FILLS, materialize
+    cfg = get_config("whisper_small")
+    pred = dryrun.config_peak(cfg, "train", 2, 448)
+    params = dryrun.meta_params(cfg)
+    args = (params, abstract_opt_state(params, OptimConfig()),
+            batch_specs(cfg, ShapeSpec("t", 448, 2, "train")))
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    real = [materialize(a, dev, gen, cfg.vocab_size, f)
+            for a, f in zip(args, STEP_FILLS["train"])]
+    torch.cuda.synchronize()
+    assert dryrun.tree_bytes(real) == pred["argument_bytes"]
+    torch.cuda.reset_peak_memory_stats()
+    f0, b0 = tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd.launches
+    with dryrun.FlopCount() as fc:
+        _, _, m = dryrun.train_fn(cfg, 1)(*real)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    want = pred["argument_bytes"] + pred["temp"]
+    assert abs(peak - want) <= dryrun.PEAK_BOUND * want, (peak, want)
+    assert {"flash_attention_fwd": tfa.flash_attention_fwd.launches - f0,
+            "flash_attention_bwd": tfa.flash_attention_bwd.launches - b0} \
+        == pred["flash_calls"]
+    assert fc.flops == pred["matmul_flops"]
+    assert bool(torch.isfinite(m["loss"]))

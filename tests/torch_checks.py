@@ -363,3 +363,29 @@ def record_cuts(nw: int) -> tuple:
     """Record counts that cut a row of ``nw`` words: none, one record, 5
     short of full, full, and mid-word."""
     return (0, 1, 32 * nw - 5, 32 * nw, 16 * nw + 7)
+
+
+#: how ``materialize`` fills a dry-run step's arguments, by kind: the
+#: parameters and a batch's floats normal, AdamW's moments and the decode
+#: cache zero
+STEP_FILLS = {"train": ("normal", "zeros", "normal"),
+              "prefill": ("normal", "normal"),
+              "decode": ("normal", {"tokens": "normal", "cache": "zeros"})}
+
+
+def materialize(tree, dev, gen, vocab: int, fill):
+    """Real tensors on ``dev`` in the shapes and dtypes of ``tree``'s meta
+    leaves (a dry run's arguments): token ids uniform below ``vocab``,
+    floats standard normal x 0.02 from ``gen`` where ``fill`` is "normal",
+    zero where it is "zeros" (``fill`` a dict: per key of ``tree``)."""
+    if isinstance(tree, dict):
+        return {k: materialize(v, dev, gen, vocab,
+                               fill[k] if isinstance(fill, dict) else fill)
+                for k, v in tree.items()}
+    if not tree.is_floating_point():
+        return torch.randint(0, vocab, tuple(tree.shape), generator=gen,
+                             device=dev, dtype=tree.dtype)
+    if fill == "zeros":
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
+    return torch.randn(tuple(tree.shape), generator=gen, device=dev,
+                       dtype=torch.float32).mul_(0.02).to(tree.dtype)
