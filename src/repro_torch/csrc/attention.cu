@@ -33,34 +33,45 @@
 // Bound on Hopper: operations.  At the serving path's prefill shape (B = 4,
 // S = 2048, H = 28, KV = 4, hd = 128, causal, bf16) the function needs
 // 2*S*(S+1)*hd*B*H ~ 1.2e11 flops against ~134 MB of q, k, v, o: 0.12 ms
-// on the tensor cores (989 TFLOP/s bf16) against 0.04 ms of bytes.
+// on the tensor cores (989 TFLOP/s bf16) against 0.04 ms of bytes.  At
+// Gemma3-4B's local layer (B = 4, S = 4096, H = 8, KV = 4, hd = 256,
+// window 1024) it needs 4*hd*B*H flops per allowed pair (3,670,528 pairs
+// per (b, h)): 0.12 ms, against 0.06 ms of bytes.
 //
 // Two kernels, chosen inside flash_attention_fwd_launch by type and shape:
 //
-// * flash_fwd_wgmma (bf16, head_dim 64 or 128: every full config the port
-//   serves).  The products run on the tensor
-//   cores.  One CTA of 288 threads per (b*h, 128-query tile), the longest
-//   causal tiles first across all heads: two consumer warpgroups own 64
-//   query rows each, one producer warp issues TMA copies
-//   (cp.async.bulk.tensor with mbarrier completion, 128-byte swizzle) of the
-//   Q tile once and of 128-key K and V tiles into a two-stage ring, so the
+// * flash_fwd_wgmma (bf16, head_dim 64, 128 or 256: every full config the port
+//   serves).  The products run on the tensor cores.  One CTA per (b*h,
+//   128-query tile), the longest causal tiles first across all heads: two
+//   consumer warpgroups own 64 query rows each, a producer issues TMA copies
+//   (cp.async.bulk.tensor with mbarrier completion, 128-byte swizzle) of the Q
+//   tile once and of K and V tiles (BK keys) into a two-stage ring, so the
 //   next tile's copy overlaps this tile's products; keys past S are
-//   zero-filled by the copy and masked.  S = Q K^T is wgmma m64n128k16 with
-//   both operands in shared memory (K-major); the 1/sqrt(hd) scale (times
-//   log2 e, for exp2) multiplies the fp32 scores, never bf16 q.  Online
-//   softmax runs on the accumulator registers (row max and sum by shuffles
-//   within the 4 threads that share a row); NEG_INF masks only the diagonal
-//   and ragged tiles, and causal loops stop at the diagonal.  O += P V takes
-//   P from registers as wgmma's A operand, against V read from shared
-//   memory MN-major (transposed).  The reference multiplies fp32 P by V, and
-//   P rounded to bf16 alone would err by up to 2^-9 * sum p|v| / l, about
-//   as much as the output's own bf16 rounding; so P goes in as a pair of
-//   bf16 fragments, hi = bf16(p) and lo = bf16(p - hi), two wgmmas into
-//   the same fp32 accumulators, which carry p to 2^-17 relative (half again
-//   the tensor-core work of S and P V in bf16 alone).  O is rescaled by
-//   exp2(m_old - m_new) in registers.  The output is O / max(l, 1e-37),
-//   rounded once to bf16.
-// * flash_fwd_kernel (fp32 inputs, and bf16 at head_dim 8/16/32/256).  The
+//   zero-filled by the copy and masked.  S = Q K^T is wgmma m64nBKk16 with
+//   both operands in shared memory (K-major); the 1/sqrt(hd) scale (times log2
+//   e, for exp2) multiplies the fp32 scores, never bf16 q.  Online softmax
+//   runs on the accumulator registers (row max and sum by shuffles within the
+//   4 threads that share a row); NEG_INF masks only the diagonal and ragged
+//   tiles, and causal loops stop at the diagonal.  O += P V takes P from
+//   registers as wgmma's A operand, against V read from shared memory MN-major
+//   (transposed).  The reference multiplies fp32 P by V, and P rounded to bf16
+//   alone would err by up to 2^-9 * sum p|v| / l, about as much as the
+//   output's own bf16 rounding; so P goes in as a pair of bf16 fragments, hi =
+//   bf16(p) and lo = bf16(p - hi), two wgmmas into the same fp32 accumulators,
+//   which carry p to 2^-17 relative (half again the tensor-core work of S and
+//   P V in bf16 alone).  O is rescaled by exp2(m_old - m_new) in registers.
+//   The output is O / max(l, 1e-37), rounded once to bf16.  Head_dim 64 and
+//   128: 288 threads (one producer warp), BK = 128 keys; Q 32 KB + 2 x 64 KB
+//   of K and V at 128.  Head_dim 256 needs its own tiles: at BK = 128 the ring
+//   alone is 256 KB of the 227 KB a block may take, and O (128 fp32 registers
+//   a thread), S and P's fragments pass the 168 registers ptxas gives 288
+//   threads (at 128, O's 64 already spill a few bytes there).  So BK = 64 (S
+//   is m64n64k16, 32 registers; Q 64 KB + 2 x 64 KB = 192 KB), P V runs as two
+//   m64n128k16 wgmmas per 16-key step over V's two 128-column halves
+//   (wgmma_pv<256>), and the CTA has 384 threads: a producer warpgroup that
+//   keeps 24 registers (setmaxnreg) and hands the rest to the consumers, 240
+//   each (ptxas: 168 at launch, no spill).
+// * flash_fwd_kernel (fp32 inputs, and bf16 at head_dim 8/16/32).  The
 //   products run as fp32 FMAs on the CUDA cores (67 TFLOP/s
 //   peak), which keeps fp32 inputs within the reference test's atol of 2e-5
 //   (TF32 or bf16 tiles would not).  One block of 256 threads per (b*h,
@@ -102,13 +113,13 @@
 // forward's does; a failure of either is returned, never retried on the
 // other.
 //
-// * flash_bwd_dq_wgmma + flash_bwd_dkdv_wgmma (bf16, head_dim 64 or 128).
-//   The products run on the tensor cores.  CTAs of 384 threads: two
+// * flash_bwd_dq_wgmma + flash_bwd_dkdv_wgmma (bf16, head_dim 64, 128 or
+//   256).  The products run on the tensor cores.  CTAs of 384 threads: two
 //   consumer warpgroups and a producer warpgroup, one warp of which issues
-//   TMA copies (128-byte swizzle, mbarrier completion) into a ring of
-//   BW_STAGES = 3 tiles; setmaxnreg hands the producer's registers to the
-//   consumers (240 a thread; ptxas sizes three warpgroups at 168, where the
-//   dK/dV kernel spilled and serialized its wgmmas).  Keys and queries
+//   TMA copies (128-byte swizzle, mbarrier completion) into a ring of 3
+//   tiles (2 at head_dim 256); setmaxnreg hands the producer's registers to
+//   the consumers (240 a thread; ptxas sizes three warpgroups at 168, where
+//   the dK/dV kernel spilled and serialized its wgmmas).  Keys and queries
 //   past S are zero-filled by the copies and get p = 0; only diagonal and
 //   ragged tiles are masked, and a warpgroup skips a tile wholly above its
 //   diagonal.
@@ -135,6 +146,22 @@
 //   key tile 15; the grid runs key tile 0 first (longest first) rather
 //   than taking 64-key CTAs, which would stream each Q and dO tile once
 //   per warpgroup instead of once per two.
+//   Head_dim 256 (BwLayout's WIDE tiles): the dq CTA streams 32-key K/V
+//   tiles (S and dP are m64n32k16, 16 registers each, beside dQ's 128;
+//   Q + dO 128 KB + 2 x 32 KB), and dQ += dS K runs as two m64n128k16
+//   wgmmas per 16 keys.  A dK/dV CTA of 128 keys would need 256 fp32
+//   accumulator registers a thread (dK and dV of 64 keys x 256 in one
+//   warpgroup), so it takes 64 keys and the two consumer warpgroups split
+//   the outputs, not the keys: K and V stay resident (64 KB), Q and dO
+//   stream in 64-query tiles through a 2-stage ring (128 KB); warpgroup 0
+//   computes S^T = K Q^T, P^T, hands P^T in fp32 to warpgroup 1 through a
+//   16 KB exchange tile (named barriers XFULL / XEMPTY, one tile in
+//   flight) and holds dV += P^T dO; warpgroup 1 computes dP^T = V dO^T,
+//   takes P^T, forms dS^T and holds dK += dS^T Q.  Four products a tile,
+//   none recomputed, 128 accumulator registers a thread.  The other
+//   design that fits, two CTAs per key tile each owning one 128-column
+//   half of dK and dV, recomputes S^T and dP^T over all 256 columns: six
+//   products where four are needed.
 //   Precision: no operand is split: P and dS enter their products as
 //   bf16 alone, where the reference multiplies them in fp32.  As bf16
 //   alone every FLASH_BWD_CASES case stays within bwd_tol: the worst
@@ -144,9 +171,12 @@
 //   since removed), it read 0.449 and 0.384, but the dQ, dV and dK
 //   products doubled and the pair took 1.27 ms instead of 1.06 at the
 //   training shape; a tolerance that ever needs the split can bring it
-//   back in to_frags and mma_rs_k64.
+//   back in to_frags and mma_rs.  At head_dim 256, where dP's contraction
+//   is twice as long, bf16 alone reads a worst err/tol of 0.682 (dq, the
+//   FLASH_BWD_CASES) and 0.674 (dk, the windowed and offset cases) in the
+//   same check.
 // * flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (fp32 inputs, and bf16 at
-//   head_dim 8/16/32/256): fp32 FMAs on the CUDA cores (67 TFLOP/s peak, so
+//   head_dim 8/16/32): fp32 FMAs on the CUDA cores (67 TFLOP/s peak, so
 //   ~4.5 ms at best at the shape above), which keeps fp32 within the
 //   reference's gradient atol of 2e-4.  flash_bwd_dq_kernel: one 256-thread
 //   block per (b, h, 64-query tile), longest causal tiles first; it stages
@@ -477,11 +507,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 // ---- flash_fwd_wgmma: the bf16 tensor-core kernel ----------------------
 
 constexpr int TC_BQ = 128;             // queries per CTA: 2 warpgroups x 64
-constexpr int TC_BK = 128;             // keys per K/V tile
 constexpr int TC_STAGES = 2;           // K/V ring depth
 constexpr int TC_CONSUMERS = 256;      // two consumer warpgroups
-constexpr int TC_THREADS = TC_CONSUMERS + 32;   // + one producer warp
 constexpr int BOX = 64;                // bf16 columns per 128-byte TMA box
+// A producer warpgroup of which one warp works, beside two consumer
+// warpgroups: ptxas sizes registers for 3 warpgroups (168 a thread), and
+// setmaxnreg hands the producer's to the consumers.
+constexpr int PRODUCER_REGS = 24;      // setmaxnreg: the producer warpgroup
+constexpr int CONSUMER_REGS = 240;     // and each consumer thread
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -648,6 +681,76 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (64 x 16, smem), both
+// K-major, 128-byte swizzled; accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 32, fp32) (+)= A (64 x 16, smem) * B (32 x 16, smem), both
+// K-major, 128-byte swizzled; accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x N) (+)= A B^T from shared memory, N picked by the size of d: N/2
+// fp32 accumulators a thread (64 for n128, 32 for n64, 16 for n32).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_ss_n128(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_ss_n64(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_ss_n32(d, da, db, accumulate);
+}
+
+// D (64 x N) = A B^T over HD columns, N = 2 x the size of d: A's 64 rows at
+// a, B's N rows at b, each HD/64 boxes of 128-byte rows (box strides abox,
+// bbox), both K-major.
+template <int HD, int ND>
+__device__ __forceinline__ void mma_ss_hd(float (&d)[ND], uint32_t a,
+                                          uint32_t abox, uint32_t b,
+                                          uint32_t bbox) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss(d, sw128_desc(a + (kk >> 2) * abox + off, 16, 1024),
+             sw128_desc(b + (kk >> 2) * bbox + off, 16, 1024), kk > 0);
+  }
+}
+
+// D (64 x HD, fp32) += A (64 x 16, registers) * B (16 x HD, smem, MN-major:
+// HD/64 boxes of 128-byte rows, the box stride in the descriptor's leading
+// byte offset).
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
                                          const uint32_t (&a)[4], uint64_t db);
@@ -663,21 +766,61 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
                                              uint64_t db) {
   wgmma_rs_n64(d, a, db);
 }
+// head_dim 256: two n128 products over B's column halves (boxes 0-1 and
+// 2-3).  The second half starts two boxes on: the descriptor's start field
+// (16-byte units, bits 0-13) plus twice its leading byte offset (the box
+// stride, bits 16-29).  d[0..63] are columns 0..127, d[64..127] the rest,
+// the layout of one m64n256 accumulator.
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                db + 2 * ((db >> 16) & 0x3FFF));
+}
 
-// Shared memory: the Q tile (HD/64 column boxes of TC_BQ rows x 128 bytes),
-// then TC_STAGES x (K tile, V tile) of HD/64 boxes of TC_BK rows each, then
-// the mbarriers: Q full, K full and V full per stage, stage empty.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// Named barrier ``id`` of ``n`` threads: wait for it, or arrive and go on.
+// It completes once n threads have arrived or waited, and orders their
+// shared-memory accesses before it against those after.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Tiles and shared memory of flash_fwd_wgmma: the Q tile (HD/64 column
+// boxes of TC_BQ rows x 128 bytes), then TC_STAGES x (K tile, V tile) of
+// HD/64 boxes of BK rows each, then the mbarriers: Q full, K full and V
+// full per stage, stage empty.  Head_dim 256 takes 64-key tiles (two stages
+// of 128 keys would need 320 KB) and a producer warpgroup that hands its
+// registers to the consumers (O, S and P's hi and lo fragments come to
+// ~200 registers a thread, past the 168 that ptxas gives 288 threads); 64
+// and 128 take 128-key tiles and a lone producer warp.
 template <int HD>
 struct TcLayout {
+  static constexpr int BK = HD == 256 ? 64 : 128;   // keys per K/V tile
+  static constexpr bool WIDE = HD == 256;           // producer warpgroup
+  static constexpr int THREADS = TC_CONSUMERS + (WIDE ? 128 : 32);
   static constexpr int NB = HD / BOX;
-  static constexpr uint32_t QBOX = TC_BQ * 128, KBOX = TC_BK * 128;
+  static constexpr uint32_t QBOX = TC_BQ * 128, KBOX = BK * 128;
   static constexpr uint32_t QBYTES = NB * QBOX, KVBYTES = NB * KBOX;
   static constexpr uint32_t BARS = QBYTES + TC_STAGES * 2 * KVBYTES;
   static constexpr size_t SMEM = 1024 + BARS + 8 * (1 + 3 * TC_STAGES);
 };
 
 template <int HD>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(TcLayout<HD>::THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -685,8 +828,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 int H, int KV, int BH, int nq, int causal, int window,
                 int qoff, int kvlen, float scale_log2) {
   using L = TcLayout<HD>;
+  constexpr int BK = L::BK;
   constexpr int NO = HD / 2;           // O accumulators per thread
-  constexpr int NS = TC_BK / 2;        // score accumulators per thread
+  constexpr int NS = BK / 2;           // score accumulators per thread
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -702,8 +846,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int q0 = (nq - 1 - (int)(blockIdx.x / BH)) * TC_BQ;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   int kbeg, kend;
-  key_range(q0, TC_BQ, Sq, causal, window, qoff, kvlen, TC_BK, kbeg, kend);
-  const int nk = kend > kbeg ? (kend - kbeg + TC_BK - 1) / TC_BK : 0;
+  key_range(q0, TC_BQ, Sq, causal, window, qoff, kvlen, BK, kbeg, kend);
+  const int nk = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
   if (tid == 0) {
     mbar_init(qfull, 1);
@@ -716,7 +860,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (tid >= TC_CONSUMERS) {           // the producer warp: one thread
+  if (tid >= TC_CONSUMERS) {           // the producer: one thread works
+    if constexpr (L::WIDE) setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == TC_CONSUMERS) {
       mbar_expect_tx(qfull, L::QBYTES);
       for (int c = 0; c < L::NB; ++c)
@@ -725,7 +870,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const int s = it % TC_STAGES;
         if (it >= TC_STAGES) mbar_wait(empty(s), ((it / TC_STAGES) - 1) & 1);
         const uint32_t kb = kbuf(s), vb = kb + L::KVBYTES;
-        const int k0 = kbeg + it * TC_BK;
+        const int k0 = kbeg + it * BK;
         mbar_expect_tx(kfull(s), L::KVBYTES);
         for (int c = 0; c < L::NB; ++c)
           tma_load(kb + c * L::KBOX, &tk, kfull(s), c * BOX, kvh, k0, b);
@@ -734,163 +879,158 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           tma_load(vb + c * L::KBOX, &tv, vfull(s), c * BOX, kvh, k0, b);
       }
     }
-    return;
-  }
+  } else {
+    if constexpr (L::WIDE) setmaxnreg_inc<CONSUMER_REGS>();
+    // consumers: warpgroup wg owns query rows q0 + 64*wg .. + 63; this thread
+    // holds rows qrow and qrow + 8, columns 8n + ccol and + 1 of each 8-block
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int qrow = q0 + 64 * wg + 16 * warp + (lane >> 2);
+    const int ccol = 2 * (lane & 3);
+    const uint32_t qa = sq + wg * 64 * 128;
+    // absolute positions of the warpgroup's first and last rows (cut at Sq)
+    const int qa0 = q0 + 64 * wg + qoff;
+    const int qa1 = min(q0 + 64 * wg + 64, Sq) - 1 + qoff;
+    float acc[NO], s[NS];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+    mbar_wait(qfull, 0);
 
-  // consumers: warpgroup wg owns query rows q0 + 64*wg .. + 63; this thread
-  // holds rows qrow and qrow + 8, columns 8n + ccol and + 1 of each 8-block
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int qrow = q0 + 64 * wg + 16 * warp + (lane >> 2);
-  const int ccol = 2 * (lane & 3);
-  const uint32_t qa = sq + wg * 64 * 128;
-  // absolute positions of the warpgroup's first and last rows (cut at Sq)
-  const int qa0 = q0 + 64 * wg + qoff;
-  const int qa1 = min(q0 + 64 * wg + 64, Sq) - 1 + qoff;
-  float acc[NO], s[NS];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) s[i] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  mbar_wait(qfull, 0);
+    for (int it = 0; it < nk; ++it) {
+      const int st = it % TC_STAGES;
+      const uint32_t ph = (it / TC_STAGES) & 1;
+      const uint32_t kb = kbuf(st), vb = kb + L::KVBYTES;
+      const int k0 = kbeg + it * BK;
 
-  for (int it = 0; it < nk; ++it) {
-    const int st = it % TC_STAGES;
-    const uint32_t ph = (it / TC_STAGES) & 1;
-    const uint32_t kb = kbuf(st), vb = kb + L::KVBYTES;
-    const int k0 = kbeg + it * TC_BK;
-
-    // S = Q K^T: HD/16 steps of 16 columns (32 bytes) within the boxes
-    mbar_wait(kfull(st), ph);
-    if (k0 >= kvlen
-        || (causal && (k0 > qa1 || k0 + TC_BK - 1 <= qa0 - window))) {
-      // no key of the tile is allowed for any row of this warpgroup: the
-      // tile would add exp(NEG_INF - m) = 0 to every row (a sliding
-      // window's edge; never under the plain causal mask)
-      mbar_wait(vfull(st), ph);
-      mbar_arrive(empty(st));
-      continue;
-    }
-    fence_regs(s);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk & 3) * 32;
-      wgmma_ss_n128(s, sw128_desc(qa + (kk >> 2) * L::QBOX + off, 16, 1024),
-                    sw128_desc(kb + (kk >> 2) * L::KBOX + off, 16, 1024),
-                    kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    // scale to the log2 domain; mask only the tiles on the diagonal, on
-    // the window's edge and past kv_len
-    const bool edge = k0 + TC_BK > kvlen
-                      || (causal && (k0 + TC_BK - 1 > qa0
-                                     || k0 <= qa1 - window));
-#pragma unroll
-    for (int n = 0; n < NS / 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[4 * n + e] * scale_log2;
-        if (edge) {
-          const int col = k0 + 8 * n + ccol + (e & 1);
-          const int row = qrow + 8 * (e >> 1);
-          if (!allowed(col, row + qoff, causal, window, kvlen)) x = NEG_INF;
-        }
-        s[4 * n + e] = x;
+      // S = Q K^T: HD/16 steps of 16 columns (32 bytes) within the boxes
+      mbar_wait(kfull(st), ph);
+      if (k0 >= kvlen
+          || (causal && (k0 > qa1 || k0 + BK - 1 <= qa0 - window))) {
+        // no key of the tile is allowed for any row of this warpgroup: the
+        // tile would add exp(NEG_INF - m) = 0 to every row (a sliding
+        // window's edge; never under the plain causal mask)
+        mbar_wait(vfull(st), ph);
+        mbar_arrive(empty(st));
+        continue;
       }
-    float mx0 = m0, mx1 = m1;
+      fence_regs(s);
+      wgmma_fence();
+      mma_ss_hd<HD>(s, qa, L::QBOX, kb, L::KBOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // scale to the log2 domain; mask only the tiles on the diagonal, on
+      // the window's edge and past kv_len
+      const bool edge = k0 + BK > kvlen
+                        || (causal && (k0 + BK - 1 > qa0
+                                       || k0 <= qa1 - window));
 #pragma unroll
-    for (int n = 0; n < NS / 4; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * n + e] * scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * n + ccol + (e & 1);
+            const int row = qrow + 8 * (e >> 1);
+            if (!allowed(col, row + qoff, causal, window, kvlen)) x = NEG_INF;
+          }
+          s[4 * n + e] = x;
+        }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < NS / 4; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, off));
+      }
+      const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      const float e0 = row_ref(m0), e1 = row_ref(m1);
+      // P in bf16 pairs hi (p) and lo (pl): [2n + i] holds row qrow + 8i,
+      // columns 8n + ccol, +1
+      uint32_t p[NS / 2], pl[NS / 2];
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS / 4; ++n) {
+        const float a0 = exp2f(s[4 * n] - e0), a1 = exp2f(s[4 * n + 1] - e0);
+        const float b0 = exp2f(s[4 * n + 2] - e1);
+        const float b1 = exp2f(s[4 * n + 3] - e1);
+        sum0 += a0 + a1;
+        sum1 += b0 + b1;
+        split_bf16(a0, a1, p[2 * n], pl[2 * n]);
+        split_bf16(b0, b1, p[2 * n + 1], pl[2 * n + 1]);
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n) {
+        acc[4 * n] *= c0;
+        acc[4 * n + 1] *= c0;
+        acc[4 * n + 2] *= c1;
+        acc[4 * n + 3] *= c1;
+      }
+
+      // O += (P hi + P lo) V: BK/16 steps of 16 keys (2048 bytes of V
+      // rows); the A fragments of step kk are p[4kk .. 4kk+3] and pl[...]
+      // (score blocks 2kk, 2kk+1)
+      mbar_wait(vfull(st), ph);
+      fence_regs(acc);
+      fence_regs(p);
+      fence_regs(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = sw128_desc(vb + kk * 16 * 128, L::KBOX, 1024);
+        const uint32_t hi[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                                p[4 * kk + 3]};
+        const uint32_t lo[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                                pl[4 * kk + 3]};
+        wgmma_pv<HD>(acc, lo, dv);
+        wgmma_pv<HD>(acc, hi, dv);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty(st));
     }
+
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, off));
+      l0 += __shfl_xor_sync(FULL, l0, off);
+      l1 += __shfl_xor_sync(FULL, l1, off);
     }
-    const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    const float e0 = row_ref(m0), e1 = row_ref(m1);
-    // P in bf16 pairs hi (p) and lo (pl): [2n + i] holds row qrow + 8i,
-    // columns 8n + ccol, +1
-    uint32_t p[NS / 2], pl[NS / 2];
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS / 4; ++n) {
-      const float a0 = exp2f(s[4 * n] - e0), a1 = exp2f(s[4 * n + 1] - e0);
-      const float b0 = exp2f(s[4 * n + 2] - e1), b1 = exp2f(s[4 * n + 3] - e1);
-      sum0 += a0 + a1;
-      sum1 += b0 + b1;
-      split_bf16(a0, a1, p[2 * n], pl[2 * n]);
-      split_bf16(b0, b1, p[2 * n + 1], pl[2 * n + 1]);
+    const float r0 = 1.f / fmaxf(l0, 1e-37f), r1 = 1.f / fmaxf(l1, 1e-37f);
+    // natural-log lse of the scaled scores: m is in the log2 domain; NEG_INF
+    // for a row with no allowed key (l = 0: its output is 0)
+    if (lse != nullptr && (lane & 3) == 0) {
+      constexpr float LN2 = 0.69314718055994531f;
+      float* lb = lse + (long long)bh * Sq;
+      if (qrow < Sq)
+        lb[qrow] = l0 > 0.f ? m0 * LN2 + logf(fmaxf(l0, 1e-37f)) : NEG_INF;
+      if (qrow + 8 < Sq)
+        lb[qrow + 8] = l1 > 0.f ? m1 * LN2 + logf(fmaxf(l1, 1e-37f)) : NEG_INF;
     }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
+    const long long ostride = (long long)H * HD;
+    __nv_bfloat16* ob = o + ((long long)b * Sq * H + h) * HD + ccol;
 #pragma unroll
-    for (int n = 0; n < NO / 4; ++n) {
-      acc[4 * n] *= c0;
-      acc[4 * n + 1] *= c0;
-      acc[4 * n + 2] *= c1;
-      acc[4 * n + 3] *= c1;
+    for (int i = 0; i < 2; ++i) {
+      const int row = qrow + 8 * i;
+      if (row >= Sq) continue;
+      const float r = i ? r1 : r0;
+      __nv_bfloat16* dst = ob + row * ostride;
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
+            acc[4 * n + 2 * i] * r, acc[4 * n + 2 * i + 1] * r);
     }
-
-    // O += (P hi + P lo) V: TC_BK/16 steps of 16 keys (2048 bytes of V
-    // rows); the A fragments of step kk are p[4kk .. 4kk+3] and pl[...]
-    // (score blocks 2kk, 2kk+1)
-    mbar_wait(vfull(st), ph);
-    fence_regs(acc);
-    fence_regs(p);
-    fence_regs(pl);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      const uint64_t dv = sw128_desc(vb + kk * 16 * 128, L::KBOX, 1024);
-      const uint32_t hi[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                              p[4 * kk + 3]};
-      const uint32_t lo[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
-                              pl[4 * kk + 3]};
-      wgmma_pv<HD>(acc, lo, dv);
-      wgmma_pv<HD>(acc, hi, dv);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    mbar_arrive(empty(st));
-  }
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(FULL, l0, off);
-    l1 += __shfl_xor_sync(FULL, l1, off);
-  }
-  const float r0 = 1.f / fmaxf(l0, 1e-37f), r1 = 1.f / fmaxf(l1, 1e-37f);
-  // natural-log lse of the scaled scores: m is in the log2 domain; NEG_INF
-  // for a row with no allowed key (l = 0: its output is 0)
-  if (lse != nullptr && (lane & 3) == 0) {
-    constexpr float LN2 = 0.69314718055994531f;
-    float* lb = lse + (long long)bh * Sq;
-    if (qrow < Sq)
-      lb[qrow] = l0 > 0.f ? m0 * LN2 + logf(fmaxf(l0, 1e-37f)) : NEG_INF;
-    if (qrow + 8 < Sq)
-      lb[qrow + 8] = l1 > 0.f ? m1 * LN2 + logf(fmaxf(l1, 1e-37f)) : NEG_INF;
-  }
-  const long long ostride = (long long)H * HD;
-  __nv_bfloat16* ob = o + ((long long)b * Sq * H + h) * HD + ccol;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = qrow + 8 * i;
-    if (row >= Sq) continue;
-    const float r = i ? r1 : r0;
-    __nv_bfloat16* dst = ob + row * ostride;
-#pragma unroll
-    for (int n = 0; n < NO / 4; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-          acc[4 * n + 2 * i] * r, acc[4 * n + 2 * i + 1] * r);
   }
 }
 
@@ -959,14 +1099,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, S, H, HD, TC_BQ)
-      || !tensor_map(&tk, k, B, mk.skv, KV, HD, TC_BK)
-      || !tensor_map(&tv, v, B, mk.skv, KV, HD, TC_BK))
+      || !tensor_map(&tk, k, B, mk.skv, KV, HD, TcLayout<HD>::BK)
+      || !tensor_map(&tv, v, B, mk.skv, KV, HD, TcLayout<HD>::BK))
     return (int)cudaErrorInvalidValue;
   const long long nq = (S + TC_BQ - 1) / TC_BQ;
   const long long blocks = B * H * nq;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)HD));
-  kernel<<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
+  kernel<<<(unsigned)blocks, TcLayout<HD>::THREADS, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, lse, (int)S, (int)H, (int)KV,
       (int)(B * H), (int)nq, mk.causal, mk.window, mk.qoff, mk.kvlen,
       scale_log2);
@@ -1336,70 +1476,25 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
 // flash_bwd_dkdv_wgmma (bf16, head_dim 64 and 128) ------------------------
 
 constexpr int BW_Q = 128;              // dq: queries per CTA, 2 x 64
-constexpr int BW_K = 64;               // dq: keys per K/V tile
-constexpr int BW_KEYS = 128;           // dkdv: keys per CTA, 2 x 64
 constexpr int BW_QT = 64;              // dkdv: queries per Q/dO tile
-constexpr int BW_STAGES = 3;           // ring depth of both kernels
 constexpr float LOG2E = 1.4426950408889634f;
-// Both kernels run two consumer warpgroups and a producer warpgroup of
-// which one warp works: ptxas sizes registers for 3 warpgroups (168 a
-// thread), and setmaxnreg hands the producer's to the consumers, which
-// would spill at 168 (the accumulators alone take 128 at head_dim 128).
+// Both kernels run two consumer warpgroups and a producer warpgroup
+// (PRODUCER_REGS, CONSUMER_REGS): the consumers would spill at 168 (the
+// accumulators alone take 128 at head_dim 128 and 256).
 constexpr int BW_THREADS = TC_CONSUMERS + 128;
-constexpr int BW_PRODUCER_REGS = 24;   // setmaxnreg: the producer warpgroup
-constexpr int BW_CONSUMER_REGS = 240;  // and each consumer thread
+// Named barriers of the head_dim-256 dK/dV kernel's P^T exchange (0 is
+// __syncthreads'): full once warpgroup 0 has written it, empty once
+// warpgroup 1 has read it.
+constexpr int XFULL = 1, XEMPTY = 2;
 
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (64 x 16, smem), both
-// K-major, 128-byte swizzled; accumulate = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64) = A B^T over HD columns: A's 64 rows at a, B's 64 rows at b,
-// each HD/64 boxes of 128-byte rows (box strides abox, bbox), K-major.
-template <int HD>
-__device__ __forceinline__ void mma_ss_hd(float (&d)[32], uint32_t a,
-                                          uint32_t abox, uint32_t b,
-                                          uint32_t bbox) {
+// A 64 x N accumulator tile (this thread: rows r and r + 8; N/2 floats) as
+// the bf16 A fragments of a product whose k runs over its N columns:
+// [2n + i] holds row r + 8i, columns 8n + ccol and + 1.
+template <int NX>
+__device__ __forceinline__ void to_frags(const float (&x)[NX],
+                                         uint32_t (&f)[NX / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off = (kk & 3) * 32;
-    wgmma_ss_n64(d, sw128_desc(a + (kk >> 2) * abox + off, 16, 1024),
-                 sw128_desc(b + (kk >> 2) * bbox + off, 16, 1024), kk > 0);
-  }
-}
-
-// A 64 x 64 accumulator tile (this thread: rows r and r + 8) as the bf16
-// A fragments of a product whose k runs over its 64 columns: [2n + i]
-// holds row r + 8i, columns 8n + ccol and + 1.
-__device__ __forceinline__ void to_frags(const float (&x)[32],
-                                         uint32_t (&f)[16]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NX / 4; ++n)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const __nv_bfloat162 h =
@@ -1408,15 +1503,15 @@ __device__ __forceinline__ void to_frags(const float (&x)[32],
     }
 }
 
-// D (64 x HD) += A (64 x 64, the fragments f) * B (64 x HD): B's 64 rows at
-// b, HD/64 boxes of 64 rows x 128 bytes (box stride ``box``), read
-// MN-major, 16 rows (2048 bytes) a step.
-template <int HD>
-__device__ __forceinline__ void mma_rs_k64(float (&d)[HD / 2],
-                                           const uint32_t (&f)[16],
-                                           uint32_t b, uint32_t box) {
+// D (64 x HD) += A (64 x K, the fragments f: K = 4 x their count) * B (K x
+// HD): B's K rows at b, HD/64 boxes of 128-byte rows (box stride ``box``),
+// read MN-major, 16 rows (2048 bytes) a step.
+template <int HD, int NF>
+__device__ __forceinline__ void mma_rs(float (&d)[HD / 2],
+                                       const uint32_t (&f)[NF], uint32_t b,
+                                       uint32_t box) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NF / 4; ++kk) {
     const uint32_t a[4] = {f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
                            f[4 * kk + 3]};
     wgmma_pv<HD>(d, a, sw128_desc(b + kk * 16 * 128, box, 1024));
@@ -1436,26 +1531,60 @@ __device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
   return acc;
 }
 
-// Shared memory of both kernels (offsets from a 1024-byte aligned base).
-// dq: the Q and dO tiles (HD/64 boxes of BW_Q rows x 128 bytes each), then
-// BW_STAGES x (K tile, V tile) of HD/64 boxes of BW_K rows, then the
-// mbarriers: Q/dO full, per stage full and empty.  dkdv: the K and V tiles
-// (boxes of BW_KEYS rows), then BW_STAGES x (Q tile, dO tile) of boxes of
-// BW_QT rows, then BW_STAGES x (lse * log2 e, delta) rows of BW_QT floats,
-// then the mbarriers: K/V full, per stage full and empty.
+// Tiles and shared memory of both kernels (offsets from a 1024-byte
+// aligned base).  dq: the Q and dO tiles (HD/64 boxes of BW_Q rows x 128
+// bytes each), then DQ_STAGES x (K tile, V tile) of HD/64 boxes of DK rows,
+// then the mbarriers: Q/dO full, per stage full and empty.  dkdv: the K and
+// V tiles (boxes of KEYS rows), then KV_STAGES x (Q tile, dO tile) of boxes
+// of BW_QT rows, then KV_STAGES x (lse * log2 e, delta) rows of BW_QT
+// floats, at head_dim 256 the P^T exchange (64 x 64 fp32), then the
+// mbarriers: K/V full, per stage full and empty.  Head_dim 64 and 128 take
+// 64-key dq tiles, 128-key dkdv CTAs and 3 stages; 256 takes 32-key dq
+// tiles (S and dP as m64n32), 64-key dkdv CTAs (K and V resident: 64 KB)
+// and 2 stages of 64-query Q/dO tiles (128 KB).
 template <int HD>
 struct BwLayout {
+  static constexpr bool WIDE = HD == 256;
   static constexpr int NB = HD / BOX;
-  static constexpr uint32_t QBOX = BW_Q * 128, KBOX = BW_K * 128;
+  static constexpr int DK = WIDE ? 32 : 64;       // dq: keys per K/V tile
+  // 3 stages of 32-key tiles would fit at head_dim 256 (230,456 of
+  // 232,448 bytes) but ran no faster than 2 on an H100
+  static constexpr int DQ_STAGES = WIDE ? 2 : 3;
+  static constexpr int KEYS = WIDE ? 64 : 128;    // dkdv: keys per CTA
+  static constexpr int KV_STAGES = WIDE ? 2 : 3;
+  static constexpr uint32_t QBOX = BW_Q * 128, KBOX = DK * 128;
   static constexpr uint32_t DQ_Q = NB * QBOX, DQ_KV = NB * KBOX;
-  static constexpr uint32_t DQ_BARS = 2 * DQ_Q + BW_STAGES * 2 * DQ_KV;
-  static constexpr size_t DQ_SMEM = 1024 + DQ_BARS + 8 * (1 + 2 * BW_STAGES);
-  static constexpr uint32_t KVBOX = BW_KEYS * 128, QTBOX = BW_QT * 128;
+  static constexpr uint32_t DQ_BARS = 2 * DQ_Q + DQ_STAGES * 2 * DQ_KV;
+  static constexpr size_t DQ_SMEM = 1024 + DQ_BARS + 8 * (1 + 2 * DQ_STAGES);
+  static constexpr uint32_t KVBOX = KEYS * 128, QTBOX = BW_QT * 128;
   static constexpr uint32_t KV_KV = NB * KVBOX, KV_Q = NB * QTBOX;
-  static constexpr uint32_t KV_ROWS = 2 * KV_KV + BW_STAGES * 2 * KV_Q;
-  static constexpr uint32_t KV_BARS = KV_ROWS + BW_STAGES * 2 * BW_QT * 4;
-  static constexpr size_t KV_SMEM = 1024 + KV_BARS + 8 * (1 + 2 * BW_STAGES);
+  static constexpr uint32_t KV_ROWS = 2 * KV_KV + KV_STAGES * 2 * KV_Q;
+  static constexpr uint32_t KV_XCH = KV_ROWS + KV_STAGES * 2 * BW_QT * 4;
+  static constexpr uint32_t KV_BARS = KV_XCH + (WIDE ? 64 * BW_QT * 4 : 0);
+  static constexpr size_t KV_SMEM = 1024 + KV_BARS + 8 * (1 + 2 * KV_STAGES);
 };
+
+// Rows row and row + 8 of a 64 x HD accumulator (this thread's part:
+// columns 8n + ccol and + 1), times mul, as bf16 at out (row r at out +
+// r * stride, out already at column ccol); rows from nrows on are not
+// written.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
+                                           __nv_bfloat16* out,
+                                           long long stride, int row0,
+                                           int nrows, float mul) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= nrows) continue;
+    __nv_bfloat16* dst = out + row * stride;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * mul,
+                                acc[4 * n + 2 * i + 1] * mul);
+  }
+}
 
 // One CTA per (b, h, BW_Q-query tile), the longest causal tiles first:
 // delta of its rows (written for the dK/dV launch), then dQ over the key
@@ -1474,13 +1603,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    float scale, float scale_log2) {
   using L = BwLayout<HD>;
   constexpr int NA = HD / 2;           // dQ accumulators per thread
+  constexpr int DK = L::DK, ST = L::DQ_STAGES;
+  constexpr int NS = DK / 2;           // S and dP accumulators per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sdo = sq + L::DQ_Q;
   const uint32_t bars = sq + L::DQ_BARS;
   const uint32_t qfull = bars;
   auto full = [&](int s) { return bars + 8u * (1 + s); };
-  auto empty = [&](int s) { return bars + 8u * (1 + BW_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + ST + s); };
   auto kbuf = [&](int s) { return sq + 2u * L::DQ_Q + 2u * s * L::DQ_KV; };
 
   const int tid = threadIdx.x;
@@ -1489,12 +1620,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int causal = mk.causal, window = mk.window, kvlen = mk.kvlen;
   int kbeg, kend;
-  key_range(q0, BW_Q, Sq, causal, window, mk.qoff, kvlen, BW_K, kbeg, kend);
-  const int nk = kend > kbeg ? (kend - kbeg + BW_K - 1) / BW_K : 0;
+  key_range(q0, BW_Q, Sq, causal, window, mk.qoff, kvlen, DK, kbeg, kend);
+  const int nk = kend > kbeg ? (kend - kbeg + DK - 1) / DK : 0;
 
   if (tid == 0) {
     mbar_init(qfull, 1);
-    for (int s = 0; s < BW_STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), TC_CONSUMERS);
     }
@@ -1503,7 +1634,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (tid >= TC_CONSUMERS) {           // the producer: one thread works
-    setmaxnreg_dec<BW_PRODUCER_REGS>();
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == TC_CONSUMERS) {
       mbar_expect_tx(qfull, 2 * L::DQ_Q);
       for (int c = 0; c < L::NB; ++c) {
@@ -1511,10 +1642,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         tma_load(sdo + c * L::QBOX, &tdo, qfull, c * BOX, h, q0, b);
       }
       for (int it = 0; it < nk; ++it) {
-        const int s = it % BW_STAGES;
-        if (it >= BW_STAGES) mbar_wait(empty(s), ((it / BW_STAGES) - 1) & 1);
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(empty(s), ((it / ST) - 1) & 1);
         const uint32_t kb = kbuf(s), vb = kb + L::DQ_KV;
-        const int k0 = kbeg + it * BW_K;
+        const int k0 = kbeg + it * DK;
         mbar_expect_tx(full(s), 2 * L::DQ_KV);
         for (int c = 0; c < L::NB; ++c) {
           tma_load(kb + c * L::KBOX, &tk, full(s), c * BOX, kvh, k0, b);
@@ -1523,7 +1654,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {
-    setmaxnreg_inc<BW_CONSUMER_REGS>();
+    setmaxnreg_inc<CONSUMER_REGS>();
     // consumers: warpgroup wg owns query rows q0 + 64*wg .. + 63; this thread
     // holds rows qrow and qrow + 8, columns 8n + ccol and + 1 of each 8-block
     const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -1556,22 +1687,22 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     }
 
     const uint32_t qa = sq + wg * 64 * 128, da = sdo + wg * 64 * 128;
-    float acc[NA], s[32], dp[32];
+    float acc[NA], s[NS], dp[NS];
 #pragma unroll
     for (int i = 0; i < NA; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
     mbar_wait(qfull, 0);
 
     for (int it = 0; it < nk; ++it) {
-      const int st = it % BW_STAGES;
-      const uint32_t ph = (it / BW_STAGES) & 1;
+      const int st = it % ST;
+      const uint32_t ph = (it / ST) & 1;
       const uint32_t kb = kbuf(st), vb = kb + L::DQ_KV;
-      const int k0 = kbeg + it * BW_K;
+      const int k0 = kbeg + it * DK;
       mbar_wait(full(st), ph);
       if (k0 >= kvlen                // no key allowed for this warpgroup's
           || (causal && (k0 > qa1    // rows: past them, or below the window
-                         || k0 + BW_K - 1 <= qa0 - window))) {
+                         || k0 + DK - 1 <= qa0 - window))) {
         mbar_arrive(empty(st));
         continue;
       }
@@ -1590,11 +1721,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       // P = exp2(S scale log2 e - lse log2 e) in place of S, masked on the
       // diagonal, window-edge, kv_len and ragged tiles only; then dS = P
       // (dP - delta) in place of dP
-      const bool edge = k0 + BW_K > kvlen || q0 + 64 * wg + 64 > Sq
-                        || (causal && (k0 + BW_K - 1 > qa0
+      const bool edge = k0 + DK > kvlen || q0 + 64 * wg + 64 > Sq
+                        || (causal && (k0 + DK - 1 > qa0
                                        || k0 <= qa1 - window));
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NS / 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float p = exp2f(fmaf(s[4 * n + e], scale_log2, -l2[e >> 1]));
@@ -1610,16 +1741,16 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(dp);
 #pragma unroll
-      for (int e = 0; e < 32; ++e)
+      for (int e = 0; e < NS; ++e)
         dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]);
 
       // dQ += dS K: dS from registers, K read MN-major
-      uint32_t ds[16];
+      uint32_t ds[NS / 2];
       to_frags(dp, ds);
       fence_regs(acc);
       fence_regs(ds);
       wgmma_fence();
-      mma_rs_k64<HD>(acc, ds, kb, L::KBOX);
+      mma_rs<HD>(acc, ds, kb, L::KBOX);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1627,21 +1758,67 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(empty(st));
     }
 
-    __nv_bfloat16* qb = dq + qbase + ccol;
+    store_rows<HD>(acc, dq + qbase + ccol, qstride, qrow, Sq, scale);
+  }
+}
+
+// The dK/dV kernel's pieces, shared by both of its layouts.  A thread
+// holds keys krow and krow + 8 of a 64-key slice (kmin ..) and query
+// columns 8n + ccol and + 1 of a BW_QT-query tile (q0 ..).
+
+// No (key, query) pair of the slice and the tile is allowed: every key
+// past kv_len, every query before every key, or past every key's window.
+__device__ __forceinline__ bool kv_tile_dead(int kmin, int q0, int causal,
+                                             int window, int qoff,
+                                             int kvlen) {
+  return kmin >= kvlen || (causal && (q0 + BW_QT - 1 + qoff < kmin
+                                      || kmin + 63 <= q0 + qoff - window));
+}
+
+// P^T = exp2(S^T scale log2 e - lse log2 e) in place of S^T, lse per
+// column (query) from the tile's rows lr; masked on the diagonal,
+// window-edge, kv_len and ragged tiles only.
+__device__ __forceinline__ void p_from_s(float (&s)[32], const float* lr,
+                                         int kmin, int krow, int q0,
+                                         int ccol, int Sq, int causal,
+                                         int window, int qoff, int kvlen,
+                                         float scale_log2) {
+  const bool edge = q0 + BW_QT > Sq || kmin + 64 > kvlen
+                    || (causal && (kmin + 63 > q0 + qoff
+                                   || kmin <= q0 + BW_QT - 1 + qoff - window));
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = qrow + 8 * i;
-      if (row >= Sq) continue;
-      __nv_bfloat16* dst = qb + row * qstride;
+  for (int n = 0; n < 8; ++n) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * n + ccol);
 #pragma unroll
-      for (int n = 0; n < NA / 4; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-            acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+    for (int e = 0; e < 4; ++e) {
+      const int c = e & 1;
+      float p = exp2f(fmaf(s[4 * n + e], scale_log2, -(c ? l2.y : l2.x)));
+      if (edge) {
+        const int col = q0 + 8 * n + ccol + c, row = krow + 8 * (e >> 1);
+        if (col >= Sq || !allowed(row, col + qoff, causal, window, kvlen))
+          p = 0.f;
+      }
+      s[4 * n + e] = p;
     }
   }
 }
 
-// One CTA per (b, KV head, BW_KEYS-key tile), key tile 0 (the longest under
+// dS^T = P^T (dP^T - delta) in place of dP^T, delta per column (query)
+// from the tile's rows lr; p(i) is P^T's element i of this thread.
+template <class P>
+__device__ __forceinline__ void ds_from_dp(float (&dp)[32], P p,
+                                           const float* lr, int ccol) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(lr + BW_QT + 8 * n + ccol);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * n + e] = p(4 * n + e) * (dp[4 * n + e] - (e & 1 ? d2.y : d2.x));
+  }
+}
+
+// One CTA per (b, KV head, KEYS-key tile), key tile 0 (the longest under
 // the causal mask) first: dK and dV of its keys, summed over the g query
 // heads of the group and their query tiles from the diagonal down, in that
 // fixed order, inside the CTA (no atomics: two runs are bit-identical).
@@ -1658,6 +1835,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
                      int BKV, Mask mk, float scale, float scale_log2) {
   using L = BwLayout<HD>;
   constexpr int NA = HD / 2;           // dK and dV accumulators per thread
+  constexpr int ST = L::KV_STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sv = sk + L::KV_KV;
@@ -1666,26 +1844,29 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
   const uint32_t bars = sk + L::KV_BARS;
   const uint32_t kvfull = bars;
   auto full = [&](int s) { return bars + 8u * (1 + s); };
-  auto empty = [&](int s) { return bars + 8u * (1 + BW_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + ST + s); };
   auto qbuf = [&](int s) { return sk + 2u * L::KV_KV + 2u * s * L::KV_Q; };
 
   const int tid = threadIdx.x;
   const int bkv = blockIdx.x % BKV;
-  const int k0 = (int)(blockIdx.x / BKV) * BW_KEYS;
+  const int k0 = (int)(blockIdx.x / BKV) * L::KEYS;
   const int b = bkv / KV, kvh = bkv % KV, g = H / KV;
   const int causal = mk.causal, window = mk.window, kvlen = mk.kvlen;
   const int qoff = mk.qoff;
+  // dK and dV rows: key r at kbase + r * kstride
+  const long long kstride = (long long)KV * HD;
+  const long long kbase = ((long long)b * mk.skv * KV + kvh) * HD;
   // the query tiles that can see a key of this tile: from its first key's
   // diagonal to its last key's window edge
   int qstart, qend;
-  query_range(k0, BW_KEYS, Sq, causal, window, qoff, kvlen, BW_QT, qstart,
+  query_range(k0, L::KEYS, Sq, causal, window, qoff, kvlen, BW_QT, qstart,
               qend);
   const int ntq = qend > qstart ? (qend - qstart + BW_QT - 1) / BW_QT : 0;
   const int n_it = g * ntq;
 
   if (tid == 0) {
     mbar_init(kvfull, 1);
-    for (int s = 0; s < BW_STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full(s), 1 + 32);      // the copies, and each producer lane
       mbar_init(empty(s), TC_CONSUMERS);
     }
@@ -1694,7 +1875,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
   __syncthreads();
 
   if (tid >= TC_CONSUMERS) {           // the producer: its first warp works
-    setmaxnreg_dec<BW_PRODUCER_REGS>();
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (tid < TC_CONSUMERS + 32) {
       const int lane = tid & 31;
       if (lane == 0) {
@@ -1705,10 +1886,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
         }
       }
       for (int it = 0; it < n_it; ++it) {
-        const int s = it % BW_STAGES;
+        const int s = it % ST;
         const int h = kvh * g + it / ntq, q0 = qstart + (it % ntq) * BW_QT;
         const long long bh = (long long)b * H + h;
-        if (it >= BW_STAGES) mbar_wait(empty(s), ((it / BW_STAGES) - 1) & 1);
+        if (it >= ST) mbar_wait(empty(s), ((it / ST) - 1) & 1);
         if (lane == 0) {
           const uint32_t qb = qbuf(s), db = qb + L::KV_Q;
           mbar_expect_tx(full(s), 2 * L::KV_Q);
@@ -1728,116 +1909,147 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
       }
     }
   } else {
-    setmaxnreg_inc<BW_CONSUMER_REGS>();
-    // consumers: warpgroup wg owns keys k0 + 64*wg .. + 63 (kmin ..); this
-    // thread holds keys krow and krow + 8, query columns 8n + ccol and + 1
-    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-    const int kmin = k0 + 64 * wg;
-    const int krow = kmin + 16 * warp + (lane >> 2);
-    const int ccol = 2 * (lane & 3);
-    const uint32_t ka = sk + wg * 64 * 128, va = sv + wg * 64 * 128;
-    float dka[NA], dva[NA], s[32], dp[32];
+    setmaxnreg_inc<CONSUMER_REGS>();
+    if constexpr (L::WIDE) {
+      // head_dim 256, the outputs split: both warpgroups own the CTA's 64
+      // keys (krow and krow + 8, query columns 8n + ccol and + 1).
+      // Warpgroup 0 computes S^T = K Q^T and P^T, hands P^T (fp32) to
+      // warpgroup 1 through the exchange tile and adds dV += P^T dO;
+      // warpgroup 1 computes dP^T = V dO^T, takes P^T, forms dS^T and adds
+      // dK += dS^T Q.  Named barriers XFULL and XEMPTY pass the tile.
+      const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+      const int t = tid & 127;
+      const int krow = k0 + 16 * warp + (lane >> 2);
+      const int ccol = 2 * (lane & 3);
+      float* xch = reinterpret_cast<float*>(
+          smem_raw + (sk + L::KV_XCH - smem_u32(smem_raw)));
+      float acc[NA], x[32];
 #pragma unroll
-    for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+      for (int i = 0; i < NA; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    mbar_wait(kvfull, 0);
+      for (int i = 0; i < 32; ++i) x[i] = 0.f;
+      mbar_wait(kvfull, 0);
+      if (wg == 1) bar_arrive(XEMPTY, TC_CONSUMERS);   // it starts empty
 
-    for (int it = 0; it < n_it; ++it) {
-      const int st = it % BW_STAGES;
-      const uint32_t ph = (it / BW_STAGES) & 1;
-      const uint32_t qb = qbuf(st), db = qb + L::KV_Q;
-      const int q0 = qstart + (it % ntq) * BW_QT;
-      mbar_wait(full(st), ph);
-      if (kmin >= kvlen              // no pair allowed: every key past kv_len,
-          || (causal && (q0 + BW_QT - 1 + qoff < kmin  // every query before
-                         || kmin + 63 <= q0 + qoff - window))) {  // or past
-        mbar_arrive(empty(st));      // every key's window
-        continue;
-      }
-      // S^T = K Q^T, then dP^T = V dO^T (both operands in shared memory):
-      // P^T is computed while dP^T's product runs
-      fence_regs(s);
-      fence_regs(dp);
-      wgmma_fence();
-      mma_ss_hd<HD>(s, ka, L::KVBOX, qb, L::QTBOX);
-      wgmma_commit();
-      mma_ss_hd<HD>(dp, va, L::KVBOX, db, L::QTBOX);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(s);
-
-      // P^T = exp2(S^T scale log2 e - lse log2 e) in place of S^T, then
-      // dS^T = P^T (dP^T - delta) in place of dP^T; lse and delta are per
-      // column (query), from the tile's rows in shared memory
-      const float* lr = rows + st * 2 * BW_QT;
-      const bool edge = q0 + BW_QT > Sq || kmin + 64 > kvlen
-                        || (causal && (kmin + 63 > q0 + qoff
-                                       || kmin <= q0 + BW_QT - 1 + qoff
-                                                      - window));
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 l2 = *reinterpret_cast<const float2*>(lr + 8 * n + ccol);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = e & 1;
-          float p = exp2f(fmaf(s[4 * n + e], scale_log2, -(c ? l2.y : l2.x)));
-          if (edge) {
-            const int col = q0 + 8 * n + ccol + c, row = krow + 8 * (e >> 1);
-            if (col >= Sq || !allowed(row, col + qoff, causal, window, kvlen))
-              p = 0.f;
-          }
-          s[4 * n + e] = p;
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % ST;
+        const uint32_t ph = (it / ST) & 1;
+        const uint32_t qb = qbuf(st), db = qb + L::KV_Q;
+        const int q0 = qstart + (it % ntq) * BW_QT;
+        mbar_wait(full(st), ph);
+        // both warpgroups skip the same tiles
+        if (kv_tile_dead(k0, q0, causal, window, qoff, kvlen)) {
+          mbar_arrive(empty(st));
+          continue;
         }
+        // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1), both operands in
+        // shared memory
+        fence_regs(x);
+        wgmma_fence();
+        mma_ss_hd<HD>(x, wg ? sv : sk, L::KVBOX, wg ? db : qb, L::QTBOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(x);
+        const float* lr = rows + st * 2 * BW_QT;
+        if (wg == 0) {
+          p_from_s(x, lr, k0, krow, q0, ccol, Sq, causal, window, qoff,
+                   kvlen, scale_log2);
+          bar_sync(XEMPTY, TC_CONSUMERS);   // warpgroup 1 read the last
+#pragma unroll
+          for (int e = 0; e < 32; ++e) xch[e * 128 + t] = x[e];
+          bar_arrive(XFULL, TC_CONSUMERS);
+        } else {
+          bar_sync(XFULL, TC_CONSUMERS);
+          ds_from_dp(x, [&](int i) { return xch[i * 128 + t]; }, lr, ccol);
+          bar_arrive(XEMPTY, TC_CONSUMERS);
+        }
+
+        // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): A from
+        // registers, B read MN-major
+        uint32_t f[16];
+        to_frags(x, f);
+        fence_regs(acc);
+        fence_regs(f);
+        wgmma_fence();
+        mma_rs<HD>(acc, f, wg ? qb : db, L::QTBOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(f);
+        mbar_arrive(empty(st));
       }
-      wgmma_wait<0>();
-      fence_regs(dp);
+      if (wg == 0) bar_sync(XEMPTY, TC_CONSUMERS);   // 1's last release
+
+      store_rows<HD>(acc, (wg ? dk : dv) + kbase + ccol, kstride, krow,
+                     mk.skv, wg ? scale : 1.f);
+    } else {
+      // consumers: warpgroup wg owns keys k0 + 64*wg .. + 63 (kmin ..); this
+      // thread holds keys krow and krow + 8, query columns 8n + ccol and + 1
+      const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+      const int kmin = k0 + 64 * wg;
+      const int krow = kmin + 16 * warp + (lane >> 2);
+      const int ccol = 2 * (lane & 3);
+      const uint32_t ka = sk + wg * 64 * 128, va = sv + wg * 64 * 128;
+      float dka[NA], dva[NA], s[32], dp[32];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 d2 =
-            *reinterpret_cast<const float2*>(lr + BW_QT + 8 * n + ccol);
+      for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[4 * n + e] =
-              s[4 * n + e] * (dp[4 * n + e] - (e & 1 ? d2.y : d2.x));
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      mbar_wait(kvfull, 0);
+
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % ST;
+        const uint32_t ph = (it / ST) & 1;
+        const uint32_t qb = qbuf(st), db = qb + L::KV_Q;
+        const int q0 = qstart + (it % ntq) * BW_QT;
+        mbar_wait(full(st), ph);
+        if (kv_tile_dead(kmin, q0, causal, window, qoff, kvlen)) {
+          mbar_arrive(empty(st));
+          continue;
+        }
+        // S^T = K Q^T, then dP^T = V dO^T (both operands in shared memory):
+        // P^T is computed while dP^T's product runs
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        mma_ss_hd<HD>(s, ka, L::KVBOX, qb, L::QTBOX);
+        wgmma_commit();
+        mma_ss_hd<HD>(dp, va, L::KVBOX, db, L::QTBOX);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        // P^T in place of S^T, then dS^T in place of dP^T
+        const float* lr = rows + st * 2 * BW_QT;
+        p_from_s(s, lr, kmin, krow, q0, ccol, Sq, causal, window, qoff, kvlen,
+                 scale_log2);
+        wgmma_wait<0>();
+        fence_regs(dp);
+        ds_from_dp(dp, [&](int i) { return s[i]; }, lr, ccol);
+
+        // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q read
+        // MN-major
+        uint32_t pf[16], sf[16];
+        to_frags(s, pf);
+        to_frags(dp, sf);
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(pf);
+        fence_regs(sf);
+        wgmma_fence();
+        mma_rs<HD>(dva, pf, db, L::QTBOX);
+        mma_rs<HD>(dka, sf, qb, L::QTBOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(pf);
+        fence_regs(sf);
+        mbar_arrive(empty(st));
       }
 
-      // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q read
-      // MN-major
-      uint32_t pf[16], sf[16];
-      to_frags(s, pf);
-      to_frags(dp, sf);
-      fence_regs(dva);
-      fence_regs(dka);
-      fence_regs(pf);
-      fence_regs(sf);
-      wgmma_fence();
-      mma_rs_k64<HD>(dva, pf, db, L::QTBOX);
-      mma_rs_k64<HD>(dka, sf, qb, L::QTBOX);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dva);
-      fence_regs(dka);
-      fence_regs(pf);
-      fence_regs(sf);
-      mbar_arrive(empty(st));
-    }
-
-    const long long kstride = (long long)KV * HD;
-    const long long koff = ((long long)b * mk.skv * KV + kvh) * HD + ccol;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = krow + 8 * i;
-      if (row >= mk.skv) continue;
-      __nv_bfloat16* dkr = dk + koff + row * kstride;
-      __nv_bfloat16* dvr = dv + koff + row * kstride;
-#pragma unroll
-      for (int n = 0; n < NA / 4; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * n) = __floats2bfloat162_rn(
-            dka[4 * n + 2 * i] * scale, dka[4 * n + 2 * i + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * n) = __floats2bfloat162_rn(
-            dva[4 * n + 2 * i], dva[4 * n + 2 * i + 1]);
-      }
+      store_rows<HD>(dka, dk + kbase + ccol, kstride, krow, mk.skv, scale);
+      store_rows<HD>(dva, dv + kbase + ccol, kstride, krow, mk.skv, 1.f);
     }
   }
 }
@@ -1863,15 +2075,15 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   CUtensorMap tq, tdo, tk, tv, tk2, tv2, tq2, tdo2;
   if (!tensor_map(&tq, q, B, S, H, HD, BW_Q)
       || !tensor_map(&tdo, dout, B, S, H, HD, BW_Q)
-      || !tensor_map(&tk, k, B, mk.skv, KV, HD, BW_K)
-      || !tensor_map(&tv, v, B, mk.skv, KV, HD, BW_K)
-      || !tensor_map(&tk2, k, B, mk.skv, KV, HD, BW_KEYS)
-      || !tensor_map(&tv2, v, B, mk.skv, KV, HD, BW_KEYS)
+      || !tensor_map(&tk, k, B, mk.skv, KV, HD, L::DK)
+      || !tensor_map(&tv, v, B, mk.skv, KV, HD, L::DK)
+      || !tensor_map(&tk2, k, B, mk.skv, KV, HD, L::KEYS)
+      || !tensor_map(&tv2, v, B, mk.skv, KV, HD, L::KEYS)
       || !tensor_map(&tq2, q, B, S, H, HD, BW_QT)
       || !tensor_map(&tdo2, dout, B, S, H, HD, BW_QT))
     return (int)cudaErrorInvalidValue;
   const long long nq = (S + BW_Q - 1) / BW_Q;
-  const long long nkt = (mk.skv + BW_KEYS - 1) / BW_KEYS;
+  const long long nkt = (mk.skv + L::KEYS - 1) / L::KEYS;
   if (B * H * nq > 0x7fffffffLL || B * KV * nkt > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const double scale = 1.0 / sqrt((double)HD);
@@ -1906,7 +2118,9 @@ extern "C" int flash_attention_fwd_launch(
   // both kernels read 16-byte pieces (TMA boxes, float4 / 8-byte loads)
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  // bf16 at head_dim 64 / 128 goes to the tensor cores
+  // bf16 at head_dim 64 / 128 / 256 goes to the tensor cores
+  if (bf16 && hd == 256)
+    return launch_wgmma<256>(q, k, v, o, l, B, S, H, KV, mk, st);
   if (bf16 && hd == 128)
     return launch_wgmma<128>(q, k, v, o, l, B, S, H, KV, mk, st);
   if (bf16 && hd == 64)
@@ -1934,7 +2148,10 @@ extern "C" int flash_attention_bwd_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* e = (float*)delta;
-  // bf16 at head_dim 64 / 128 goes to the tensor cores
+  // bf16 at head_dim 64 / 128 / 256 goes to the tensor cores
+  if (bf16 && hd == 256)
+    return launch_bwd_wgmma<256>(q, k, v, o, l, dout, dq, dk, dv, e, B, S, H,
+                                 KV, mk, st);
   if (bf16 && hd == 128)
     return launch_bwd_wgmma<128>(q, k, v, o, l, dout, dq, dk, dv, e, B, S, H,
                                  KV, mk, st);

@@ -16,11 +16,13 @@ Two layouts, one entry point:
   pre-broadcast (the model layout with H = KV = 1).
 
 On the card the C entry point picks one of two hand-written kernels by type
-and shape: bf16 at head_dim 64 or 128 (every full config the port serves)
-runs on the tensor cores (``flash_fwd_wgmma``: wgmma tiles fed by TMA
-copies, P carried as a bf16 hi + lo pair); fp32 inputs and the other head
-dims run on the CUDA cores (``flash_fwd_kernel``: fp32 FMAs, which keep
-fp32 within the reference test's atol of 2e-5).
+and shape: bf16 at head_dim 64, 128 or 256 (every full config the port
+serves) runs on the tensor cores (``flash_fwd_wgmma``: wgmma tiles fed by
+TMA copies, 128 queries a CTA against 128-key K/V tiles, 64-key at head_dim
+256, P carried as a bf16 hi + lo pair); fp32 inputs, at every head dim,
+and bf16 at head_dim 8, 16 and 32 run on the CUDA cores
+(``flash_fwd_kernel``: fp32 FMAs, which keep fp32 within the reference
+test's atol of 2e-5).
 
 The forward also returns lse (B, H, Sq) fp32, the natural-log normalizer of
 the scaled scores, when asked (``return_lse=True``: the training path).  The
@@ -28,14 +30,17 @@ backward takes (q, k, v, out, lse, dout) and the forward's mask arguments
 in the model layout and returns dq, dk, dv in q's dtype (fp32
 accumulation, two launches, no atomics, so bit-identical from run to
 run).  Its C entry picks by the same rule: bf16
-at head_dim 64 or 128 runs on the tensor cores (``flash_bwd_dq_wgmma``, one
-CTA per 128-query tile streaming 64-key K/V tiles, which also writes delta;
-then ``flash_bwd_dkdv_wgmma``, one CTA per (batch, KV head, 128-key tile)
-streaming the group's 64-query Q/dO tiles, so the GQA sum stays in the CTA;
-a TMA producer warp and a 3-deep ring each, P and dS as bf16 A operands
-from registers); fp32 and the other head dims on the CUDA cores
-(``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``).  A failure of either
-raises; neither falls back to the other.
+at head_dim 64, 128 or 256 runs on the tensor cores (``flash_bwd_dq_wgmma``,
+one CTA per 128-query tile streaming 64-key K/V tiles, 32-key at head_dim
+256, which also writes delta; then ``flash_bwd_dkdv_wgmma``, one CTA per
+(batch, KV head, 128-key tile) streaming the group's 64-query Q/dO tiles,
+so the GQA sum stays in the CTA; at head_dim 256 a CTA takes 64 keys and
+its two consumer warpgroups split the outputs, dV in one and dK in the
+other; a TMA producer warp and a 3-deep ring each, 2-deep at head_dim 256,
+P and dS as bf16 A operands from registers); fp32 and bf16 at head_dim 8,
+16 and 32 on the CUDA cores (``flash_bwd_dq_kernel``,
+``flash_bwd_dkdv_kernel``).  A failure of either raises; neither falls
+back to the other.
 
 On meta tensors (a dry run's trace, ``repro_torch.launch.dryrun``) both
 wrappers make the card's argument checks but the pointer alignment,
@@ -191,8 +196,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys and, under ``causal``, a ``window`` below each query's absolute
     position q + ``q_offset``.  ``block_q``/``block_k`` are the reference
     kernel's tile sizes: checked, not used (the kernels tile 128 queries by
-    128 keys on the tensor cores, 64 queries by 32 or 64 keys on the CUDA
-    cores)."""
+    128 keys on the tensor cores, by 64 at head_dim 256, and 64 queries by
+    32 or 64 keys on the CUDA cores)."""
     name = "flash_attention_fwd"
     meta = _build.on_meta(name, q, k, v)
     card = not meta and _build.on_card(name, q, k, v)

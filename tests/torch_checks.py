@@ -54,12 +54,15 @@ def bf16_attn_err(got: torch.Tensor, want: torch.Tensor) -> float:
 #: flash backward kernel cases (S, head_dim, H/KV, causal, dtype): ragged
 #: and one-token sequences, S = 200 across two 128-row tiles raggedly, S =
 #: 1000 whose last 128-row tile is cut inside its second 64-row half (the
-#: tensor-core kernels tile 128 queries or keys a CTA and 64 a step), both
-#: head dims, no GQA and Qwen2-7B's 7 query heads a KV head.  Shared by the
-#: card tests and chip_smoke.py.
-FLASH_BWD_CASES = tuple(itertools.product(
-    (1, 63, 200, 1000, 2048), (64, 128), (1, 7), (True, False),
-    (torch.float32, torch.bfloat16)))
+#: tensor-core kernels tile 128 queries or keys a CTA and 64 a step; at
+#: head_dim 256, 64-key forward and dK/dV tiles and 32-key dQ tiles), head
+#: dims 64, 128 and 256, no GQA and Qwen2-7B's 7 query heads a KV head (2 at
+#: head_dim 256, Gemma3's).  Shared by the card tests and chip_smoke.py.
+FLASH_BWD_CASES = tuple(
+    (s, hd, g, causal, dt)
+    for s in (1, 63, 200, 1000, 2048) for hd in (64, 128, 256)
+    for g in ((1, 2) if hd == 256 else (1, 7))
+    for causal in (True, False) for dt in (torch.float32, torch.bfloat16))
 
 
 def flash_bwd_inputs(rng, s: int, hd: int, g: int, dtype, dev, *,
