@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--mesh-only]
 
-Phases (any failure exits non-zero and prints no result):
+Phases (any failure exits non-zero and prints no result; ``--mesh-only``
+runs phase 1, then phase 19 beside an unsharded step of 13a's
+configuration, for a run on several cards):
 
 1. Device and build: the card's name and power limit, the torch/CUDA
    versions, and the build of every kernel under ``src/repro_torch/csrc``
@@ -456,6 +458,31 @@ Phases (any failure exits non-zero and prints no result):
    step's arguments and temp, and the peak of its window before that
    step (a train phase of 17 also after its set-up and route checks, and
    after its first, hooked step) is printed beside the step's.  The phase's seconds are printed.
+19. Training across cards (``torch.distributed``), after phase 18.  First
+   the number of cards, the mesh and whether a cross-card collective can
+   run (not on one card: every group holds one rank).  a: one NCCL rank a
+   card (``chip_smoke.py --mesh-rank``, fresh interpreters) trains 13a's
+   configuration (Qwen2-7B's width at 8 layers, 4 x 2048, remat full,
+   13a's seed) on the (n, 1) (data, model) device mesh as DTensors: each
+   rank builds 13a's ``BitmapIndexedDataset`` on its card (the bitmap
+   kernels must run) and its first batch must be 13a's; the loss within
+   1e-3 (relative) and layer 0's wq/wk/wv gradients within 1/16 (L2) of
+   13a's kernel route; one counted step with 16 forward and 8 backward
+   flash launches on each rank and the plain attention made to raise; 3
+   timed steps (median), tokens/s and rank 0's peak beside 13a's; the
+   loss's all-reduces over groups of more than one rank counted.  With 4
+   cards or more, the published 28 layers on the (n/2, 2) mesh too.  c:
+   the sharded parameters and step, written once by rank 0, restored into
+   the unsharded model on rank 0's card and held against the gathered
+   shards bit for bit (the moments stay out: ``store.format`` builds the
+   whole file in host memory three times over); needs 1.25 x 11.8 GB free
+   disk, checked first.  b, beside c: ``python -m repro_torch.launch.train
+   --demo --steps 4 --ckpt-every 2 --coordinator 127.0.0.1:<port>
+   --num-hosts 1 --host-id 0`` on the card; then its step-4 checkpoint
+   removed (a death after step 2's) and the same command again: it must
+   resume from step 2 and end within 1e-6 (relative) of the whole run's
+   final loss.  The flash records gain ``mesh_launches`` (19a's step, rank
+   0) and the bitmap ones ``mesh_data_launches``.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -2436,6 +2463,12 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
               f"{got['kernel'][0]}, plain route {got['plain'][0]}; relative "
               f"differences {err} (tolerances {ROUTE_TOL}, on kernel vs "
               f"plain, the loss and layer 0)")
+        if b_i == 0:                    # phase 19a's unsharded reference
+            mesh_ref = {"tokens": first["tokens"].cpu(),
+                        "labels": first["labels"].cpu(),
+                        "loss": got["kernel"][0],
+                        "grads": {n: got["kernel"][1][0, n].cpu()
+                                  for n in ("wq", "wk", "wv")}}
         e = err["kernel_vs_plain"]
         if not (e["loss"] <= ROUTE_TOL["loss"] and all(
                 e[f"layer0.{n}"] <= ROUTE_TOL["grad"]
@@ -2665,6 +2698,7 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
                "bwd_ms_in_step": bwd_ms, "bwd_launch": bwd_launch,
                "bwd_kernels_seen": bwd_seen, "adamw_ms": adamw_ms}
     print(json.dumps({"train_path": out_rec}))
+    out_rec["mesh_reference"] = mesh_ref
     del params, opt, ds, stream, first, batch, captured, out, lse
     gc.collect()
     torch.cuda.empty_cache()
@@ -4856,9 +4890,469 @@ def dryrun_path(torch, dev, seed: int, zero_counts, counted) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+#: phase 19a: the loss within 1e-3 (relative) of 13a's unsharded loss and
+#: layer 0's wq/wk/wv gradients within 1/16 (L2) of 13a's, 13a's own
+#: route tolerances (the same kernels; only the sums' order may differ)
+MESH_TOL = ROUTE_TOL
+MESH_TIMED = 3              # phase 19a: steps timed (the median is kept)
+MESH_FULL_LAYERS = 28       # 19a on 4 cards or more: the published depth
+MESH_DEMO_STEPS = (4, 2)    # 19b: the launcher's steps, and its cadence
+#: 19b: the restarted launcher's final loss against the whole run's
+#: (relative): the same steps from the same state and data, on the same
+#: kernels, so bit-identical is expected
+MESH_RESTART_TOL = 1e-6
+#: 19c: the parameters of 19a's 8 layers, fp32, and their checkpoint's
+#: free disk with room to spare
+MESH_CKPT_SLACK = 1.25
+
+
+def _mesh_cmd(rank: int, world: int, port: int, work: str, shape: tuple,
+              layers: int, seed: int, restore: bool) -> list:
+    return [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+            str(rank), "--mesh-world", str(world), "--mesh-port", str(port),
+            "--mesh-work", work, "--mesh-shape", "x".join(map(str, shape)),
+            "--mesh-layers", str(layers), "--seed", str(seed)] + (
+                ["--mesh-restore"] if restore else [])
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_processes(cmds: list) -> list:
+    """Start every command at once, from the repository root with ``src``
+    on the path."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    return [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for c in cmds]
+
+
+def wait_processes(procs: list, label: str, timeout: float = 900) -> list:
+    """Wait for every process and return their standard outputs; a failure
+    of any stops the others and fails the phase."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append(out)
+            if p.returncode:
+                raise SystemExit(f"{label}: a process exited with "
+                                 f"{p.returncode}:\n{out[-3000:]}\n"
+                                 f"{err[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Whether two tensors hold the same bits (dtype, shape and every
+    element, NaN patterns too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.itemsize == 4:
+        return torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def mesh_rank(args) -> int:
+    """One rank of phase 19a (``--mesh-rank``): joins the NCCL group of
+    ``--mesh-world`` ranks, one a card, and trains 13a's configuration at
+    ``--mesh-layers`` on the ``--mesh-shape`` (data x model) device mesh;
+    rank 0 writes its record to ``--mesh-work``/rank0.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from repro_torch.checkpoint import store as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import BitmapIndexedDataset, DataConfig
+    from repro_torch.engine.planner import key
+    from repro_torch.kernels import attention, bit_transpose, bitmap_ops
+    from repro_torch.kernels import cam_match
+    from repro_torch.launch.mesh import init_distributed, make_device_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.loop import distribute_batch
+    from repro_torch.train.step import TrainConfig, make_train_step
+    rank, world = args.mesh_rank, args.mesh_world
+    shape = tuple(int(s) for s in args.mesh_shape.split("x"))
+    dev = init_distributed(f"127.0.0.1:{args.mesh_port}", world, rank,
+                           device="cuda", local_rank=rank)
+    counted = {"cam_match": cam_match.cam_match,
+               "bit_transpose": bit_transpose.bit_transpose,
+               "bitmap_query": bitmap_ops.bitmap_query,
+               "bulk_program": bitmap_ops.bulk_program,
+               "flash_attention_fwd": attention.flash_attention_fwd,
+               "flash_attention_bwd": attention.flash_attention_bwd}
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+
+    def launches():
+        torch.cuda.synchronize()
+        return {n: fn.launches for n, fn in counted.items()}
+    # the loss's own all-reduces over groups of more than one rank: the
+    # cross-card collectives a run of one card cannot make
+    cross = {"all_reduce": 0}
+    all_reduce = dist.all_reduce
+
+    def counting_all_reduce(t, *a, group=None, **kw):
+        if dist.get_world_size(group) > 1:
+            cross["all_reduce"] += 1
+        return all_reduce(t, *a, group=group, **kw)
+    dist.all_reduce = counting_all_reduce
+    try:
+        mesh = make_device_mesh(shape, ("data", "model"), dev)
+        out = {"rank": rank, "world": world, "mesh": mesh.name,
+               "mesh_axes": dict(mesh.shape), "device": str(dev),
+               "card": torch.cuda.get_device_name(dev)}
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  num_layers=args.mesh_layers)
+        ref = torch.load(os.path.join(args.mesh_work, "ref13a.pt"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = tmodel.init_params(cfg, seed=args.seed, mesh=mesh,
+                                    dtype=torch.float32)
+        ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+        opt = init_opt_state(params, ocfg)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["local_bytes"] = torch.cuda.memory_allocated(dev)
+        # 13a's data on every rank: the same deterministic stream
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          num_shards=4, num_attributes=32, seed=args.seed)
+        zero()
+        ds = BitmapIndexedDataset(dcfg, device=dev)
+        first = next(ds.batches(TRAIN_BATCH, where=key(3) & key(18)
+                                & ~key(25), seed=args.seed))
+        out["data_launches"] = data = launches()
+        if not (data["cam_match"] and data["bit_transpose"]
+                and data["bitmap_query"] + data["bulk_program"]):
+            raise SystemExit(f"mesh rank {rank}: the bitmap kernels did not "
+                             f"run for the data ({data})")
+        if not (torch.equal(first["tokens"].cpu(), ref["tokens"])
+                and torch.equal(first["labels"].cpu(), ref["labels"])):
+            raise SystemExit(f"mesh rank {rank}: the data stream's first "
+                             "batch is not 13a's")
+        batch = distribute_batch(first, mesh)
+        del ds
+
+        # the loss and layer 0's q/k/v gradients against 13a's
+        params.requires_grad_(True)
+        loss, _ = tmodel.lm_loss(params, cfg, batch)
+        loss.backward()
+        got_loss = float(tmodel.full_tensor(loss.detach()))
+        grads = {n: tmodel.full_tensor(getattr(params.layers[0], n).grad)
+                 .cpu() for n in ("wq", "wk", "wv")}
+        params.zero_grad(set_to_none=True)
+        err = {"loss": abs(got_loss - ref["loss"]) / abs(ref["loss"])}
+        for n, g in grads.items():
+            w = ref["grads"][n]
+            err[f"layer0.{n}"] = float((g - w).norm() / w.norm())
+        out["loss"], out["ref_loss"], out["errors"] = got_loss, ref["loss"], \
+            err
+        if args.mesh_layers == TRAIN_LAYERS and not (
+                err["loss"] <= MESH_TOL["loss"]
+                and all(err[f"layer0.{n}"] <= MESH_TOL["grad"]
+                        for n in ("wq", "wk", "wv"))):
+            raise SystemExit(f"mesh rank {rank}: the sharded loss and "
+                             f"gradients differ from 13a's: {err} "
+                             f"(tolerances {MESH_TOL})")
+        del grads, loss
+
+        # one counted step, then MESH_TIMED timed ones
+        step = make_train_step(cfg, TrainConfig(ocfg))
+        zero()
+        before = dict(cross)
+        with no_plain_attention(attention):
+            params, opt, m = step(params, opt, batch)
+            out["step_launches"] = n_ = launches()
+        out["step_cross_card_all_reduces"] = (cross["all_reduce"]
+                                              - before["all_reduce"])
+        losses = [float(m["loss"])]
+        if (n_["flash_attention_fwd"] != 2 * cfg.num_layers
+                or n_["flash_attention_bwd"] != cfg.num_layers):
+            raise SystemExit(f"mesh rank {rank}: want {2 * cfg.num_layers} "
+                             f"forward and {cfg.num_layers} backward flash "
+                             f"launches a step, saw {n_}")
+        times = []
+        with no_plain_attention(attention):
+            for _ in range(MESH_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))     # waits for the step
+                times.append(time.perf_counter() - t0)
+        step_s = statistics.median(times)
+        if rank == 0:                   # the parent may start 19b now
+            open(os.path.join(args.mesh_work, "timed"), "w").close()
+        out.update(losses=losses, step_ms=step_s * 1e3,
+                   step_ms_all=[t * 1e3 for t in times],
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   cross_card_all_reduces=cross["all_reduce"])
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SystemExit(f"mesh rank {rank}: losses {losses} not finite "
+                             "and falling")
+
+        if args.mesh_restore:
+            # 19c: the parameters and step of this state, written by rank 0
+            # from the gathered shards, restored into the unsharded model
+            # on rank 0's card and held against the shards, bit for bit
+            steps = int(opt["step"])
+            del opt, m
+            gc.collect()
+            torch.cuda.empty_cache()
+            named = {n: p.detach() for n, p in params.named_parameters()}
+            path = os.path.join(args.mesh_work, "ckpt")
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(path, steps, {
+                "params": tmodel.stack_layers(cfg, named, ckpt.LayerStack),
+                "opt": {"step": torch.tensor(steps, dtype=torch.int32)}})
+            out["save_s"] = time.perf_counter() - t0
+            same, restored_step = True, None
+            if rank == 0:
+                t0 = time.perf_counter()
+                plain = tmodel.init_params(cfg, seed=args.seed + 1,
+                                           device=dev, dtype=torch.float32)
+                pn = {n: p.detach() for n, p in plain.named_parameters()}
+                state, restored_step = ckpt.restore_checkpoint(path, {
+                    "params": tmodel.stack_layers(cfg, pn, ckpt.LayerStack),
+                    "opt": {"step": torch.zeros((), dtype=torch.int32)}})
+                with torch.no_grad():
+                    for n, t in tmodel.unstack_layers(
+                            cfg, state["params"]).items():
+                        pn[n].copy_(t)
+                del state
+                out["restore_s"] = time.perf_counter() - t0
+                out["restored_step"] = restored_step
+            for n, p in named.items():              # every rank gathers
+                whole = tmodel.full_tensor(p)
+                if rank == 0:
+                    same = same and bits_equal(torch, whole, pn[n])
+                del whole
+            out["ckpt_bytes"] = (dir_bytes(os.path.join(
+                path, f"step-{steps:08d}")) if rank == 0 else None)
+            out["restore_bit_identical"] = same
+            out["restore_tensors"] = len(named)
+            if rank == 0 and not (same and restored_step == steps):
+                raise SystemExit(f"mesh restore: the unsharded model differs "
+                                 f"from the sharded one (bit-identical "
+                                 f"{same}, step {restored_step} of {steps})")
+        if rank == 0:
+            with open(os.path.join(args.mesh_work, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_reference(torch, dev, seed: int) -> dict:
+    """Phase 19's reference without phases 2-18 (``--mesh-only``): 13a's
+    configuration unsharded on the card, its first batch's loss and layer
+    0's q/k/v gradients (the kernel route), and MESH_TIMED steps after a
+    first, timed as 13a's (median) with their peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import BitmapIndexedDataset, DataConfig
+    from repro_torch.engine.planner import key
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = tmodel.init_params(cfg, seed=seed, device=dev,
+                                dtype=torch.float32)
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+    opt = init_opt_state(params, ocfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      num_shards=4, num_attributes=32, seed=seed)
+    first = next(BitmapIndexedDataset(dcfg, device=dev).batches(
+        TRAIN_BATCH, where=key(3) & key(18) & ~key(25), seed=seed))
+    params.requires_grad_(True)
+    loss, _ = tmodel.lm_loss(params, cfg, first)
+    loss.backward()
+    ref = {"tokens": first["tokens"].cpu(), "labels": first["labels"].cpu(),
+           "loss": float(loss.detach()),
+           "grads": {n: getattr(params.layers[0], n).grad.cpu()
+                     for n in ("wq", "wk", "wv")}}
+    params.zero_grad(set_to_none=True)
+    del loss
+    step = make_train_step(cfg, TrainConfig(ocfg))
+    params, opt, m = step(params, opt, first)
+    times = []
+    for _ in range(MESH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, first)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times)
+    out = {"mesh_reference": ref, "step_ms": step_s * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"mesh reference: 13a's configuration unsharded, loss "
+          f"{ref['loss']}, step {out['step_ms']} ms (median of {MESH_TIMED}; "
+          f"{[t * 1e3 for t in times]}), peak {out['peak_bytes']} bytes")
+    del params, opt, m, first, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_loss(out: str) -> float:
+    line = [ln for ln in out.splitlines() if "final loss:" in ln]
+    if len(line) != 1:
+        raise SystemExit(f"launcher: no single final loss in:\n{out[-2000:]}")
+    return float(line[0].rsplit(":", 1)[1])
+
+
+def mesh_training(torch, seed: int, train_rec: dict, records: list) -> dict:
+    """Phase 19 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    shape = (n, 1)
+    print(f"mesh: {n} card(s), one NCCL rank a card; 19a's mesh (data "
+          f"{n}, model 1); cross-card collectives: " + (
+              "none can run: every group holds one rank, one card" if n == 1
+              else f"the data group spans {n} cards"))
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh-")
+    atexit.register(shutil.rmtree, work, True)
+    torch.save(train_rec["mesh_reference"], os.path.join(work, "ref13a.pt"))
+    from repro_torch.configs import get_config
+    cfg_bytes = 4 * dataclasses.replace(
+        get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS).param_count()
+    free = shutil.disk_usage(work).free
+    if free < MESH_CKPT_SLACK * cfg_bytes:
+        raise SystemExit(f"mesh: 19c needs {MESH_CKPT_SLACK} x {cfg_bytes} "
+                         f"bytes free under {work}, has {free}")
+
+    # 19a: 13a's configuration on the (n, 1) mesh; 19b's runs of the
+    # launcher start once 19a's steps are timed, beside 19c.  19b: the
+    # launcher in cluster mode on the card, whole; then its last checkpoint
+    # removed, as if it had died after step ``every``'s, and the same
+    # command again: it resumes from there
+    port = free_port()
+    steps, every = MESH_DEMO_STEPS
+    whole = os.path.join(work, "launcher")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--demo",
+            "--steps", str(steps), "--ckpt-every", str(every), "--num-hosts",
+            "1", "--host-id", "0", "--ckpt-dir", whole]
+    t0 = time.perf_counter()
+    ranks = start_processes([_mesh_cmd(r, n, port, work, shape,
+                                       TRAIN_LAYERS, seed, True)
+                             for r in range(n)])
+    launchers, marker = [], os.path.join(work, "timed")
+    try:
+        while (not os.path.exists(marker)
+               and all(p.poll() is None for p in ranks)):
+            time.sleep(0.2)
+        if os.path.exists(marker):
+            t_19b = time.perf_counter()
+            launchers = start_processes([base + [
+                "--coordinator", f"127.0.0.1:{free_port()}"]])
+            (out_whole,) = wait_processes(launchers, "19b")
+            shutil.rmtree(os.path.join(whole, f"step-{steps:08d}"))
+            launchers = start_processes([base + [
+                "--coordinator", f"127.0.0.1:{free_port()}"]])
+        wait_processes(ranks, "19a")
+        wall_19a = time.perf_counter() - t0
+        if not launchers:
+            raise SystemExit("19a: the ranks ended before their steps were "
+                             "timed")
+        (out_resumed,) = wait_processes(launchers, "19b restart")
+        wall_19b = time.perf_counter() - t_19b
+    finally:
+        for p in ranks + launchers:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    with open(os.path.join(work, "rank0.json")) as f:
+        a = json.load(f)
+    print(f"19a: Qwen2-7B at {TRAIN_LAYERS} layers on the {a['mesh']} mesh "
+          f"({a['mesh_axes']}) of {n} card(s) ({a['card']}): loss "
+          f"{a['loss']} against 13a's {a['ref_loss']}; relative differences "
+          f"{a['errors']} (tolerances {MESH_TOL}); one step's launches on "
+          f"rank 0 {a['step_launches']}, no plain attention; data launches "
+          f"{a['data_launches']}; losses {a['losses']}; step {a['step_ms']} "
+          f"ms (median of {MESH_TIMED}; {a['step_ms_all']}) against 13a's "
+          f"{train_rec['step_ms']} ms, {a['tokens_per_s']} tokens/s against "
+          f"{train_rec['tokens_per_s']}, peak {a['peak_bytes']} bytes "
+          f"allocated on rank 0 against 13a's {train_rec['peak_bytes']}; "
+          f"the loss's all-reduces over more than one rank: "
+          f"{a['cross_card_all_reduces']} (one step: "
+          f"{a['step_cross_card_all_reduces']}); {wall_19a} s with the "
+          f"ranks' start")
+    print(f"19c: the parameters of 19a's sharded state ({a['restore_tensors']}"
+          f" tensors, {a['ckpt_bytes']} bytes on disk, written by rank 0 in "
+          f"{a['save_s']} s) restored into the unsharded model on the card "
+          f"in {a['restore_s']} s (beside 19b): step "
+          f"{a['restored_step']}, bit-identical {a['restore_bit_identical']}")
+    l_whole, l_resumed = launcher_loss(out_whole), launcher_loss(out_resumed)
+    rel_19b = abs(l_resumed - l_whole) / abs(l_whole)
+    print(f"19b: python -m repro_torch.launch.train --demo --steps {steps} "
+          f"--ckpt-every {every} --coordinator 127.0.0.1:<port> --num-hosts "
+          f"1 --host-id 0 on the card: final loss {l_whole}; with its "
+          f"step-{steps} checkpoint removed, the same command resumed from "
+          f"step {every} and ended at {l_resumed}: relative difference "
+          f"{rel_19b} (tolerance {MESH_RESTART_TOL}), bit-identical "
+          f"{l_resumed == l_whole}; {wall_19b} s for the two runs")
+    if (f"resumed from step {every}" not in out_resumed
+            or rel_19b > MESH_RESTART_TOL or "mesh of cuda" not in out_whole):
+        raise SystemExit(f"19b: the restarted launcher did not resume from "
+                         f"step {every} or missed the whole run's loss:\n"
+                         f"{out_resumed[-2000:]}")
+    full = None
+    if n >= 4:
+        port = free_port()
+        wait_processes(start_processes([
+            _mesh_cmd(r, n, port, work, (n // 2, 2), MESH_FULL_LAYERS, seed,
+                      False) for r in range(n)]), "19a at full depth")
+        with open(os.path.join(work, "rank0.json")) as f:
+            full = json.load(f)
+        print(f"19a at the published {MESH_FULL_LAYERS} layers on the "
+              f"{full['mesh']} mesh: losses {full['losses']}, step "
+              f"{full['step_ms']} ms, {full['tokens_per_s']} tokens/s, peak "
+              f"{full['peak_bytes']} bytes on rank 0, launches "
+              f"{full['step_launches']}, the loss's cross-card all-reduces "
+              f"{full['cross_card_all_reduces']}")
+
+    for r in records:
+        if r["name"] in ("flash_attention_fwd", "flash_attention_bwd"):
+            r["mesh_launches"] = a["step_launches"][r["name"]]
+        if r["name"] in a["data_launches"] and r["name"] in (
+                "cam_match", "bit_transpose", "bulk_program"):
+            r["mesh_data_launches"] = a["data_launches"][r["name"]]
+    out = {"cards": n, "mesh_19a": a, "full_depth": full,
+           "launcher": {"whole": l_whole, "resumed": l_resumed,
+                        "rel": rel_19b, "s": wall_19b},
+           "step_ms_13a": train_rec["step_ms"],
+           "peak_13a": train_rec["peak_bytes"],
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"mesh_path": out}))
+    print(f"phase 19 took {out['phase_s']} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phase 1, then phase 19 beside an unsharded step "
+                    "of 13a's configuration (for a run on several cards)")
     args = ap.parse_args()
 
     import torch
@@ -4942,6 +5436,15 @@ def main() -> int:
         if ("registers" in line or line.startswith("---") or (
                 named and ("Compiling entry" in line or "spill" in line))):
             print(f"  {line.strip()}")
+
+    if args.mesh_only:
+        mesh_training(torch, args.seed, mesh_reference(torch, dev, args.seed),
+                      [])
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. kernels against their plain versions, ragged shapes --------
     rng = np.random.default_rng(args.seed)
@@ -5619,8 +6122,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"train: {torch.cuda.memory_allocated()} bytes still allocated "
           "after phase 12")
-    training_path(torch, dev, args.seed, zero_counts, counted, read_waves,
-                  kernel, records)
+    train_rec = training_path(torch, dev, args.seed, zero_counts, counted,
+                              read_waves, kernel, records)
     restart_path(torch, dev, args.seed)
 
     # ---- 14. the analysis and the lock witness on the card ---------------
@@ -5673,6 +6176,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dryrun_path(torch, dev, args.seed, zero_counts, counted)
 
+    # ---- 19. the multi-card training path ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_training(torch, args.seed, train_rec, records)
+
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5682,4 +6190,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-rank" in sys.argv:
+        ap_ = argparse.ArgumentParser()
+        for a_, t_ in (("--mesh-rank", int), ("--mesh-world", int),
+                       ("--mesh-port", int), ("--mesh-work", str),
+                       ("--mesh-shape", str), ("--mesh-layers", int),
+                       ("--seed", int)):
+            ap_.add_argument(a_, type=t_, required=True)
+        ap_.add_argument("--mesh-restore", action="store_true")
+        sys.exit(mesh_rank(ap_.parse_args()))
     sys.exit(main())

@@ -13,6 +13,14 @@ kernel (``flash_attention_bwd``), which recomputes each probability block
 from those, as the reference's custom VJP does.  On CPU tensors the kernel
 wrappers run their plain versions; on CUDA tensors they launch the kernels
 or raise.
+
+On a device mesh (q, k and v DTensors) :func:`flash_attention_vjp` runs the
+same ``torch.autograd.Function`` on each process's local shard through
+``local_map``: the batch over the data axes and the heads over ``model``
+where both the query and the KV heads divide it (so that a GQA group stays
+on one process), else whole; ``head_dim`` always whole, as the kernels need
+it.  q, k and v are redistributed to that first (a ``logical_spec`` that
+put ``head_dim`` on ``model``, as Qwen2-7B's 28 heads on 16, is gathered).
 """
 from __future__ import annotations
 
@@ -58,6 +66,32 @@ class _FlashVJP(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _local_placements(q: torch.Tensor, k: torch.Tensor) -> tuple:
+    """(q's, k's and v's) placements for the kernels on q's device mesh:
+    the batch as the ``batch`` rule shards it, the heads over ``model``
+    when both head counts divide it, else whole; ``head_dim`` whole."""
+    from repro_torch.launch.mesh import as_mesh
+    from repro_torch.parallel.sharding import mesh_placements
+    mesh = as_mesh(q.device_mesh)
+    pq = mesh_placements(q.shape, ("batch", None, "heads", None), mesh)
+    pk = mesh_placements(k.shape, ("batch", None, "kv_heads", None), mesh)
+    if pq != pk:                        # a GQA group would span processes
+        pq = pk = mesh_placements(q.shape, ("batch",), mesh)
+    return pq, pk
+
+
+def _sharded_vjp(q, k, v, causal, window, q_offset, kv_len):
+    """:class:`_FlashVJP` on each process's shard of DTensor q, k, v."""
+    from torch.distributed.tensor.experimental import local_map
+    pq, pk = _local_placements(q, k)
+    fn = local_map(
+        lambda q_, k_, v_: _FlashVJP.apply(q_, k_, v_, causal, window,
+                                           q_offset, kv_len),
+        out_placements=pq, in_placements=(pq, pk, pk),
+        device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, v)
+
+
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window=None, q_offset: int = 0,
                         kv_len=None, q_chunk: int = 512, kv_chunk: int = 1024,
@@ -74,6 +108,8 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "positive")
     if block_skip and not causal:
         raise ValueError("flash_attention_vjp: block_skip needs causal")
+    if hasattr(q, "device_mesh"):
+        return _sharded_vjp(q, k, v, causal, window, q_offset, kv_len)
     return _FlashVJP.apply(q, k, v, causal, window, q_offset, kv_len)
 
 

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import constrain
+
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
@@ -70,7 +72,8 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- mlp
 def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     """Gated (silu/geglu) or plain (gelu) MLP.  Weights: w_in/w_gate
-    (d, f), w_out (f, d), used in x's dtype."""
+    (d, f), w_out (f, d), used in x's dtype; the hidden (B, S, f) held to
+    the reference's ("batch", None, "mlp") sharding."""
     h = x @ p["w_in"].to(x.dtype)
     if act in ("silu", "geglu"):
         g = x @ p["w_gate"].to(x.dtype)
@@ -78,6 +81,7 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
         h = g * h
     else:
         h = F.gelu(h, approximate="tanh")
+    h = constrain(h, ("batch", None, "mlp"))
     return h @ p["w_out"].to(x.dtype)
 
 

@@ -50,9 +50,20 @@ trains: the dense ones with ``qkv_bias``, ``qk_norm``, ``parallel_block``,
 ``logit_softcap``, tied and untied heads, silu/geglu/gelu, sliding windows
 with the reference's per-layer global flags (``global_flags``: Gemma3's
 local:global pattern), M-RoPE and the VLM prefix (Qwen2-VL), MoE, SSM,
-hybrid and the encoder-decoder.  The sharding constraints of the reference
-are identities on one card and are dropped (``param_logical`` and
-``cache_logical`` keep their names).
+hybrid and the encoder-decoder.
+
+On a device mesh (``init_params(..., mesh=)``, a
+``repro_torch.launch.mesh.DistMesh``) the parameters are DTensors placed by
+:func:`param_logical` (FSDP over ``data``, TP over ``model``, the
+reference's divisibility fallback) and the dense attention family trains
+under the reference's sharding constraints (``parallel.sharding.constrain``
+at the residual after the embedding, q after rope, the MLP hidden and the
+logits; identities on one device): DTensor propagates the products and
+their collectives, flash attention runs its kernels on each process's local
+heads and batch (``models.flash``), and the loss is vocab-parallel
+(``models.loss``).  The embedding is gathered whole for the lookup.  The
+other families, ``ulysses_attn``, ``seq_sharded`` and serving raise on a
+device mesh (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -66,6 +77,7 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.engine.policy import resolve_device
+from repro_torch.launch.mesh import DistMesh, set_mesh
 from repro_torch.models import flash
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -74,6 +86,7 @@ from repro_torch.models.layers import (AttnMask, apply_rope,
                                        decode_attention, mlp, rms_norm,
                                        rope_angles)
 from repro_torch.models.loss import fused_ce_loss
+from repro_torch.parallel.sharding import constrain, distribute
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -120,8 +133,8 @@ def layer_windows(cfg: ModelConfig) -> list:
 
 # ----------------------------------------------------------------- schema
 #: the reference's logical axis names per parameter (per-layer tensors lead
-#: with the stacked L axis, None): on one card every sharding constraint they
-#: drive is an identity, so they serve parity only (:func:`param_logical`)
+#: with the stacked L axis, None): the placements of the parameters on a
+#: device mesh (:func:`param_logical`)
 LOGICAL = {
     "embed": ("vocab", "fsdp"), "final_norm": (None,),
     "lm_head": ("fsdp", "vocab"), "ln1": (None, None), "ln2": (None, None),
@@ -291,6 +304,7 @@ class DecoderLayer(nn.Module):
         if angles is not None:
             q = apply_rope(q, angles)
             k = apply_rope(k, angles)
+        q = constrain(q, ("batch", None, "heads", "head_dim"))
         if mode == "decode":
             cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
             cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
@@ -422,11 +436,14 @@ class Model(nn.Module):
     """The stack: ``embed``, ``layers`` (a ``ModuleList`` of
     :class:`DecoderLayer`), ``final_norm`` and, untied, ``lm_head``; for an
     encoder-decoder also ``enc_layers`` (of :class:`EncoderLayer`) and
-    ``enc_final_norm``."""
+    ``enc_final_norm``.  ``mesh``: the ``DistMesh`` the parameters are
+    DTensors on, or None."""
 
-    def __init__(self, cfg: ModelConfig, tensors: dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, tensors: dict[str, torch.Tensor],
+                 mesh: DistMesh | None = None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         for name in GLOBAL_KEYS:
             if name in tensors:
                 self.register_parameter(name, _param(tensors[name]))
@@ -443,48 +460,89 @@ class Model(nn.Module):
 
 
 # ------------------------------------------------------------ construction
+def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
+    """``mesh`` if it is a device mesh (a ``DistMesh``), else None (no
+    mesh, or an abstract one: nothing to place).  Raises
+    ``NotImplementedError`` on a device mesh unless ``cfg`` is of the dense
+    attention family that trains there: the MoE, SSM, hybrid and
+    encoder-decoder families, ``ulysses_attn`` and ``seq_sharded`` are not
+    ported (ROADMAP A11, A12), and nothing is replicated in their place."""
+    if not isinstance(mesh, DistMesh):
+        return None
+    what = [w for w, on in (
+        ("the MoE FFN", cfg.moe is not None),
+        (f"the {cfg.block} block", cfg.block != "attn"),
+        ("the encoder-decoder", cfg.enc_dec)) if on]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(what)} on the {mesh.name} device mesh is "
+            f"not ported (ROADMAP A11: the families under a mesh)")
+    what = [w for w in ("ulysses_attn", "seq_sharded") if getattr(cfg, w)]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {' and '.join(what)} on the {mesh.name} device "
+            f"mesh is not ported (ROADMAP A12: ulysses_attn and seq_sharded)")
+    return mesh
+
+
+def _place(name: str, t: torch.Tensor, mesh: DistMesh | None
+           ) -> torch.Tensor:
+    """Schema tensor ``name``, which every process holds whole and alike:
+    on ``mesh`` a DTensor placed by :func:`param_logical` (each process
+    keeps its slice), else ``t`` itself."""
+    return t if mesh is None else distribute(t, LOGICAL[name], mesh)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                dtype: torch.dtype | None = None) -> Model:
+                dtype: torch.dtype | None = None, mesh=None) -> Model:
     """A :class:`Model` with the reference's init rule (normal * scale, zero
     where the scale is 0, 0.5 for the SSM's A_log, dt_bias and D) drawn
     from a ``torch.Generator`` on ``device`` seeded with ``seed``, on
-    ``device`` (the card unless the caller asks for the CPU).  The numbers differ from ``jax.random``'s.  ``dtype`` is the
-    storage of matrices, embedding and biases (default the compute dtype;
-    training passes ``torch.float32`` for fp32 master weights)."""
-    dev = resolve_device(device)
+    ``device`` (the card unless the caller asks for the CPU).  The numbers
+    differ from ``jax.random``'s.  ``dtype`` is the storage of matrices,
+    embedding and biases (default the compute dtype; training passes
+    ``torch.float32`` for fp32 master weights).  With ``mesh`` (a
+    ``DistMesh``) every process draws the same numbers on its device and
+    keeps its slice of each parameter (DTensors placed by
+    :func:`param_logical`; :func:`device_mesh_for` first)."""
+    mesh = device_mesh_for(cfg, mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
     dtype = COMPUTE_DTYPE if dtype is None else dtype
     generator = torch.Generator(device=dev).manual_seed(seed)
     tensors = {}
     for name, (shape, scale) in sorted(_schema(cfg).items()):
         sd = _store_dtype(name, dtype)
         if scale == 0.0:
-            tensors[name] = torch.zeros(shape, dtype=sd, device=dev)
+            t = torch.zeros(shape, dtype=sd, device=dev)
         elif name.endswith(("A_log", "dt_bias", "D")):
-            tensors[name] = torch.full(shape, 0.5, dtype=sd, device=dev)
+            t = torch.full(shape, 0.5, dtype=sd, device=dev)
         else:
-            tensors[name] = (torch.randn(shape, generator=generator,
-                                         dtype=torch.float32, device=dev)
-                             .mul_(scale).to(sd))
-    return Model(cfg, tensors)
+            t = (torch.randn(shape, generator=generator, dtype=torch.float32,
+                             device=dev).mul_(scale).to(sd))
+        tensors[name] = _place(name, t, mesh)
+        del t                           # one whole tensor at a time
+    return Model(cfg, tensors, mesh)
 
 
 def params_from_numpy(cfg: ModelConfig, params: dict, *, device="cuda",
-                      dtype: torch.dtype | None = None) -> Model:
+                      dtype: torch.dtype | None = None, mesh=None) -> Model:
     """A :class:`Model` holding the reference's flat parameter dict (numpy
     arrays, per-layer tensors stacked on a leading L axis), matrices,
     embedding and biases in ``dtype`` (default the compute dtype), norm
     scales in fp32, on ``device`` (the card unless the caller asks for the
-    CPU)."""
-    dev = resolve_device(device)
+    CPU); with ``mesh`` (a ``DistMesh``) as DTensors placed by
+    :func:`param_logical`, as :func:`init_params`."""
+    mesh = device_mesh_for(cfg, mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
     dtype = COMPUTE_DTYPE if dtype is None else dtype
     tensors = {}
     for name, (shape, _) in _schema(cfg).items():
         arr = np.array(params[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"{name}: want shape {shape}, got {arr.shape}")
-        tensors[name] = torch.from_numpy(arr).to(
-            device=dev, dtype=_store_dtype(name, dtype))
-    return Model(cfg, tensors)
+        tensors[name] = _place(name, torch.from_numpy(arr).to(
+            device=dev, dtype=_store_dtype(name, dtype)), mesh)
+    return Model(cfg, tensors, mesh)
 
 
 def _layer_names(cfg: ModelConfig, name: str) -> list[str]:
@@ -496,13 +554,15 @@ def _layer_names(cfg: ModelConfig, name: str) -> list[str]:
     return [f"layers.{i}.{name}" for i in range(cfg.num_layers)]
 
 
-def stack_layers(cfg: ModelConfig, named: dict) -> dict[str, torch.Tensor]:
+def stack_layers(cfg: ModelConfig, named: dict, stack=torch.stack
+                 ) -> dict[str, torch.Tensor]:
     """Tensors keyed by :class:`Model` parameter name (``embed``,
     ``layers.<i>.<key>``, ``enc_layers.<i>.<key>``) -> the reference's flat
     names, per-layer tensors stacked on a leading L (or ``enc_layers``)
-    axis (a copy, on their device)."""
+    axis by ``stack`` (of the list of a key's layers; default a copy on
+    their device)."""
     return {name: named[name] if name in GLOBAL_KEYS else
-            torch.stack([named[n] for n in _layer_names(cfg, name)])
+            stack([named[n] for n in _layer_names(cfg, name)])
             for name in _schema(cfg)}
 
 
@@ -520,13 +580,21 @@ def unstack_layers(cfg: ModelConfig, flat: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole: a DTensor gathered (a collective: every process of its
+    mesh calls it), another tensor itself."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def params_to_numpy(params: Model) -> dict[str, np.ndarray]:
     """The inverse of :func:`params_from_numpy`: the reference's flat
     parameter dict, fp32 numpy arrays with per-layer tensors stacked on the
-    L axis."""
+    L axis (DTensors gathered whole on every process, a layer at a
+    time)."""
     named = {n: p.detach() for n, p in params.named_parameters()}
-    return {name: t.float().cpu().numpy()
-            for name, t in stack_layers(params.cfg, named).items()}
+    return {name: full_tensor(t).float().cpu().numpy() if name in GLOBAL_KEYS
+            else np.stack([full_tensor(x).float().cpu().numpy() for x in t])
+            for name, t in stack_layers(params.cfg, named, list).items()}
 
 
 def abstract_params(cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -699,9 +767,47 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
     if cfg.enc_dec and mode != "decode" and frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: mode={mode!r} "
                          f"needs frames (B, F, d_model)")
+    if params.mesh is not None:
+        if mode != "train":
+            raise NotImplementedError(
+                f"{mode} on the {params.mesh.name} device mesh is not ported "
+                f"(ROADMAP A13: serving under TP)")
+        with set_mesh(params.mesh):
+            return _forward(params, cfg, tokens, mode, visual,
+                            mrope_positions, frames, cache, max_len,
+                            return_hidden)
+    return _forward(params, cfg, tokens, mode, visual, mrope_positions,
+                    frames, cache, max_len, return_hidden)
+
+
+def _replicated(params: Model, t, logical):
+    """A tensor every process computed whole and alike (rope angles, the
+    visual prefix, a batch), on the parameters' mesh under ``logical``;
+    ``t`` itself for a model off any mesh or a tensor already there."""
+    if params.mesh is None or t is None or hasattr(t, "device_mesh"):
+        return t
+    return distribute(t, logical, params.mesh)
+
+
+def _embed(params: Model, tokens: torch.Tensor, dt) -> torch.Tensor:
+    """The token embeddings in ``dt``.  On a mesh the lookup reads the
+    embedding gathered whole (DTensor has no rule for a gather from a table
+    sharded on both dimensions); the gradient comes back as the
+    parameter's, summed in fp32 as the plain lookup's."""
+    if params.mesh is None:
+        return params.embed[tokens.long()].to(dt)
+    from torch.distributed.tensor import Replicate
+    table = params.embed.redistribute(
+        params.mesh.device_mesh, [Replicate()] * len(params.mesh.axis_names))
+    return torch.nn.functional.embedding(tokens.long(), table).to(dt)
+
+
+def _forward(params: Model, cfg: ModelConfig, tokens, mode, visual,
+             mrope_positions, frames, cache, max_len, return_hidden):
     B, S = tokens.shape
     dt = COMPUTE_DTYPE
     dev = params.embed.device
+    tokens = _replicated(params, tokens, ("batch", None))
     with contextlib.nullcontext() if mode == "train" else torch.no_grad():
         if mode == "decode":
             pos0 = int(cache["pos"])
@@ -712,20 +818,26 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
                       _empty_caches(cfg, B, max(S, max_len or S), dev,
                                     None if frames is None
                                     else frames.shape[1]))
-        x = params.embed[tokens.long()].to(dt)
+        x = _embed(params, tokens, dt)
         if cfg.vlm and visual is not None:
             V = visual.shape[1]
-            x = torch.cat([visual.to(device=dev, dtype=dt), x[:, V:]], dim=1)
+            vis = _replicated(params, visual.to(device=dev, dtype=dt),
+                              ("batch", None, "embed"))
+            x = torch.cat([vis, x[:, V:]], dim=1)
+        x = constrain(x, ("batch", "seq", "embed"))
         angles = None
         if cfg.rope in ("rope", "mrope"):
             positions = (pos0 + torch.arange(S, device=dev))[None].expand(B, S)
             if cfg.rope == "mrope":
+                if hasattr(mrope_positions, "full_tensor"):
+                    mrope_positions = mrope_positions.full_tensor()
                 if mrope_positions is None:
                     mrope_positions = positions[None].expand(3, B, S)
                 angles = rope_angles(mrope_positions.to(dev), cfg.head_dim,
                                      cfg.rope_theta, cfg.mrope_sections)
             else:
                 angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            angles = _replicated(params, angles, ("batch", None, None))
         enc_out = (_encoder(params, cfg, frames, mode == "train")
                    if cfg.enc_dec and mode != "decode" else None)
         if mode == "train":
@@ -749,7 +861,7 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
 def _head_logits(params: Model, cfg: ModelConfig, x: torch.Tensor
                  ) -> torch.Tensor:
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = x @ head.to(x.dtype)
+    logits = constrain(x @ head.to(x.dtype), ("batch", None, "vocab"))
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
@@ -770,6 +882,7 @@ def lm_loss(params: Model, cfg: ModelConfig, batch: dict
                               mrope_positions=batch.get("mrope_positions"),
                               frames=batch.get("frames"), return_hidden=True)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    loss, tokens = fused_ce_loss(hidden, head.to(hidden.dtype),
-                                 batch["labels"], valid_vocab=cfg.vocab_size)
+    labels = _replicated(params, batch["labels"], ("batch", None))
+    loss, tokens = fused_ce_loss(hidden, head.to(hidden.dtype), labels,
+                                 valid_vocab=cfg.vocab_size)
     return loss, {"loss": loss, "tokens": tokens}

@@ -11,6 +11,12 @@ moments in place, tensor by tensor, and consumes the gradients (their
 buffers are reused as scratch): the transient memory is about one tensor's,
 not the model's (the 152064 x 3584 embedding alone is 2.2 GB in fp32).
 
+On a device mesh (DTensor parameters and gradients of equal placements,
+as the train step leaves them) the moments take the parameters'
+placements, each process updates its own shards, and the global norm and
+the int8 scale reduce over every shard of a tensor (DTensor's
+``vector_norm``, gathered whole), not over one process's.
+
   * ``moment_dtype="bfloat16"`` halves optimizer-state memory; the update
     runs in fp32 and rounds the moments back once.
   * ``grad_compression="int8"`` models the numerics of per-tensor symmetric
@@ -65,11 +71,12 @@ def _named(params) -> dict[str, torch.Tensor]:
 
 def init_opt_state(params, cfg: OptimConfig) -> dict:
     """Zero moments like ``params`` (a Model or a dict of tensors) in the
-    moment dtype, and step 0 (an int32 scalar on their device)."""
+    moment dtype (DTensors placed as their parameters on a device mesh),
+    and step 0 (an int32 scalar on their device)."""
     named = _named(params)
     dt = _moment_dtype(cfg)
     dev = next(iter(named.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=dt, requires_grad=False)
              for k, p in named.items()}
     return {"m": zeros,
             "v": {k: torch.zeros_like(z) for k, z in zeros.items()},
@@ -85,13 +92,26 @@ def abstract_opt_state(params, cfg: OptimConfig) -> dict:
             "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This process's shard of a DTensor (its storage, under no_grad), or
+    ``t`` itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _norm(t: torch.Tensor, ord=2) -> torch.Tensor:
+    """``t``'s vector norm over the whole tensor: a DTensor's over all its
+    shards (gathered whole), a plain scalar tensor either way."""
+    n = torch.linalg.vector_norm(t, ord=ord)
+    return n.full_tensor() if hasattr(n, "full_tensor") else n
+
+
 def _compress_int8(g: torch.Tensor) -> None:
     """Symmetric per-tensor int8 quantize/dequantize, in place.  After the
     clamp the values are the int8 codes exactly, so they are scaled back
-    without a round trip through an int8 tensor."""
-    scale = torch.clamp(torch.linalg.vector_norm(g, ord=float("inf")),
-                        min=1e-12) / 127.0
-    g.div_(scale).round_().clamp_(-127, 127).mul_(scale)
+    without a round trip through an int8 tensor.  The scale is the whole
+    tensor's largest magnitude, across shards."""
+    scale = torch.clamp(_norm(g, float("inf")), min=1e-12) / 127.0
+    _local(g).div_(scale).round_().clamp_(-127, 127).mul_(scale)
 
 
 def _update(p, g, m, v, *, scale, lr, b1c, b2c, cfg: OptimConfig) -> None:
@@ -133,8 +153,7 @@ def apply_updates(params, grads: dict, state: dict, cfg: OptimConfig
         if cfg.grad_compression == "int8":
             for k in keys:
                 _compress_int8(grads[k])
-        gnorm = torch.sqrt(sum(torch.linalg.vector_norm(grads[k]).square()
-                               for k in keys))
+        gnorm = torch.sqrt(sum(_norm(grads[k]).square() for k in keys))
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         step = state["step"] + 1
@@ -143,7 +162,8 @@ def apply_updates(params, grads: dict, state: dict, cfg: OptimConfig
         b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
         b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
         for k in keys:
-            _update(named[k], grads.pop(k), state["m"][k], state["v"][k],
+            _update(_local(named[k]), _local(grads.pop(k)),
+                    _local(state["m"][k]), _local(state["v"][k]),
                     scale=scale, lr=lr, b1c=b1c, b2c=b2c, cfg=cfg)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

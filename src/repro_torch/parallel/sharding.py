@@ -1,11 +1,13 @@
 """Logical-axis sharding: model code names axes, a rules table maps them to
 mesh axes, and a divisibility guard drops any mapping that does not divide.
 
-The port's twin of ``repro.parallel.sharding``, over the port's abstract
-mesh (``repro_torch.launch.mesh``: axis names and sizes, made current by
+The port's twin of ``repro.parallel.sharding``, over the port's meshes
+(``repro_torch.launch.mesh``: an ``AbstractMesh`` of axis names and sizes,
+or a ``DistMesh`` over the processes' devices, made current by
 ``set_mesh``).  A spec is a tuple with one entry per dimension: a mesh axis
 name, a tuple of names, or None (replicated), as the entries of the
-reference's ``PartitionSpec``.
+reference's ``PartitionSpec``; :func:`placements` turns it into the
+DTensor placements of a ``DistMesh``, one per mesh dimension.
 
 Why the guard: the production mesh is fixed at (data=16, model=16)
 [+pod=2], but the assigned architectures have head counts (28, 25, 96/kv8),
@@ -22,11 +24,15 @@ Logical axes used by the model code:
   model/tp  -> "model"           tensor parallel (d_ff, heads, vocab, experts)
   seq       -> sequence parallel axis (activations, long-context)
 
-The port runs on one card: the dry run (``repro_torch.launch.dryrun``)
-reads these specs for the per-device bytes of each argument
-(:func:`shard_bytes`), and :func:`constrain` is an identity on a mesh of one
-device.  A multi-device mesh would need a real resharding, which waits for
-a multi-card slice.
+The dry run (``repro_torch.launch.dryrun``) reads these specs on an
+abstract mesh for the per-device bytes of each argument (:func:`shard_bytes`);
+there :func:`constrain` is an identity, as it is with no mesh or a mesh of
+one device.  On a ``DistMesh`` of more than one device it is the
+reference's ``with_sharding_constraint``: it redistributes a DTensor to the
+spec's placements (``DTensor.redistribute``: the collectives that XLA's
+partitioner would insert).  :func:`distribute` places a tensor that every
+process holds whole (a parameter, a batch, rope angles) on a ``DistMesh``
+without communication.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.launch.mesh import AbstractMesh, get_abstract_mesh
+from repro_torch.launch.mesh import (AbstractMesh, DistMesh, as_mesh,
+                                     get_abstract_mesh, set_mesh)
 
 AxisName = str | tuple[str, ...] | None
 
@@ -108,19 +115,62 @@ def logical_spec(shape: Sequence[int], logical: Sequence[str | None]
     return tuple(out)
 
 
+def placements(spec, mesh: AbstractMesh) -> list:
+    """The DTensor placements of a :func:`logical_spec` entry on ``mesh``,
+    one per mesh dimension: ``Shard(dim)`` on each mesh axis that the
+    spec's entry for tensor dimension ``dim`` names (a tuple entry such as
+    ("pod", "data") shards that dimension over both, outer axis first, as
+    the reference's ``PartitionSpec``), ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.axis_names)
+    for dim, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else (entry or ())):
+            out[mesh.axis_names.index(a)] = Shard(dim)
+    return out
+
+
+def mesh_placements(shape: Sequence[int], logical: Sequence[str | None],
+                    mesh: AbstractMesh) -> list:
+    """:func:`placements` of the :func:`logical_spec` of ``shape`` under
+    ``logical`` on ``mesh`` (whatever mesh is current)."""
+    with set_mesh(mesh):
+        return placements(logical_spec(shape, logical), mesh)
+
+
 def constrain(x: torch.Tensor, logical: Sequence[str | None]
               ) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` by logical names: ``x``
-    itself with no current mesh or a mesh of one device (nothing to
-    reshard).  A multi-device mesh raises: resharding across cards waits
-    for the port's multi-card slice."""
-    mesh = get_abstract_mesh()
-    if mesh is None or mesh.empty or mesh.size == 1:
+    itself with no current mesh, on an abstract mesh (the dry run's meta
+    trace: no devices exist) and on a mesh of one device (nothing to
+    reshard); on a :class:`DistMesh` of more than one device ``x`` (a
+    DTensor, or a plain tensor the same on every process) redistributed to
+    :func:`placements` of its :func:`logical_spec`.  A DTensor is held on
+    its own mesh, current or not (a remat recompute runs in the backward,
+    outside the forward's ``set_mesh``)."""
+    mesh = (as_mesh(x.device_mesh) if hasattr(x, "device_mesh")
+            else get_abstract_mesh())
+    if not isinstance(mesh, DistMesh) or mesh.size == 1:
         return x
-    raise NotImplementedError(
-        f"constrain on the {mesh.name} mesh ({logical_spec(x.shape, logical)}"
-        f"): resharding across cards is not ported (the multi-card slice, "
-        f"ROADMAP)")
+    if not hasattr(x, "redistribute"):
+        return distribute(x, logical, mesh)
+    return x.redistribute(mesh.device_mesh,
+                          mesh_placements(x.shape, logical, mesh))
+
+
+def distribute(x: torch.Tensor, logical: Sequence[str | None],
+               mesh: AbstractMesh | None = None) -> torch.Tensor:
+    """``x``, which every process holds whole and alike, as a DTensor on
+    ``mesh`` (default the current one) under :func:`mesh_placements`: each
+    process keeps its own slice, with no communication.  On a
+    :class:`DistMesh` of any size, one device too (so that it meets the
+    model's DTensor parameters there); ``x`` itself off one."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    if not isinstance(mesh, DistMesh):
+        return x
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, mesh.device_mesh,
+                             mesh_placements(x.shape, logical, mesh),
+                             src_data_rank=None)
 
 
 def _is_names(v) -> bool:

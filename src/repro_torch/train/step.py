@@ -3,9 +3,11 @@ update, optional gradient accumulation over microbatches.
 
 The port's twin of ``repro.train.step``.  ``train_step(params, opt_state,
 batch)`` updates the :class:`repro_torch.models.model.Model` and the
-optimizer state in place and returns them with the step's metrics.  The
-reference's sharding constraints on the gradients are identities on one
-card and are dropped.
+optimizer state in place and returns them with the step's metrics.  On a
+device mesh (DTensor parameters) each gradient is pinned to its
+parameter's placements before the update, as the reference's
+``shard_grads``: autograd leaves some as partial sums (the embedding's
+scatter, the FSDP products), which this reduces onto their shards.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import lm_loss
+from repro_torch.models.model import full_tensor, lm_loss
 from repro_torch.optim.adamw import OptimConfig, apply_updates
 
 
@@ -35,6 +37,15 @@ def microbatch(batch: dict, i: int, n: int) -> dict:
         return x.reshape(shp).select(ax + 1, i)
     return {k: take(x, 1 if k == "mrope_positions" else 0)
             for k, x in batch.items()}
+
+
+def shard_grad(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The reference's ``shard_grads`` for one gradient: on a device mesh
+    ``g`` redistributed to its parameter's placements (a partial sum
+    reduced onto its shard), else ``g`` itself."""
+    if hasattr(p, "placements") and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
@@ -58,7 +69,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
             for i in range(n):
                 loss, _ = lm_loss(params, cfg, microbatch(batch, i, n))
                 loss.backward()
-                loss_sum = loss_sum + loss.detach()
+                loss_sum = loss_sum + full_tensor(loss.detach())
             metrics = {"loss": loss_sum / n}
         else:
             loss, metrics = lm_loss(params, cfg, batch)
@@ -66,11 +77,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
             metrics = {k: t.detach() for k, t in metrics.items()}
         grads = {}
         for k, p in named.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            g = shard_grad(p.grad if p.grad is not None
+                           else torch.zeros_like(p), p)
             grads[k] = g.div_(n) if n > 1 else g
             p.grad = None
         _, opt_state, opt_metrics = apply_updates(named, grads, opt_state,
                                                   tcfg.optim)
+        metrics = {k: full_tensor(t) for k, t in metrics.items()}
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 

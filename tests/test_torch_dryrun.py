@@ -179,13 +179,21 @@ def test_set_rules_and_get_rules_are_per_thread(port_rules):
 
 
 def test_constrain_is_the_identity_on_one_device_and_raises_on_many():
-    x = torch.arange(12.0).reshape(3, 4)
+    """``constrain`` is the identity with no mesh and on one device; on an
+    abstract mesh of many (the dry run's: no devices) it gives ``x``
+    itself too, and a device mesh would take the spec's placements (held
+    across processes in ``tests/test_torch_mesh_train.py``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    x = torch.arange(32.0).reshape(16, 2)
     assert tsharding.constrain(x, ("batch", None)) is x
     with tmesh.set_mesh(dryrun.card_mesh()):
         assert tsharding.constrain(x, ("batch", None)) is x
-    with tmesh.set_mesh(tmesh.make_production_mesh()):
-        with pytest.raises(NotImplementedError, match="multi-card"):
-            tsharding.constrain(x, ("batch", None))
+    mesh = tmesh.make_production_mesh()
+    with tmesh.set_mesh(mesh):
+        assert tsharding.constrain(x, ("batch", None)) is x
+        spec = tsharding.logical_spec(x.shape, ("batch", None))
+    assert spec == ("data", None)
+    assert tsharding.placements(spec, mesh) == [Shard(0), Replicate()]
 
 
 def test_shard_bytes():
