@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result; ``--mesh-only``
 runs phase 1, then phase 19 beside an unsharded step of 13a's
-configuration, for a run on several cards):
+configuration and phase 20 beside an unsharded run of phase 7's cell, for
+a run on several cards):
 
 1. Device and build: the card's name and power limit, the torch/CUDA
    versions, and the build of every kernel under ``src/repro_torch/csrc``
@@ -483,6 +484,38 @@ configuration, for a run on several cards):
    resume from step 2 and end within 1e-6 (relative) of the whole run's
    final loss.  The flash records gain ``mesh_launches`` (19a's step, rank
    0) and the bitmap ones ``mesh_data_launches``.
+20. Serving across cards, after phase 19, under the reference's
+   ``serve_tp`` rules (``fsdp`` mapped to None: TP-only weights, bf16).
+   b's unsharded side first, in this process: Command-R+-104B at its
+   published width (d_model 12288, 96 / 8 heads of 128, d_ff 33792, vocab
+   256000, tied head, the parallel block) cut to 8 of its 64 layers (31.5
+   GB of bf16 weights), phase 7's serving path and checks (4 prompts of
+   2048 from ``--seed``, ``greedy_generate`` of 32 steps with 8 flash
+   launches and no plain attention, prefill and decode timed, the kernel
+   at layers 0 and 7 against its plain version, the kernel- vs
+   plain-route logits in bf16 and fp32), and row 5c: the kernel at its
+   prefill shape (q (4, 2048, 96, 128), k/v (4, 2048, 8, 128)) and at one
+   rank's quarter on (1, 4) (24 and 2 heads), beside its plain version,
+   SDPA and its bound, by CUDA events around back-to-back calls.  Then one
+   NCCL rank a card (``chip_smoke.py --serve-rank``, fresh interpreters)
+   runs each job on its device mesh: a, phase 7's cell (Qwen2-7B, 4 x 2048,
+   32 greedy steps, its seed) on the (n, 1) mesh, its prefill's
+   last-position logits within phase 7's bf16 LOGIT_TOL of phase 7's,
+   argmax and the first generated token equal on decided rows,
+   bit-identity printed; b, 20b's 8 layers on the (1, n) mesh ((1, 1) on
+   one card) against the unsharded run the same way.  Each job builds the
+   model by ``init_params(mesh=)`` and a cache by ``init_cache(mesh=)``,
+   and holds the allocator's bytes for each against the dry run's
+   per-device argument bytes (``launch.dryrun.serve_arg_bytes``:
+   ``shard_bytes`` under ``serve_tp``), within the allocator's rounding
+   (SERVE_ALLOC_SLACK a tensor); ``greedy_generate`` runs with the flash
+   counter zeroed just before and read just after, the plain attention
+   made to raise, one flash launch a layer on each rank; then prefill ms,
+   decode ms a step, and each rank's peak and allocated bytes.  With 4
+   cards or more, also the published 64 layers on (1, n) (51.9 GB of
+   weights a card at n = 4; timed, no reference) and a on (n/2, 2).  The
+   flash records gain ``tp_serve_launches`` (b's first job, rank 0).  The
+   phase's seconds are printed.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -2814,8 +2847,8 @@ def lm_serving(torch, tstep, attention, params, cfg, batch: dict,
           f"decode {decode_ms} ms/step, {tok_s} generated tokens/s; "
           f"{same}/{gen.numel()} tokens equal to the first run's "
           f"[{CARD['smi']}]")
-    return {"gen_s": gen_s, "launches": launches, "prefill": prefill,
-            "decode": decode, "prefill_ms": prefill_ms,
+    return {"gen_s": gen_s, "gen": gen, "launches": launches,
+            "prefill": prefill, "decode": decode, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "tok_s": tok_s,
             "kernel_logits": kernel_logits, "captured": captured}
 
@@ -5347,6 +5380,369 @@ def mesh_training(torch, seed: int, train_rec: dict, records: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20
+SERVE_BIG_ARCH = "command-r-plus-104b"
+SERVE_BIG_LAYERS = 8        # 20b: 8 of the 64 layers, 31.5 GB of bf16 weights
+SERVE_BIG_FULL = 64         # 20b on 4 cards or more: the published depth
+#: 20: the allocator's bytes of a tensor against its dry-run bytes: each
+#: request rounded up to 512 bytes, and a large block left whole when less
+#: than 1 MiB (the caching allocator's small-block size) would remain
+SERVE_ALLOC_SLACK = (1 << 20) + 512
+
+
+def serve_record(torch, prompts, lm: dict) -> dict:
+    """What phase 20 holds a sharded serving run against, on the host:
+    the prompts, the greedy ids, the prefill's last-position logits
+    (fp32, the real vocabulary), the prefill and decode times and the peak
+    since the run's last reset."""
+    return {"prompts": prompts.cpu(), "gen": lm["gen"].cpu(),
+            "logits": lm["kernel_logits"].cpu(),
+            "prefill_ms": lm["prefill_ms"], "decode_ms": lm["decode_ms"],
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def serve_prompts(torch, cfg, seed: int):
+    """Phase 7's prompts for ``cfg``: LM_BATCH x LM_PROMPT ids from
+    ``seed``."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)))
+
+
+def serve_reference(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 20's reference without phases 2-19 (``--mesh-only``): phase
+    7's cell unsharded on the card through ``lm_serving``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = tmodel.init_params(cfg, seed=seed, device=dev)
+    prompts = serve_prompts(torch, cfg, seed).to(dev)
+    lm = lm_serving(torch, tstep, attention, params, cfg,
+                    {"tokens": prompts}, LM_STEPS, zero_counts, counted, "lm",
+                    ())
+    out = serve_record(torch, prompts, lm)
+    del params, lm, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def big_serving(torch, dev, seed: int, zero_counts, counted, kernel) -> dict:
+    """Phase 20b's unsharded side (see the module docstring); ``kernel``
+    (the records' maker) is None under ``--mesh-only``, which times no
+    row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    from torch_checks import COMMAND_R_FLASH_SHAPES, attn_tol
+    cfg = dataclasses.replace(get_config(SERVE_BIG_ARCH),
+                              num_layers=SERVE_BIG_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"command-r+ lm: {cfg.name} at {cfg.num_layers} of its 64 layers "
+          f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+          f"x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+          f"{torch.cuda.memory_allocated()} bytes on the card, made in "
+          f"{init_s} s")
+    prompts = serve_prompts(torch, cfg, seed).to(dev)
+    lm = lm_serving(torch, tstep, attention, params, cfg, {"tokens": prompts},
+                    LM_STEPS, zero_counts, counted, "command-r+ lm",
+                    (0, cfg.num_layers - 1))
+    out = serve_record(torch, prompts, lm)
+    out["launches"] = lm["launches"]["flash_attention_fwd"]
+    layer_err = check_layers(attention, lm["captured"],
+                             tmodel.layer_windows(cfg), "command-r+ lm check")
+    logit_checks = logit_route_checks(
+        torch, tmodel, tflash, attention, cfg, lm["prefill"], params,
+        {"tokens": prompts}, lm["kernel_logits"], "command-r+ lm check")
+    fq, fk, fv, _, fo = lm["captured"][0]
+    if kernel is not None:
+        # row 5c: the kernel at the prefill's shape and at one rank's
+        # quarter of the heads on (1, 4), beside its plain version and SDPA
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for label, (h, kv) in COMMAND_R_FLASH_SHAPES.items():
+            q, k, v = fq[:, :, :h], fk[:, :, :kv], fv[:, :, :kv]
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            B_, S_, _, hd_ = q.shape
+            want = fo[:, :, :h]
+            kernel(f"flash_attention_fwd {label}", "attention.cu",
+                   "src/repro/kernels/attention.py:67",
+                   f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, bf16",
+                   lambda: attention.flash_attention_fwd(q, k, v,
+                                                         causal=True),
+                   lambda: attention.flash_attention_fwd_plain(
+                       q, k, v, causal=True),
+                   2 * (2 * q.numel() + k.numel() + v.numel()),
+                   2 * S_ * (S_ + 1) * hd_ * B_ * h, 10, count=out["launches"],
+                   tol=attn_tol(want, torch.bfloat16), peak_ops=PEAK_BF16,
+                   library=lambda: sdpa(sq, sk, sv, is_causal=True,
+                                        enable_gqa=True))
+            del q, k, v, sq, sk, sv, want
+    print(json.dumps({"command_r_lm_path": {
+        "arch": cfg.name, "layers": cfg.num_layers, "init_s": init_s,
+        "prefill_ms": lm["prefill_ms"], "decode_ms_per_step": lm["decode_ms"],
+        "launches": lm["launches"], "layer_checks": layer_err,
+        "logit_checks": logit_checks, "peak_bytes": out["peak"],
+        "card": CARD["smi"]}}))
+    del params, lm, prompts, fq, fk, fv, fo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_cmd(rank: int, world: int, port: int, work: str, jobs: list,
+               seed: int) -> list:
+    return [sys.executable, os.path.abspath(__file__), "--serve-rank",
+            str(rank), "--serve-world", str(world), "--serve-port", str(port),
+            "--serve-work", work, "--serve-jobs", ",".join(jobs), "--seed",
+            str(seed)]
+
+
+def held_logits(torch, got, want, label: str) -> dict:
+    """Last-position logits (B, V) of a sharded run against an unsharded
+    one's: within phase 7's bf16 LOGIT_TOL of the reference's largest
+    magnitude, argmax equal on every row whose top-2 margin exceeds that
+    tolerance; bit-identity reported."""
+    err = max_abs_err(got, want)
+    tol = LOGIT_TOL["bfloat16"] * float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > tol
+    agree = got.argmax(-1) == want.argmax(-1)
+    if not (err <= tol and bool(agree[decided].all())
+            and bool(torch.isfinite(got).all())):
+        raise SystemExit(f"{label}: logits differ from the unsharded run's: "
+                         f"{err} > {tol} or argmax {agree.tolist()} on "
+                         f"decided rows {decided.tolist()}")
+    return {"err": err, "tol": tol, "decided": decided.tolist(),
+            "argmax_agree": int(agree.sum()),
+            "bit_identical": bits_equal(torch, got, want)}
+
+
+def serve_job(torch, dev, job: str, seed: int, refs: dict) -> dict:
+    """One phase-20 job on this rank: ``kind:DxM[:layers]`` (a: phase 7's
+    cell; b: Command-R+ at ``layers``) on the (D, M) device mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh, make_device_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    kind, shape_s, *rest = job.split(":")
+    shape = tuple(int(x) for x in shape_s.split("x"))
+    cfg = get_config(LM_ARCH if kind == "a" else SERVE_BIG_ARCH)
+    if kind == "b":
+        cfg = dataclasses.replace(cfg, num_layers=int(rest[0]))
+    ref = refs.get(kind) if kind == "a" or (
+        cfg.num_layers == SERVE_BIG_LAYERS) else None
+    label = f"20{kind} {cfg.name} at {cfg.num_layers} layers on {shape_s}"
+    mesh = make_device_mesh(shape, ("data", "model"), dev)
+    names = mesh.axis_names
+    prompts = (ref["prompts"] if ref else serve_prompts(torch, cfg, seed)
+               ).to(dev)
+    B, S = prompts.shape
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"job": job, "mesh": mesh.name, "card": torch.cuda.get_device_name(
+        dev), "init_s": time.perf_counter() - t0}
+    param_bytes = torch.cuda.memory_allocated(dev) - base
+    cache = tmodel.init_cache(cfg, B, S + LM_STEPS, mesh=mesh)
+    torch.cuda.synchronize()
+    cache_bytes = torch.cuda.memory_allocated(dev) - base - param_bytes
+    want = dryrun.serve_arg_bytes(cfg, AbstractMesh(shape, names), B,
+                                  S + LM_STEPS)
+    n_params = sum(1 for _ in params.parameters())
+    out["bytes"] = {"params": param_bytes, "cache": cache_bytes,
+                    "dryrun": want, "params_slack": n_params *
+                    SERVE_ALLOC_SLACK, "cache_slack": 2 * SERVE_ALLOC_SLACK}
+    if not (0 <= param_bytes - want["params"] <= n_params * SERVE_ALLOC_SLACK
+            and 0 <= cache_bytes - want["cache"] <= 2 * SERVE_ALLOC_SLACK):
+        raise SystemExit(f"{label}: the allocator holds {param_bytes} bytes "
+                         f"of parameters and {cache_bytes} of cache, the dry "
+                         f"run says {want} (slack {SERVE_ALLOC_SLACK} a "
+                         f"tensor)")
+    del cache
+
+    # the counted run: greedy_generate through the entry point
+    fwd = attention.flash_attention_fwd
+    fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_attention(attention):
+        gen = tstep.greedy_generate(params, cfg, prompts, steps=LM_STEPS)
+        torch.cuda.synchronize()
+    out["gen_s"] = time.perf_counter() - t0
+    out["launches"] = fwd.launches
+    if fwd.launches != cfg.num_layers or gen.shape != (B, LM_STEPS):
+        raise SystemExit(f"{label}: {fwd.launches} flash launches in one "
+                         f"greedy run (want {cfg.num_layers}, one a layer), "
+                         f"ids {tuple(gen.shape)}")
+
+    # prefill and decode timed apart
+    prefill = tstep.make_prefill_step(cfg, max_len=S + LM_STEPS)
+    decode = tstep.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    last = logits.full_tensor()[:, -1, :cfg.vocab_size].float()
+    toks = [last.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(LM_STEPS - 1):
+        logits, cache = decode(params, {"tokens": toks[-1][:, None],
+                                        "cache": cache})
+        toks.append(tstep.next_ids(logits, cfg))
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / (LM_STEPS - 1)
+    out["tokens_equal_to_greedy"] = int((torch.stack(toks, 1) == gen).sum())
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["allocated_bytes"] = torch.cuda.memory_allocated(dev)
+    # where the time goes: the card's busy time and idle share over one
+    # prefill and one more decode step (the cache has room for it), and
+    # the host's top operators by their own time over one prefill
+    step = {"tokens": toks[-1][:, None], "cache": cache}
+    out["profile"] = {
+        "prefill": profile(f"{label}, one prefill", *device_profile(
+            torch, lambda: prefill(params, {"tokens": prompts}))),
+        "decode": profile(f"{label}, one decode step", *device_profile(
+            torch, lambda: decode(params, step)))}
+    out["host_top"] = host_top(torch, lambda: prefill(params,
+                                                      {"tokens": prompts}))
+    if ref is not None:
+        want_logits = ref["logits"].to(dev)
+        out["logits"] = held_logits(torch, last, want_logits, label)
+        decided = torch.tensor(out["logits"]["decided"], device=dev)
+        first = gen[:, 0] == ref["gen"].to(dev)[:, 0]
+        out["first_token_agree"] = int(first.sum())
+        out["tokens_equal_to_reference"] = int(
+            (gen == ref["gen"].to(dev)).sum())
+        if not bool(first[decided].all()):
+            raise SystemExit(f"{label}: the first generated token differs "
+                             f"from the unsharded run's on a decided row: "
+                             f"{first.tolist()}, decided {decided.tolist()}")
+    del params, cache, logits, gen, toks, last, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_top(torch, fn, n: int = 6) -> list:
+    """The host's top ``n`` operators by their own time (ms) over one run
+    of ``fn``, from ``torch.profiler``'s CPU activity."""
+    from torch.profiler import ProfilerActivity, profile as host_profile
+    torch.cuda.synchronize()
+    with host_profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+            for e in top[:n]]
+
+
+def serve_rank(args) -> int:
+    """One rank of phase 20 (``--serve-rank``): joins the NCCL group of
+    ``--serve-world`` ranks, one a card, sets the ``serve_tp`` rules and
+    runs each of ``--serve-jobs`` (:func:`serve_job`) in turn; every rank
+    writes its records to ``--serve-work``/serve-rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from repro_torch.launch.dryrun import serve_tp_rules
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.parallel.sharding import set_rules
+    rank, world = args.serve_rank, args.serve_world
+    dev = init_distributed(f"127.0.0.1:{args.serve_port}", world, rank,
+                           device="cuda", local_rank=rank)
+    refs = torch.load(os.path.join(args.serve_work, "serve_refs.pt"))
+    try:
+        set_rules(serve_tp_rules())
+        out = [serve_job(torch, dev, job, args.seed, refs)
+               for job in args.serve_jobs.split(",")]
+        with open(os.path.join(args.serve_work, f"serve-rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_serving(torch, seed: int, lm7: dict, big: dict, records: list,
+                 t_phase: float) -> dict:
+    """Phase 20's ranks (see the module docstring), after ``big_serving``;
+    ``t_phase``: when the phase began."""
+    n = torch.cuda.device_count()
+    jobs = [f"a:{n}x1", f"b:1x{n}:{SERVE_BIG_LAYERS}"]
+    if n >= 4:
+        jobs += [f"b:1x{n}:{SERVE_BIG_FULL}", f"a:{n // 2}x2"]
+    print(f"serve mesh: {n} card(s), one NCCL rank a card, serve_tp rules; "
+          f"jobs {jobs}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve-")
+    atexit.register(shutil.rmtree, work, True)
+    torch.save({"a": lm7, "b": big}, os.path.join(work, "serve_refs.pt"))
+    t0 = time.perf_counter()
+    port = free_port()
+    wait_processes(start_processes([_serve_cmd(r, n, port, work, jobs, seed)
+                                    for r in range(n)]), "20")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(work, f"serve-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for i, job in enumerate(jobs):
+        a = ranks[0][i]
+        ref = lm7 if job.startswith("a") else big
+        held = a.get("logits")
+        print(f"20{job[0]} {job} on the {a['mesh']} mesh ({a['card']}): "
+              f"{a['launches']} flash launches in one greedy run on rank 0 "
+              f"(each rank: {[rk[i]['launches'] for rk in ranks]}), no plain "
+              f"attention; prefill {a['prefill_ms']} ms, decode "
+              f"{a['decode_ms']} ms/step"
+              + (f" against the unsharded run's {ref['prefill_ms']} ms and "
+                 f"{ref['decode_ms']} ms/step; logits {held} (tolerance "
+                 f"{LOGIT_TOL['bfloat16']} of max), first token equal on "
+                 f"{a['first_token_agree']}/{LM_BATCH} rows, "
+                 f"{a['tokens_equal_to_reference']}/{LM_BATCH * LM_STEPS} "
+                 f"greedy ids equal; peak {a['peak_bytes']} bytes on rank 0 "
+                 f"against {ref['peak']}" if held else
+                 f"; peak {a['peak_bytes']} bytes on rank 0")
+              + f"; per rank peak {[rk[i]['peak_bytes'] for rk in ranks]}, "
+              f"allocated {[rk[i]['allocated_bytes'] for rk in ranks]}; "
+              f"bytes against the dry run {a['bytes']}; init {a['init_s']} s"
+              f"; rank 0's card busy / idle share: prefill "
+              f"{a['profile']['prefill']['busy_ms']} ms / "
+              f"{a['profile']['prefill']['idle_share']}, decode step "
+              f"{a['profile']['decode']['busy_ms']} ms / "
+              f"{a['profile']['decode']['idle_share']}; the host's top "
+              f"operators in one prefill (ms, calls) {a['host_top']} "
+              f"[{CARD['smi']}]")
+    first_b = next(i for i, j in enumerate(jobs) if j.startswith("b"))
+    for r in records:
+        if r["name"] == "flash_attention_fwd":
+            r["tp_serve_launches"] = ranks[0][first_b]["launches"]
+    out = {"cards": n, "jobs": jobs, "ranks": ranks, "wall_s": wall,
+           "lm7": {k: lm7[k] for k in ("prefill_ms", "decode_ms", "peak")},
+           "big": {k: big[k] for k in ("prefill_ms", "decode_ms", "peak")},
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"serve_mesh_path": out}))
+    print(f"phase 20 took {out['phase_s']} s ({wall} s of ranks)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5440,6 +5836,12 @@ def main() -> int:
     if args.mesh_only:
         mesh_training(torch, args.seed, mesh_reference(torch, dev, args.seed),
                       [])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t20 = time.perf_counter()
+        lm7 = serve_reference(torch, dev, args.seed, zero_counts, counted)
+        mesh_serving(torch, args.seed, lm7, big_serving(
+            torch, dev, args.seed, zero_counts, counted, None), [], t20)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5997,6 +6399,7 @@ def main() -> int:
     from repro_torch.models import model as tmodel
     from repro_torch.serve import step as tstep
     cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()        # phase 20 reads phase 7's
     t0 = time.perf_counter()
     params = tmodel.init_params(cfg, seed=args.seed, device=dev)
     torch.cuda.synchronize()
@@ -6007,8 +6410,7 @@ def main() -> int:
           f"{cfg.d_ff}, vocab {cfg.vocab_size}): {nparam} parameters "
           f"(config: {cfg.param_count()}), {torch.cuda.memory_allocated()} "
           f"bytes on the card, made in {init_s} s")
-    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    prompts = serve_prompts(torch, cfg, args.seed).to(dev)
     # greedy generation counted, then prefill and decode timed apart;
     # layers 0 and L-1 captured by hooks
     lm = lm_serving(torch, tstep, attention, params, cfg,
@@ -6016,6 +6418,7 @@ def main() -> int:
                     "lm", (0, cfg.num_layers - 1))
     prefill, decode, captured = lm["prefill"], lm["decode"], lm["captured"]
     kernel_logits = lm["kernel_logits"]
+    lm7 = serve_record(torch, prompts, lm)
     layer_err = check_layers(attention, captured,
                              tmodel.layer_windows(cfg), "lm check")
 
@@ -6181,6 +6584,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_training(torch, args.seed, train_rec, records)
 
+    # ---- 20. serving across cards ----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    mesh_serving(torch, args.seed, lm7, big_serving(
+        torch, dev, args.seed, zero_counts, counted, kernel), records, t20)
+
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -6190,6 +6600,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--serve-rank" in sys.argv:
+        ap_ = argparse.ArgumentParser()
+        for a_, t_ in (("--serve-rank", int), ("--serve-world", int),
+                       ("--serve-port", int), ("--serve-work", str),
+                       ("--serve-jobs", str), ("--seed", int)):
+            ap_.add_argument(a_, type=t_, required=True)
+        sys.exit(serve_rank(ap_.parse_args()))
     if "--mesh-rank" in sys.argv:
         ap_ = argparse.ArgumentParser()
         for a_, t_ in (("--mesh-rank", int), ("--mesh-world", int),

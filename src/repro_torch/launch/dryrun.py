@@ -61,7 +61,7 @@ from repro_torch.launch.mesh import (AbstractMesh, make_production_mesh,
                                      set_mesh)
 from repro_torch.launch.shapes import (SHAPES, ShapeSpec, batch_specs,
                                        skip_reason)
-from repro_torch.models.model import (Model, _schema,
+from repro_torch.models.model import (Model, _empty_caches, _schema,
                                       _store_dtype, cache_logical,
                                       param_logical, unstack_layers)
 from repro_torch.optim.adamw import OptimConfig, abstract_opt_state
@@ -278,10 +278,9 @@ def build_step_and_specs(cfg, shape, mesh: AbstractMesh, variant: str = ""):
     and ``no_fsdp`` map ``fsdp`` to None; ``serve_tp`` serves bf16
     parameters); call it with ``mesh`` current."""
     serve_tp = "serve_tp" in variant and shape.kind != "train"
-    rules = dict(sharding.DEFAULT_RULES)
-    if serve_tp or "no_fsdp" in variant:
-        rules["fsdp"] = None        # TP-only weights: no gathers over data
-    sharding.set_rules(rules)
+    # TP-only weights: no gathers over data
+    sharding.set_rules(serve_tp_rules() if serve_tp or "no_fsdp" in variant
+                       else dict(sharding.DEFAULT_RULES))
     params = meta_params(cfg, torch.bfloat16 if serve_tp else torch.float32)
     p_logical = param_logical(cfg)
     p_spec = {k: logical_spec(params[k].shape, p_logical[k]) for k in params}
@@ -326,6 +325,33 @@ def tree_shard_bytes(tree, specs, mesh: AbstractMesh) -> int:
         return sum(tree_shard_bytes(v, specs[k], mesh)
                    for k, v in tree.items())
     return sum(tree_shard_bytes(v, s, mesh) for v, s in zip(tree, specs))
+
+
+def serve_tp_rules() -> dict:
+    """The ``serve_tp`` variant's rules (the default rules with ``fsdp``
+    mapped to None: TP-only weights), as :func:`build_step_and_specs` sets
+    them for a serving cell."""
+    return dict(sharding.DEFAULT_RULES, fsdp=None)
+
+
+def serve_arg_bytes(cfg, mesh: AbstractMesh, batch: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Per-device bytes on ``mesh`` under the ``serve_tp`` rules of what
+    ``init_params(cfg, dtype=dtype, mesh=)`` and ``init_cache(cfg, batch,
+    max_len, mesh=)`` place on one device: each parameter in the port's
+    storage (``meta_params(..., port_storage=True)``) and each cache entry
+    (the compute dtype) by ``shard_bytes`` of its ``logical_spec``.  Sets
+    the calling thread's rules to :func:`serve_tp_rules`."""
+    sharding.set_rules(serve_tp_rules())
+    params = meta_params(cfg, dtype, port_storage=True)
+    caches = _empty_caches(cfg, batch, max_len, torch.device("meta"))
+    p_logical, c_logical = param_logical(cfg), cache_logical(cfg)
+    with set_mesh(mesh):
+        return {
+            "params": sum(shard_bytes(t, logical_spec(t.shape, p_logical[k]),
+                                      mesh) for k, t in params.items()),
+            "cache": sum(shard_bytes(t, logical_spec(t.shape, c_logical[k]),
+                                     mesh) for k, t in caches.items())}
 
 
 def model_flops(cfg, shape) -> float:

@@ -14,8 +14,9 @@ from those, as the reference's custom VJP does.  On CPU tensors the kernel
 wrappers run their plain versions; on CUDA tensors they launch the kernels
 or raise.
 
-On a device mesh (q, k and v DTensors) :func:`flash_attention_vjp` runs the
-same ``torch.autograd.Function`` on each process's local shard through
+On a device mesh (q, k and v DTensors) :func:`flash_attention` (serving)
+and :func:`flash_attention_vjp` (training) run the forward kernel, and the
+same ``torch.autograd.Function``, on each process's local shard through
 ``local_map``: the batch over the data axes and the heads over ``model``
 where both the query and the KV heads divide it (so that a GQA group stays
 on one process), else whole; ``head_dim`` always whole, as the kernels need
@@ -37,11 +38,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window`` (None is the reference's ``WINDOW_INF``, unbounded),
     ``q_offset`` (the absolute position of q[0]) and ``kv_len`` (valid keys,
     None for Skv) mask as the reference's ``_block_ok``, the window and
-    offset under ``causal`` only."""
-    return attention.flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                         v.contiguous(), causal=causal,
-                                         window=window, q_offset=q_offset,
-                                         kv_len=kv_len)
+    offset under ``causal`` only.  DTensor q, k, v (a device mesh) run the
+    kernel on each process's shard (:func:`_on_shards`)."""
+    def forward(q_, k_, v_):
+        return attention.flash_attention_fwd(
+            q_.contiguous(), k_.contiguous(), v_.contiguous(), causal=causal,
+            window=window, q_offset=q_offset, kv_len=kv_len)
+    if hasattr(q, "device_mesh"):
+        return _on_shards(forward, q, k, v)
+    return forward(q, k, v)
 
 
 class _FlashVJP(torch.autograd.Function):
@@ -80,16 +85,15 @@ def _local_placements(q: torch.Tensor, k: torch.Tensor) -> tuple:
     return pq, pk
 
 
-def _sharded_vjp(q, k, v, causal, window, q_offset, kv_len):
-    """:class:`_FlashVJP` on each process's shard of DTensor q, k, v."""
+def _on_shards(fn, q, k, v):
+    """``fn(q, k, v)`` of local tensors on each process's shard of DTensor
+    q, k, v, placed by :func:`_local_placements`; the output is placed as
+    q."""
     from torch.distributed.tensor.experimental import local_map
     pq, pk = _local_placements(q, k)
-    fn = local_map(
-        lambda q_, k_, v_: _FlashVJP.apply(q_, k_, v_, causal, window,
-                                           q_offset, kv_len),
-        out_placements=pq, in_placements=(pq, pk, pk),
-        device_mesh=q.device_mesh, redistribute_inputs=True)
-    return fn(q, k, v)
+    return local_map(fn, out_placements=pq, in_placements=(pq, pk, pk),
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(
+        q, k, v)
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,9 +112,11 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "positive")
     if block_skip and not causal:
         raise ValueError("flash_attention_vjp: block_skip needs causal")
+    def vjp(q_, k_, v_):
+        return _FlashVJP.apply(q_, k_, v_, causal, window, q_offset, kv_len)
     if hasattr(q, "device_mesh"):
-        return _sharded_vjp(q, k, v, causal, window, q_offset, kv_len)
-    return _FlashVJP.apply(q, k, v, causal, window, q_offset, kv_len)
+        return _on_shards(vjp, q, k, v)
+    return vjp(q, k, v)
 
 
 class FlashAttention(nn.Module):

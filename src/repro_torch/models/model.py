@@ -55,15 +55,22 @@ hybrid and the encoder-decoder.
 On a device mesh (``init_params(..., mesh=)``, a
 ``repro_torch.launch.mesh.DistMesh``) the parameters are DTensors placed by
 :func:`param_logical` (FSDP over ``data``, TP over ``model``, the
-reference's divisibility fallback) and the dense attention family trains
-under the reference's sharding constraints (``parallel.sharding.constrain``
-at the residual after the embedding, q after rope, the MLP hidden and the
-logits; identities on one device): DTensor propagates the products and
-their collectives, flash attention runs its kernels on each process's local
-heads and batch (``models.flash``), and the loss is vocab-parallel
-(``models.loss``).  The embedding is gathered whole for the lookup.  The
-other families, ``ulysses_attn``, ``seq_sharded`` and serving raise on a
-device mesh (ROADMAP A).
+reference's divisibility fallback; under the reference's ``serve_tp`` rules,
+``fsdp`` mapped to None, TP only) and the dense attention family trains and
+serves under the reference's sharding constraints
+(``parallel.sharding.constrain`` at the residual after the embedding, q
+after rope, the MLP hidden and the logits; identities on one device):
+DTensor propagates the products and their collectives, flash attention runs
+its kernels on each process's local heads and batch (``models.flash``), and
+the loss is vocab-parallel (``models.loss``).  The caches are DTensors placed
+by :func:`cache_logical`; prefill writes each process's shard of them, and
+decode writes and attends on each process's shard
+(``layers.cached_decode_attention``).  A table sharded on ``vocab`` alone
+(serving) is looked up where each row lives and summed over its axes; one
+sharded on both dimensions (training) is gathered whole for the lookup.
+Prefill and decode logits stay sharded on ``vocab``.  The other families,
+``ulysses_attn`` and ``seq_sharded`` raise on a device mesh (ROADMAP A11,
+A12).
 """
 from __future__ import annotations
 
@@ -83,10 +90,12 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnMask, apply_rope,
+                                       cached_decode_attention,
                                        decode_attention, mlp, rms_norm,
-                                       rope_angles)
+                                       rope_angles, write_cache)
 from repro_torch.models.loss import fused_ce_loss
-from repro_torch.parallel.sharding import constrain, distribute
+from repro_torch.parallel.sharding import (constrain, distribute,
+                                          mesh_placements)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -306,10 +315,9 @@ class DecoderLayer(nn.Module):
             k = apply_rope(k, angles)
         q = constrain(q, ("batch", None, "heads", "head_dim"))
         if mode == "decode":
-            cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-            cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-            out = decode_attention(q, cache_k, cache_v,
-                                   AttnMask(True, window, pos, pos + 1))
+            out = cached_decode_attention(q, k, v, cache_k, cache_v,
+                                          AttnMask(True, window, pos,
+                                                   pos + 1))
         elif mode == "train":
             skip = cfg.flash_block_skip
             out = self.attn_core(q, k, v, causal=True, train=True,
@@ -317,8 +325,8 @@ class DecoderLayer(nn.Module):
                                  kv_chunk=512 if skip else 1024)
         else:
             out = self.attn_core(q, k, v, causal=True, window=window)
-            cache_k[:, :S] = k.to(cache_k.dtype)
-            cache_v[:, :S] = v.to(cache_v.dtype)
+            write_cache(cache_k, k, 0)
+            write_cache(cache_v, v, 0)
         return out.reshape(B * S, H * hd) @ self.wo.to(dt).reshape(H * hd, d)
 
     def _cross_attention(self, x, mode, cache, enc_out):
@@ -436,10 +444,12 @@ class Model(nn.Module):
     """The stack: ``embed``, ``layers`` (a ``ModuleList`` of
     :class:`DecoderLayer`), ``final_norm`` and, untied, ``lm_head``; for an
     encoder-decoder also ``enc_layers`` (of :class:`EncoderLayer`) and
-    ``enc_final_norm``.  ``mesh``: the ``DistMesh`` the parameters are
-    DTensors on, or None."""
+    ``enc_final_norm``.  ``tensors``: the schema's tensors by name, a
+    per-layer one stacked on its leading axis or as a list of one tensor a
+    layer.  ``mesh``: the ``DistMesh`` the parameters are DTensors on, or
+    None."""
 
-    def __init__(self, cfg: ModelConfig, tensors: dict[str, torch.Tensor],
+    def __init__(self, cfg: ModelConfig, tensors: dict,
                  mesh: DistMesh | None = None):
         super().__init__()
         self.cfg = cfg
@@ -464,9 +474,10 @@ def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
     """``mesh`` if it is a device mesh (a ``DistMesh``), else None (no
     mesh, or an abstract one: nothing to place).  Raises
     ``NotImplementedError`` on a device mesh unless ``cfg`` is of the dense
-    attention family that trains there: the MoE, SSM, hybrid and
-    encoder-decoder families, ``ulysses_attn`` and ``seq_sharded`` are not
-    ported (ROADMAP A11, A12), and nothing is replicated in their place."""
+    attention family that trains and serves there: the MoE, SSM, hybrid
+    and encoder-decoder families, ``ulysses_attn`` and ``seq_sharded`` are
+    not ported, in serving or training (ROADMAP A11, A12), and nothing is
+    replicated in their place."""
     if not isinstance(mesh, DistMesh):
         return None
     what = [w for w, on in (
@@ -476,21 +487,26 @@ def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(what)} on the {mesh.name} device mesh is "
-            f"not ported (ROADMAP A11: the families under a mesh)")
+            f"not ported, in serving or training (ROADMAP A11: the families "
+            f"under a mesh)")
     what = [w for w in ("ulysses_attn", "seq_sharded") if getattr(cfg, w)]
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {' and '.join(what)} on the {mesh.name} device "
-            f"mesh is not ported (ROADMAP A12: ulysses_attn and seq_sharded)")
+            f"mesh is not ported, in serving or training (ROADMAP A12: "
+            f"ulysses_attn and seq_sharded)")
     return mesh
 
 
-def _place(name: str, t: torch.Tensor, mesh: DistMesh | None
-           ) -> torch.Tensor:
-    """Schema tensor ``name``, which every process holds whole and alike:
-    on ``mesh`` a DTensor placed by :func:`param_logical` (each process
-    keeps its slice), else ``t`` itself."""
-    return t if mesh is None else distribute(t, LOGICAL[name], mesh)
+def _place(name: str, t: torch.Tensor, mesh: DistMesh | None,
+           layer: bool = False) -> torch.Tensor:
+    """Schema tensor ``name`` (one layer's slice of it with ``layer``),
+    which every process holds whole and alike: on ``mesh`` a DTensor placed
+    by :func:`param_logical` (each process keeps its slice), else ``t``
+    itself."""
+    if mesh is None:
+        return t
+    return distribute(t, LOGICAL[name][1:] if layer else LOGICAL[name], mesh)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -501,26 +517,34 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     ``device`` (the card unless the caller asks for the CPU).  The numbers
     differ from ``jax.random``'s.  ``dtype`` is the storage of matrices,
     embedding and biases (default the compute dtype; training passes
-    ``torch.float32`` for fp32 master weights).  With ``mesh`` (a
-    ``DistMesh``) every process draws the same numbers on its device and
-    keeps its slice of each parameter (DTensors placed by
-    :func:`param_logical`; :func:`device_mesh_for` first)."""
+    ``torch.float32`` for fp32 master weights).  Per-layer tensors are drawn
+    one layer's slice at a time, in the same order with or without a mesh,
+    so every mesh of the same device type holds the same numbers.  With
+    ``mesh`` (a ``DistMesh``) every process draws each slice on its device
+    and keeps its shard of it (DTensors placed by :func:`param_logical`,
+    under the current rules; :func:`device_mesh_for` first): no process
+    ever holds a whole stacked tensor."""
     mesh = device_mesh_for(cfg, mesh)
     dev = resolve_device(device) if mesh is None else mesh.device
     dtype = COMPUTE_DTYPE if dtype is None else dtype
     generator = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(name, shape, scale, sd):
+        if scale == 0.0:
+            return torch.zeros(shape, dtype=sd, device=dev)
+        if name.endswith(("A_log", "dt_bias", "D")):
+            return torch.full(shape, 0.5, dtype=sd, device=dev)
+        return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=dev).mul_(scale).to(sd))
+
     tensors = {}
     for name, (shape, scale) in sorted(_schema(cfg).items()):
         sd = _store_dtype(name, dtype)
-        if scale == 0.0:
-            t = torch.zeros(shape, dtype=sd, device=dev)
-        elif name.endswith(("A_log", "dt_bias", "D")):
-            t = torch.full(shape, 0.5, dtype=sd, device=dev)
-        else:
-            t = (torch.randn(shape, generator=generator, dtype=torch.float32,
-                             device=dev).mul_(scale).to(sd))
-        tensors[name] = _place(name, t, mesh)
-        del t                           # one whole tensor at a time
+        tensors[name] = (
+            _place(name, draw(name, shape, scale, sd), mesh)
+            if name in GLOBAL_KEYS else
+            [_place(name, draw(name, shape[1:], scale, sd), mesh, layer=True)
+             for _ in range(shape[0])])
     return Model(cfg, tensors, mesh)
 
 
@@ -610,48 +634,73 @@ def param_logical(cfg: ModelConfig) -> dict[str, tuple]:
 
 
 # ------------------------------------------------------------------ caches
+def _zeros(shape: tuple, dtype: torch.dtype, device, mesh: DistMesh | None,
+           logical: tuple) -> torch.Tensor:
+    """A zeroed tensor of ``shape``; on ``mesh`` a DTensor placed by
+    ``logical`` under the current rules, each process allocating its shard
+    only."""
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    placements = mesh_placements(shape, logical, mesh)
+    local = list(shape)
+    for axis, p in zip(mesh.axis_names, placements):
+        if p.is_shard():
+            local[p.dim] //= mesh.shape[axis]
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=mesh.device),
+        mesh.device_mesh, placements, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def _empty_caches(cfg: ModelConfig, batch: int, length: int, device,
-                  frames: int | None = None) -> dict[str, torch.Tensor]:
+                  frames: int | None = None, mesh: DistMesh | None = None
+                  ) -> dict[str, torch.Tensor]:
     """Zeroed per-layer caches: for attention KV (L, batch, length, KV, hd)
     in the compute dtype; for the SSM the conv inputs (L, batch, K-1,
     conv_dim) in the compute dtype and the state (L, batch, nh, hp, ds) in
     fp32; for an encoder-decoder the cross-attention KV ``xk``/``xv`` (L,
     batch, frames, KV, hd) in the compute dtype, ``frames`` defaulting to
-    ``cfg.enc_frames`` (the reference's keys and shapes)."""
+    ``cfg.enc_frames`` (the reference's keys and shapes).  On ``mesh``
+    DTensors placed by :func:`cache_logical`."""
     L = cfg.num_layers
-    out = {}
+    shapes = {}
     if cfg.block in ("attn", "hybrid"):
         shape = (L, batch, length, cfg.num_kv_heads, cfg.head_dim)
-        for nm in ("k", "v"):
-            out[nm] = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+        shapes["k"] = shapes["v"] = (shape, COMPUTE_DTYPE)
     if cfg.block in ("ssm", "hybrid"):
         sp = cfg.ssm
         _, nh, conv_dim = _ssm_dims(cfg)
-        out["conv"] = torch.zeros((L, batch, sp.conv_width - 1, conv_dim),
-                                  dtype=COMPUTE_DTYPE, device=device)
-        out["ssm"] = torch.zeros((L, batch, nh, sp.head_dim, sp.d_state),
-                                 dtype=torch.float32, device=device)
+        shapes["conv"] = ((L, batch, sp.conv_width - 1, conv_dim),
+                          COMPUTE_DTYPE)
+        shapes["ssm"] = ((L, batch, nh, sp.head_dim, sp.d_state),
+                         torch.float32)
     if cfg.enc_dec:
         shape = (L, batch, cfg.enc_frames if frames is None else frames,
                  cfg.num_kv_heads, cfg.head_dim)
-        for nm in ("xk", "xv"):
-            out[nm] = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
-    return out
+        shapes["xk"] = shapes["xv"] = (shape, COMPUTE_DTYPE)
+    logical = cache_logical(cfg)
+    return {nm: _zeros(shape, dt, device, mesh, logical[nm])
+            for nm, (shape, dt) in shapes.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> dict:
+               device="cuda", mesh=None) -> dict:
     """Decode state: full-length KV caches, the SSM's conv and state caches,
     an encoder-decoder's cross-attention KV over ``cfg.enc_frames`` and the
-    next position."""
-    cache = _empty_caches(cfg, batch, max_len, resolve_device(device))
+    next position (a host int).  With ``mesh`` (a ``DistMesh``) the caches
+    are DTensors placed by :func:`cache_logical` under the current rules,
+    on the mesh's devices."""
+    mesh = device_mesh_for(cfg, mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    cache = _empty_caches(cfg, batch, max_len, dev, mesh=mesh)
     cache["pos"] = 0
     return cache
 
 
 def cache_logical(cfg: ModelConfig) -> dict[str, tuple]:
-    """The reference's logical axis names per cache entry (identities on
-    one card, kept for parity)."""
+    """The reference's logical axis names per cache entry: the placements
+    of the caches on a device mesh (:func:`init_cache`, the prefill's)."""
     names: dict[str, tuple] = {"pos": ()}
     if cfg.block in ("attn", "hybrid"):
         names["k"] = (None, "batch", None, "kv_heads", "head_dim")
@@ -768,10 +817,7 @@ def model_forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
         raise ValueError(f"{cfg.name} is an encoder-decoder: mode={mode!r} "
                          f"needs frames (B, F, d_model)")
     if params.mesh is not None:
-        if mode != "train":
-            raise NotImplementedError(
-                f"{mode} on the {params.mesh.name} device mesh is not ported "
-                f"(ROADMAP A13: serving under TP)")
+        device_mesh_for(cfg, params.mesh)
         with set_mesh(params.mesh):
             return _forward(params, cfg, tokens, mode, visual,
                             mrope_positions, frames, cache, max_len,
@@ -790,16 +836,51 @@ def _replicated(params: Model, t, logical):
 
 
 def _embed(params: Model, tokens: torch.Tensor, dt) -> torch.Tensor:
-    """The token embeddings in ``dt``.  On a mesh the lookup reads the
-    embedding gathered whole (DTensor has no rule for a gather from a table
-    sharded on both dimensions); the gradient comes back as the
-    parameter's, summed in fp32 as the plain lookup's."""
+    """The token embeddings in ``dt``.  On a mesh, a table sharded on
+    ``vocab`` alone (serving's TP-only rules) is looked up by
+    :func:`_vocab_parallel_embed`; otherwise the lookup reads the table
+    gathered whole (DTensor has no rule for a gather from a table sharded on
+    both dimensions), and the gradient comes back as the parameter's, summed
+    in fp32 as the plain lookup's."""
     if params.mesh is None:
         return params.embed[tokens.long()].to(dt)
+    table = params.embed
+    if not any(p.is_shard(1) for p in table.placements) and not any(
+            p.is_shard(0) for p, q in zip(table.placements, tokens.placements)
+            if q.is_shard()):
+        return _vocab_parallel_embed(params.mesh, table, tokens, dt)
     from torch.distributed.tensor import Replicate
-    table = params.embed.redistribute(
+    table = table.redistribute(
         params.mesh.device_mesh, [Replicate()] * len(params.mesh.axis_names))
     return torch.nn.functional.embedding(tokens.long(), table).to(dt)
+
+
+def _vocab_parallel_embed(mesh: DistMesh, table, tokens, dt):
+    """The lookup of DTensor ``tokens`` (B, S) in a DTensor ``table``
+    (Vp, d) sharded on its rows alone, over mesh axes that do not split the
+    tokens: each process reads the ids its rows hold, zeros elsewhere, and
+    the sum over the table's axes (one non-zero summand per element) is the
+    plain lookup, bit for bit, with no copy of the table."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    rows = table.to_local()
+    ids = tokens.to_local().long()
+    first = 0
+    for axis, p in zip(mesh.axis_names, table.placements):
+        if p.is_shard(0):
+            first = (first * mesh.shape[axis]
+                     + mesh.device_mesh.get_local_rank(axis))
+    first *= rows.shape[0]
+    local = ids - first
+    mine = (local >= 0) & (local < rows.shape[0])
+    x = torch.where(mine[..., None],
+                    rows[local.clamp(0, rows.shape[0] - 1)].to(dt), 0)
+    out = [Partial() if p.is_shard(0) else q
+           for p, q in zip(table.placements, tokens.placements)]
+    shape = (*tokens.shape, table.shape[1])
+    x = DTensor.from_local(x, mesh.device_mesh, out, shape=torch.Size(shape),
+                           stride=torch.empty(shape, device="meta").stride())
+    return x.redistribute(mesh.device_mesh, [Replicate() if p.is_partial()
+                                             else p for p in out])
 
 
 def _forward(params: Model, cfg: ModelConfig, tokens, mode, visual,
@@ -817,7 +898,7 @@ def _forward(params: Model, cfg: ModelConfig, tokens, mode, visual,
             caches = (None if mode == "train" else
                       _empty_caches(cfg, B, max(S, max_len or S), dev,
                                     None if frames is None
-                                    else frames.shape[1]))
+                                    else frames.shape[1], params.mesh))
         x = _embed(params, tokens, dt)
         if cfg.vlm and visual is not None:
             V = visual.shape[1]

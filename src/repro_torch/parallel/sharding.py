@@ -167,10 +167,17 @@ def distribute(x: torch.Tensor, logical: Sequence[str | None],
     mesh = get_abstract_mesh() if mesh is None else mesh
     if not isinstance(mesh, DistMesh):
         return x
-    from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(x, mesh.device_mesh,
-                             mesh_placements(x.shape, logical, mesh),
-                             src_data_rank=None)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    out = distribute_tensor(x, mesh.device_mesh,
+                            mesh_placements(x.shape, logical, mesh),
+                            src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        # a slice along dim 0 is a view that would keep all of x alive
+        out = DTensor.from_local(local.clone(), mesh.device_mesh,
+                                 out.placements, shape=out.shape,
+                                 stride=out.stride())
+    return out
 
 
 def _is_names(v) -> bool:

@@ -80,21 +80,33 @@ def make_bitmap_query_step(index, *, backend: str = "auto"):
     return query_step
 
 
+def next_ids(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The greedy ids (B,) of the last position of ``logits`` (B, S, Vp),
+    over the real vocabulary.  Logits sharded on ``vocab`` (a model on a
+    device mesh) are gathered at that position alone, (B, 1, Vp), so every
+    process takes the same argmax and holds the ids whole."""
+    last = logits[:, -1:]
+    if hasattr(last, "full_tensor"):
+        last = last.full_tensor()
+    return torch.argmax(last[:, -1, :cfg.vocab_size], dim=-1)
+
+
 def greedy_generate(params, cfg: ModelConfig, tokens: torch.Tensor,
                     steps: int, max_len: int | None = None, **kw
                     ) -> torch.Tensor:
     """Batched greedy loop (prefill + steps - 1 decodes): tokens (B, S) ->
-    generated ids (B, steps).  ``kw`` goes to the prefill (a VLM's
-    ``visual`` and ``mrope_positions``, an encoder-decoder's ``frames``);
-    decode positions follow the prefill's, pos0 + arange, in every M-RoPE
+    generated ids (B, steps), whole on every process of a device mesh
+    (:func:`next_ids`).  ``kw`` goes to the prefill (a VLM's ``visual``
+    and ``mrope_positions``, an encoder-decoder's ``frames``); decode
+    positions follow the prefill's, pos0 + arange, in every M-RoPE
     stream."""
     B, S = tokens.shape
     max_len = max_len or (S + steps)
     logits, cache = model_forward(params, cfg, tokens, mode="prefill",
                                   max_len=max_len, **kw)
-    out = [torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)]
+    out = [next_ids(logits, cfg)]
     for _ in range(steps - 1):
         logits, cache = model_forward(params, cfg, out[-1][:, None],
                                       cache=cache, mode="decode")
-        out.append(torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1))
+        out.append(next_ids(logits, cfg))
     return torch.stack(out, dim=1)

@@ -58,7 +58,8 @@ from repro_torch.kernels import bit_transpose as tbt
 from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import attention as tfa
 from repro_torch.kernels import cam_match as tcm
-from torch_checks import (COUNTED_CASES, ENCDEC_FLASH_CASES,
+from torch_checks import (COMMAND_R_FLASH_SHAPES, COUNTED_CASES,
+                          ENCDEC_FLASH_CASES,
                           ENCDEC_FLASH_SHAPE, FLASH_BWD_CASES,
                           FLASH_OFFSET_CASES, FLASH_WINDOW_CASES,
                           STACKED_CASES, any_int32_cam_inputs, attn_tol,
@@ -422,6 +423,26 @@ def test_flash_attention_tensor_core_kernel(dev, hd, s, g, causal):
     torch.cuda.synchronize()
     want = tfa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
                                          causal=causal)
+    err = float((got.float() - want).abs().max())
+    assert err <= attn_tol(want, torch.bfloat16), err
+    assert bf16_attn_err(got, want) <= 1
+
+
+@pytest.mark.parametrize("label", sorted(COMMAND_R_FLASH_SHAPES))
+def test_flash_attention_at_command_r_plus_shapes(dev, label):
+    """Row 5c: the forward kernel at Command-R+-104B's prefill (4 x 2048,
+    96 / 8 heads of 128, causal, bf16) and at one rank's quarter of the
+    heads on a (1, 4) mesh (24 / 2), one launch, against its plain version
+    by phase 2's two bf16 checks."""
+    h, kv = COMMAND_R_FLASH_SHAPES[label]
+    rng = np.random.default_rng(h)
+    q, k, v = _attn_inputs(rng, 4, 2048, h, kv, 128, torch.bfloat16, dev)
+    before = tfa.flash_attention_fwd.launches
+    got = tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    want = tfa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                         causal=True)
     err = float((got.float() - want).abs().max())
     assert err <= attn_tol(want, torch.bfloat16), err
     assert bf16_attn_err(got, want) <= 1

@@ -392,3 +392,10 @@ def materialize(tree, dev, gen, vocab: int, fill):
         return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
     return torch.randn(tuple(tree.shape), generator=gen, device=dev,
                        dtype=torch.float32).mul_(0.02).to(tree.dtype)
+
+
+#: row 5c: Command-R+-104B's prefill attention (4 x 2048, 128-wide heads,
+#: causal, bf16), label -> (query heads, KV heads): the whole model's, and
+#: one rank's quarter on a (1, 4) mesh under TP
+COMMAND_R_FLASH_SHAPES = {"command-r+": (96, 8),
+                          "command-r+ (1, 4) rank": (24, 2)}

@@ -1,11 +1,13 @@
-"""The port's side of ``tests/test_torch_mesh_train.py``: processes of one
-``gloo`` group on the CPU, each running the same program on its shard.
+"""The port's side of ``tests/test_torch_mesh_train.py`` and
+``tests/test_torch_mesh_serve.py``: processes of one ``gloo`` group on the
+CPU, each running the same program on its shard.
 
 Imports ``torch`` and ``repro_torch`` only (a spawned process imports this
 module to find its function).  :func:`spawn` starts ``world`` processes that
 join a group through a file under a temporary directory (no TCP port, so
 test files may run side by side) and run ``fn(rank, *args)``;
-:func:`port_runs` is the program the test holds against the reference.
+:func:`port_runs` (training) and :func:`serve_runs` (serving) are the
+programs the tests hold against the reference.
 """
 from __future__ import annotations
 
@@ -21,11 +23,22 @@ import torch.multiprocessing as mp
 MESHES = ((2, 2), (1, 4))
 #: the mesh a checkpoint written on (2, 2) restores on
 ELASTIC = (4, 1)
-#: the configurations that raise on a device mesh (the families, and the
-#: two attention options the slice does not cover)
+#: the configurations that raise on a device mesh, in serving and training
+#: (the families, and the two attention options no slice covers yet)
 UNCOVERED = ("qwen2_moe_a2_7b", "mamba2_2_7b", "hymba_1_5b",
              "whisper_small", "ulysses_attn", "seq_sharded")
 LOSS_CHUNK = 16
+#: the smoke configurations served on a mesh: GQA whose 2 KV heads do not
+#: divide 4, the parallel block, MQA, sliding windows, M-RoPE with a visual
+#: prefix
+SERVED = ("qwen2_7b", "command_r_plus_104b", "granite_20b", "gemma3_4b",
+          "qwen2_vl_7b")
+#: the served batch: prompts of SERVE_SEQ (past Gemma3's smoke window of 16),
+#: SERVE_STEPS greedy tokens (a prefill and SERVE_STEPS - 1 decode steps)
+SERVE_BATCH, SERVE_SEQ, SERVE_STEPS = 4, 40, 4
+#: the configurations whose ``init_params`` is held across meshes
+INIT_HELD = ("qwen2_7b", "command_r_plus_104b")
+INIT_SEED = 3
 
 
 def tag(shape) -> str:
@@ -143,12 +156,6 @@ def port_runs(rank: int, src: str, dst: str, ckpt: str) -> None:
             out[f"{t}/loss_{case}/loss"] = loss.full_tensor().detach().numpy()
             out[f"{t}/loss_{case}/dx"] = x.grad.full_tensor().numpy()
             out[f"{t}/loss_{case}/dhead"] = head.grad.full_tensor().numpy()
-        with torch.no_grad():
-            try:
-                tmodel.model_forward(params, cfg, batch["tokens"],
-                                     mode="prefill")
-            except NotImplementedError as e:
-                out[f"{t}/serving_error"] = np.array(str(e))
         del params, opt
 
     # the elastic restart: the (2, 2) checkpoint on another mesh
@@ -175,5 +182,120 @@ def port_runs(rank: int, src: str, dst: str, ckpt: str) -> None:
             tmodel.init_params(c, mesh=mesh, dtype=torch.float32)
         except NotImplementedError as err:
             out[f"uncovered/{which}"] = np.array(str(err))
+    if rank == 0:
+        np.savez(dst, **out)
+
+
+def _local_bytes(tensors) -> int:
+    return sum(t.to_local().numel() * t.element_size() for t in tensors)
+
+
+def serve_runs(rank: int, shape: tuple, src: str, dst: str) -> None:
+    """On the (data, model) mesh ``shape``, under the ``serve_tp`` rules at
+    fp32, each configuration of :data:`SERVED` from ``src``'s parameters
+    (``params_from_numpy``): the prefill's logits and caches, the caches
+    after SERVE_STEPS - 1 decode steps of ``src``'s tokens, those steps'
+    logits, ``greedy_generate``'s ids, the placements of the parameters
+    and of the caches of ``init_cache`` and of the prefill, rank 0's local
+    bytes, and the shapes the flash wrapper saw; the vocab-parallel lookup
+    beside the plain one, in fp32 and bf16; :data:`INIT_HELD`'s
+    ``init_params`` gathered whole.  Rank 0 writes ``dst`` (npz)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch.dryrun import serve_tp_rules
+    from repro_torch.launch.mesh import make_device_mesh, set_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel.sharding import set_rules
+    from repro_torch.serve import step as tstep
+    tmodel.COMPUTE_DTYPE = torch.float32
+    set_rules(serve_tp_rules())
+    data = dict(np.load(src))
+    mesh = make_device_mesh(shape, ("data", "model"), "cpu")
+    seen = []
+    plain_fwd = attention.flash_attention_fwd
+
+    def counted_fwd(q, k, v, **kw):
+        seen.append((type(q).__name__, tuple(q.shape), tuple(k.shape)))
+        return plain_fwd(q, k, v, **kw)
+    attention.flash_attention_fwd = counted_fwd
+    out = {}
+    B, S, steps = SERVE_BATCH, SERVE_SEQ, SERVE_STEPS
+    for arch in SERVED:
+        cfg = get_smoke_config(arch)
+        key = f"{arch}/"
+        flat = {k[len(key) + 2:]: v for k, v in data.items()
+                if k.startswith(key + "p/")}
+        params = tmodel.params_from_numpy(cfg, flat, mesh=mesh,
+                                          dtype=torch.float32)
+        for name, p in params.named_parameters():
+            out[f"{arch}/placement/{name}"] = np.array(_placements(p))
+        out[f"{arch}/local_bytes/params"] = np.array(
+            _local_bytes(params.parameters()))
+        empty = tmodel.init_cache(cfg, B, S + steps, mesh=mesh)
+        for nm in ("k", "v"):
+            out[f"{arch}/init_cache_placement/{nm}"] = np.array(
+                _placements(empty[nm]))
+        out[f"{arch}/local_bytes/cache"] = np.array(
+            _local_bytes(empty[nm] for nm in ("k", "v")))
+        assert empty["pos"] == 0
+        del empty
+        extra = {k: torch.from_numpy(data[f"{arch}/{k}"])
+                 for k in ("visual", "mrope_positions")
+                 if f"{arch}/{k}" in data}
+        tokens = torch.from_numpy(data[f"{arch}/tokens"])
+        prefill = tstep.make_prefill_step(cfg, max_len=S + steps)
+        decode = tstep.make_decode_step(cfg)
+        del seen[:]
+        logits, cache = prefill(params, {"tokens": tokens, **extra})
+        out[f"{arch}/flash_calls"] = np.array(repr(seen))
+        out[f"{arch}/prefill_logits"] = logits.full_tensor().numpy()
+        for nm in ("k", "v"):
+            out[f"{arch}/cache_placement/{nm}"] = np.array(
+                _placements(cache[nm]))
+            out[f"{arch}/prefill_cache/{nm}"] = cache[nm].full_tensor(
+                ).numpy()
+        dec = []
+        for i in range(steps - 1):
+            logits, cache = decode(params, {
+                "tokens": torch.from_numpy(data[f"{arch}/decode"][i]),
+                "cache": cache})
+            dec.append(logits.full_tensor().numpy())
+        out[f"{arch}/decode_logits"] = np.stack(dec)
+        out[f"{arch}/pos"] = np.array(cache["pos"])
+        for nm in ("k", "v"):
+            out[f"{arch}/decode_cache/{nm}"] = cache[nm].full_tensor(
+                ).numpy()
+        out[f"{arch}/greedy"] = tstep.greedy_generate(
+            params, cfg, tokens, steps, **extra).numpy()
+        del params, cache, logits
+
+    cfg = get_smoke_config("qwen2_7b")
+    tokens = torch.from_numpy(data["qwen2_7b/tokens"])
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        params = tmodel.params_from_numpy(cfg, {
+            k[len("qwen2_7b/p/"):]: v for k, v in data.items()
+            if k.startswith("qwen2_7b/p/")}, mesh=mesh, dtype=dt)
+        with set_mesh(mesh):
+            x = tmodel._embed(params, tmodel._replicated(
+                params, tokens, ("batch", None)), dt)
+        out[f"embed_{name}/placement"] = np.array(_placements(params.embed))
+        out[f"embed_{name}/mesh"] = x.full_tensor().float().numpy()
+        plain = tmodel.full_tensor(params.embed)[tokens.long()].to(dt)
+        out[f"embed_{name}/bits_equal"] = np.array(bool(torch.equal(
+            x.full_tensor().view(torch.int16 if dt == torch.bfloat16
+                                 else torch.int32),
+            plain.view(torch.int16 if dt == torch.bfloat16
+                       else torch.int32))))
+        del params
+
+    for arch in INIT_HELD:
+        cfg = get_smoke_config(arch)
+        params = tmodel.init_params(cfg, seed=INIT_SEED, mesh=mesh,
+                                    dtype=torch.float32)
+        for k, v in tmodel.params_to_numpy(params).items():
+            out[f"init/{arch}/{k}"] = v
+        del params
+    attention.flash_attention_fwd = plain_fwd
     if rank == 0:
         np.savez(dst, **out)
