@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero and prints no result; ``--mesh-only``
 runs phase 1, then phase 19 beside an unsharded step of 13a's
-configuration and phase 20 beside an unsharded run of phase 7's cell, for
-a run on several cards):
+configuration, phase 20 beside an unsharded run of phase 7's cell and
+phase 21 beside stand-ins for 16a, 17a, 17b and 17c
+(``family_references``), for a run on several cards):
 
 1. Device and build: the card's name and power limit, the torch/CUDA
    versions, and the build of every kernel under ``src/repro_torch/csrc``
@@ -516,6 +517,49 @@ a run on several cards):
    weights a card at n = 4; timed, no reference) and a on (n/2, 2).  The
    flash records gain ``tp_serve_launches`` (b's first job, rank 0).  The
    phase's seconds are printed.
+21. The MoE and the encoder-decoder across cards, after phase 20: one
+   NCCL rank a card (``--serve-rank`` with phase 21's jobs,
+   ``family_job``), each job on its (data, model) device mesh, against
+   references kept by phases 16a, 17a, 17b and 17c.  a: Qwen2-MoE-A2.7B
+   at its published width and depth (24 layers, 60 experts top-4 and 4
+   shared) served under ``serve_tp``, 16a's 4 x 2048 prompts and 32
+   greedy steps, on (1, n) (on four cards expert-parallel, 15 experts a
+   rank) and, with 4 cards, (n/2, 2); b: Whisper-small, 17a's cell (8 x
+   (1500 frames, 224 tokens), 32 steps), on the same meshes.  Each holds
+   the allocator's bytes after ``init_params(mesh=)`` and
+   ``init_cache(mesh=)`` against ``dryrun.serve_arg_bytes``
+   (SERVE_ALLOC_SLACK a tensor; Whisper's ``xk``/``xv`` caches too), one
+   flash launch a flash module in the counted ``greedy_generate`` (24;
+   36) with the plain attention made to raise, the logits as phase 20
+   holds them (``held_logits``) and, on one card, the logits, ids and
+   every layer's routing the unsharded run's bit for bit; the routings
+   that differ from 16a's are counted per layer and printed (bf16 partial
+   sums over ``model`` may flip them; not bounded); prefill and decode
+   timed with a synchronize around each, rank 0's card busy time and idle
+   share over one of each, each rank's peak and allocated bytes.  c:
+   17c's cell (Qwen2-MoE at 4 layers, 4 x 2048, remat full, fp32 state)
+   on (n, 1): the loss within 1e-3 and layer 0's q/k/v gradients and
+   expert-weight gradients (experts 0-3) within 1/16 (L2) of 17c's, with
+   the compute dtype bf16 and again fp32 (in bf16 the expert weights
+   are held only when no layer routed otherwise than 17c did: a flip
+   moves a token between experts, and past the capacity the tokens after
+   it; the flips are printed), two bf16 runs of the loss and backward
+   bit-identical, each layer's drops in an fp32 forward at capacity
+   factors 1.25 and 0.5 equal to 17c's wherever every layer up to it
+   routed as 17c did (on one card: every layer), one counted step
+   (8 forward and 4 backward flash launches on each rank, no plain
+   attention), 3 timed steps beside 17c's; with 4 cards also the
+   published 24 layers on (n/2, 2), its per-card fp32 state reckoned by
+   ``shard_bytes`` on the abstract mesh beside the measured peak, with
+   finite, falling losses.  d: 17b's cell (Whisper-small at full depth, 8
+   x (1500, 448)) on (n, 1) and, with 4 cards, (n/2, 2): the loss and
+   layer 0's encoder, self- and cross-attention q gradients against 17b's
+   the same way, 72 forward and 36 backward flash launches a step.  The
+   kernel records of 16a, 17a, 17b and 17c gain rows at one (1, 4) rank's
+   heads (Qwen2-MoE 4 of 16, Whisper's encoder 3 of 12, forward and
+   backward) beside SDPA and the bound; the MoE flash records gain
+   ``family_mesh_launches`` (rank 0's first job and first MoE train job).
+   The phase's seconds are printed.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -2895,13 +2939,9 @@ def logit_route_checks(torch, tmodel, tflash, attention, cfg, prefill,
 
     def route_logits(dtype, plain):
         seen = []
-        tmodel.COMPUTE_DTYPE = dtype
-        try:
-            with swapped(tflash, serve=plain_routes(
-                    torch, attention, windows=seen)[0] if plain else None):
-                out, _ = prefill(params, batch)
-        finally:
-            tmodel.COMPUTE_DTYPE = torch.bfloat16
+        with compute_dtype(tmodel, dtype), swapped(tflash, serve=plain_routes(
+                torch, attention, windows=seen)[0] if plain else None):
+            out, _ = prefill(params, batch)
         if plain and seen != windows:
             raise SystemExit(f"{label}: the plain route received the "
                              f"windows {seen}, want {windows}")
@@ -3530,14 +3570,15 @@ def dense_moe(torch, tmoe, mlp, x, p, spec, act):
     return out, int((~keep).sum())
 
 
-def moe_serving(torch, dev, seed: int, zero_counts, counted, kernel) -> dict:
-    """Phase 16a (see the module docstring)."""
+def moe_serving(torch, dev, seed: int, zero_counts, counted, kernel,
+                refs: dict) -> dict:
+    """Phase 16a (see the module docstring); ``refs["ms"]`` gets phase
+    21a's reference."""
     from repro_torch.kernels import attention
     from repro_torch.models import flash as tflash
     from repro_torch.models import model as tmodel
     from repro_torch.models import moe as tmoe
     from repro_torch.models.layers import mlp
-    from torch_checks import attn_tol
     run = family_serving(torch, dev, seed, zero_counts, counted, MOE_ARCH,
                          lambda cfg: (0, cfg.num_layers - 1), "moe lm")
     cfg, params, prompts, lm = (run[k] for k in ("cfg", "params", "prompts",
@@ -3556,6 +3597,8 @@ def moe_serving(torch, dev, seed: int, zero_counts, counted, kernel) -> dict:
           f"kernel-route prefill, T = {T}, top {m.top_k}, C = "
           f"{tmoe._capacity(T, m.top_k, m.num_experts, m.capacity_factor)}):"
           f" {dropped}")
+    refs["ms"] = serve_family_ref(torch, cfg, run, [
+        c["experts"].cpu() for c in kernel_calls])
     x0, p0, spec, act = kernel_calls[0]["args"]
     x0 = x0.float()
     p0 = {k: v.float() for k, v in p0.items()}
@@ -3602,28 +3645,19 @@ def moe_serving(torch, dev, seed: int, zero_counts, counted, kernel) -> dict:
               f"{flips}")
     del kernel_calls, route_calls
 
-    # the kernel at layer 0's shape beside its plain version and SDPA
+    # the kernel at layer 0's shape and at one (1, 4) rank's heads beside
+    # its plain version and SDPA
     fq, fk, fv, _, fo = lm["captured"][0]
-    B_, S_, H_, hd_ = fq.shape
-    sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    kernel("flash_attention_fwd moe", "attention.cu",
-           "src/repro/kernels/attention.py:67",
-           f"q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, causal, bf16",
-           lambda: attention.flash_attention_fwd(fq, fk, fv, causal=True),
-           lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
-                                                       causal=True),
-           2 * (2 * fq.numel() + fk.numel() + fv.numel()),
-           2 * S_ * (S_ + 1) * hd_ * B_ * H_, 10,
-           count=lm["launches"]["flash_attention_fwd"],
-           tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
-           library=lambda: sdpa(sq, sk, sv, is_causal=True))
+    for label, heads in (("moe", (cfg.num_heads, cfg.num_kv_heads)),
+                         ("moe (1, 4) rank", RANK_HEADS["moe"])):
+        flash_fwd_row(torch, attention, kernel, label, (fq, fk, fv, fo),
+                      True, heads, lm["launches"]["flash_attention_fwd"])
     out = dict(run["record"], layer_checks=layer_err,
                dropped_per_layer=dropped, dense_checks={
                    str(k): v for k, v in dense_checks.items()},
                route_flips=flips, logit_checks=checks)
     print(json.dumps({"moe_lm_path": out}))
-    del run, params, lm, fq, fk, fv, fo, sq, sk, sv
+    del run, params, lm, fq, fk, fv, fo
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3729,6 +3763,22 @@ def hybrid_serving(torch, dev, seed: int, zero_counts, counted, kernel
     return out
 
 
+def family_batch(torch, dev, cfg, seed: int, i: int, batch: int, seq: int
+                 ) -> dict:
+    """Phase 17's training batch ``i``: ``batch`` x ``seq`` random tokens
+    from ``seed``, labels rolled by one; an encoder-decoder's fp32 frames
+    standard normal x 0.02."""
+    r = np.random.default_rng(seed + 1000 * (i + 1))
+    tokens = torch.from_numpy(r.integers(0, cfg.vocab_size,
+                                         (batch, seq))).to(dev)
+    b = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    if cfg.enc_dec:
+        b["frames"] = torch.from_numpy((r.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model)) * 0.02).astype(
+                np.float32)).to(dev)
+    return b
+
+
 def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
                     label: str, *, batch: int, seq: int, route_names,
                     layers: int | None = None, capture=(),
@@ -3805,17 +3855,8 @@ def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
           f"batches of {batch} x {seq}, remat full; made in "
           f"{time.perf_counter() - t0} s")
 
-    def make_batch(i):
-        r = np.random.default_rng(seed + 1000 * (i + 1))
-        tokens = torch.from_numpy(r.integers(0, cfg.vocab_size,
-                                             (batch, seq))).to(dev)
-        b = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
-        if cfg.enc_dec:
-            b["frames"] = torch.from_numpy((r.standard_normal(
-                (batch, cfg.enc_frames, cfg.d_model)) * 0.02).astype(
-                    np.float32)).to(dev)
-        return b
-    batches = [make_batch(i) for i in range(TRAIN_ROUTE_BATCHES)]
+    batches = [family_batch(torch, dev, cfg, seed, i, batch, seq)
+               for i in range(TRAIN_ROUTE_BATCHES)]
 
     # the windows each flash call receives, in forward order: the encoder's
     # layers, then each decoder layer's self-attention and cross-attention
@@ -3834,14 +3875,10 @@ def family_training(torch, dev, seed: int, zero_counts, counted, arch: str,
         seen = []
         vjp = (plain_routes(torch, attention, windows=seen)[1]
                if which == "plain" else vjps[which])
-        tmodel.COMPUTE_DTYPE = dtype
-        try:
-            with swapped(tflash, vjp=vjp):
-                params.requires_grad_(True)
-                loss, _ = tmodel.lm_loss(params, cfg, b)
-                loss.backward()
-        finally:
-            tmodel.COMPUTE_DTYPE = torch.bfloat16
+        with compute_dtype(tmodel, dtype), swapped(tflash, vjp=vjp):
+            params.requires_grad_(True)
+            loss, _ = tmodel.lm_loss(params, cfg, b)
+            loss.backward()
         if which == "plain" and (seen[:n_attn] != want_windows
                                  or len(seen) != 2 * n_attn):
             raise SystemExit(f"{label}: the plain route received the windows "
@@ -4112,8 +4149,9 @@ def ssd_grad_check(torch, params, cfg, batch: dict, label: str, seed: int
 
 
 def encdec_serving(torch, dev, seed: int, zero_counts, counted, kernel,
-                   records) -> dict:
-    """Phase 17a (see the module docstring)."""
+                   records, refs: dict) -> dict:
+    """Phase 17a (see the module docstring); ``refs["ws"]`` gets phase
+    21b's reference."""
     from repro_torch.kernels import attention
     from repro_torch.models import flash as tflash
     from repro_torch.models import model as tmodel
@@ -4126,6 +4164,7 @@ def encdec_serving(torch, dev, seed: int, zero_counts, counted, kernel,
     n_attn = flash_modules(params)
     if n_attn != cfg.enc_layers + 2 * cfg.num_layers:
         raise SystemExit(f"whisper lm: {n_attn} flash modules")
+    refs["ws"] = serve_family_ref(torch, cfg, run)
     layer_err = check_layers(attention, lm["captured"],
                              tmodel.layer_windows(cfg), "whisper lm check")
     # one more prefill with the encoder's layer 0 and decoder layer 0's
@@ -4167,14 +4206,10 @@ def encdec_serving(torch, dev, seed: int, zero_counts, counted, kernel,
     # the encoder's output by the two routes, bf16 and fp32
     def encoded(dtype, plain):
         seen = []
-        tmodel.COMPUTE_DTYPE = dtype
-        try:
-            with torch.no_grad(), swapped(tflash, serve=plain_routes(
+        with torch.no_grad(), compute_dtype(tmodel, dtype), swapped(
+                tflash, serve=plain_routes(
                     torch, attention, windows=seen)[0] if plain else None):
-                out = tmodel._encoder(params, cfg, inputs["frames"],
-                                      train=False)
-        finally:
-            tmodel.COMPUTE_DTYPE = torch.bfloat16
+            out = tmodel._encoder(params, cfg, inputs["frames"], train=False)
         if plain and seen != [None] * cfg.enc_layers:
             raise SystemExit(f"whisper lm: the plain encoder route received "
                              f"{seen}")
@@ -4196,27 +4231,18 @@ def encdec_serving(torch, dev, seed: int, zero_counts, counted, kernel,
                        "whisper lm check", extra={"frames": inputs["frames"]})
 
     # rows 5e and 5x: the kernel at the encoder's and the cross-attention's
-    # prefill shapes beside its plain version and SDPA (no mask)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name in ("encoder", "cross"):
-        fq, fk, fv, _, fo = captured[name]
-        B_, Sq, H_, hd_ = fq.shape
-        sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
-        kernel(f"flash_attention_fwd {name}", "attention.cu",
-               "src/repro/kernels/attention.py:67",
-               f"q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, bidirectional, "
-               f"bf16",
-               lambda: attention.flash_attention_fwd(fq, fk, fv,
-                                                     causal=False),
-               lambda: attention.flash_attention_fwd_plain(fq, fk, fv,
-                                                           causal=False),
-               2 * (2 * fq.numel() + fk.numel() + fv.numel()),
-               4 * B_ * H_ * Sq * fk.shape[1] * hd_, 10,
-               count=lm["launches"]["flash_attention_fwd"],
-               tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
-               library=lambda: sdpa(sq, sk, sv))
-        records[-1]["prefill_launches"] = n_attn
-        del sq, sk, sv
+    # prefill shapes, and the encoder at one (1, 4) rank's heads, beside its
+    # plain version and SDPA (no mask)
+    whole = (cfg.num_heads, cfg.num_kv_heads)
+    for label, name, heads in (("encoder", "encoder", whole),
+                               ("cross", "cross", whole),
+                               ("encoder (1, 4) rank", "encoder",
+                                RANK_HEADS["whisper"])):
+        cq, ck, cv, _, cout = captured[name]
+        flash_fwd_row(torch, attention, kernel, label, (cq, ck, cv, cout),
+                      False, heads, lm["launches"]["flash_attention_fwd"])
+        if heads == whole:
+            records[-1]["prefill_launches"] = n_attn
     out = dict(run["record"], card=CARD["smi"], layer_checks=layer_err,
                logit_checks=logit_checks, encoder_checks=enc_checks,
                step_check=steps, flash_launches_per_prefill=n_attn)
@@ -4228,10 +4254,17 @@ def encdec_serving(torch, dev, seed: int, zero_counts, counted, kernel,
 
 
 def encdec_training(torch, dev, seed: int, zero_counts, counted, kernel,
-                    records) -> dict:
-    """Phase 17b (see the module docstring)."""
+                    records, refs: dict) -> dict:
+    """Phase 17b (see the module docstring); ``refs["wt"]`` gets phase
+    21d's reference."""
     from repro_torch.kernels import attention
-    from torch_checks import bwd_tol, unit_rms
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+
+    def before_opt(params, cfg, batches):
+        refs["wt"] = train_family_ref(torch, tmodel, tmoe, params, cfg,
+                                      batches[0], FAMILY_GRADS["wt"])
+        return {}
     run = family_training(
         torch, dev, seed, zero_counts, counted, ENCDEC_ARCH, "whisper train",
         batch=ENCDEC_BATCH, seq=ENCDEC_TRAIN_SEQ,
@@ -4239,7 +4272,10 @@ def encdec_training(torch, dev, seed: int, zero_counts, counted, kernel,
                      "layers.0.xattn_wq"),
         capture={"encoder": lambda p: p.enc_layers[0].attn_core,
                  "self": lambda p: p.layers[0].attn_core,
-                 "cross": lambda p: p.layers[0].xattn_core})
+                 "cross": lambda p: p.layers[0].xattn_core},
+        before_opt=before_opt)
+    refs["wt"].update(step_ms=run["record"]["step_ms"],
+                      peak=run["record"]["peak_bytes"])
     launches = run["record"]["launches"]
     del run["params"], run["opt"], run["batches"]
     gc.collect()
@@ -4247,36 +4283,13 @@ def encdec_training(torch, dev, seed: int, zero_counts, counted, kernel,
     # rows 5be and 5bx: the backward kernel at the encoder's and the
     # cross-attention's training shapes on the step's dout brought to unit
     # RMS (exact), beside its plain version and SDPA's backward
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in ("encoder", "cross"):
-        c = run["captured"][name]
-        (cq, ck, cv), udout = c["qkv"], unit_rms(c["dout"])
-        out, lse = attention.flash_attention_fwd(cq, ck, cv, causal=False,
-                                                 return_lse=True)
-        B_, Sq, H_, hd_ = cq.shape
-        want = attention.flash_attention_bwd_plain(cq, ck, cv, out, lse,
-                                                   udout, causal=False)
-        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (cq, ck, cv))
-        so = sdpa(sq, sk, sv)
-        sdo = udout.transpose(1, 2).contiguous()
-        kernel(f"flash_attention_bwd {name}", "attention.cu",
-               "src/repro/models/flash.py:262",
-               f"q {tuple(cq.shape)}, k/v {tuple(ck.shape)}, bidirectional, "
-               f"bf16",
-               lambda: attention.flash_attention_bwd(cq, ck, cv, out, lse,
-                                                     udout, causal=False),
-               lambda: attention.flash_attention_bwd_plain(
-                   cq, ck, cv, out, lse, udout, causal=False),
-               2 * (4 * cq.numel() + 4 * ck.numel()) + 4 * lse.numel(),
-               2.5 * 4 * B_ * H_ * Sq * ck.shape[1] * hd_, 10,
-               count=launches["flash_attention_bwd"],
-               tol=[bwd_tol(w, torch.bfloat16) for w in want],
-               peak_ops=PEAK_BF16,
-               library=lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
-                                                   retain_graph=True))
-        records[-1]["train_launches"] = launches["flash_attention_bwd"]
-        del want, so, sq, sk, sv, sdo, out, lse, udout
+        flash_bwd_row(torch, attention, kernel, records, name,
+                      run["captured"][name], None,
+                      launches["flash_attention_bwd"])
+    flash_bwd_row(torch, attention, kernel, records, "encoder (1, 4) rank",
+                  run["captured"]["encoder"], RANK_HEADS["whisper"],
+                  launches["flash_attention_bwd"])
     for r in records:
         if r["name"] in ("flash_attention_fwd encoder",
                          "flash_attention_fwd cross"):
@@ -4289,8 +4302,11 @@ def encdec_training(torch, dev, seed: int, zero_counts, counted, kernel,
     return out
 
 
-def moe_training(torch, dev, seed: int, zero_counts, counted) -> dict:
-    """Phase 17c (see the module docstring)."""
+def moe_training(torch, dev, seed: int, zero_counts, counted, kernel,
+                 records, refs: dict) -> dict:
+    """Phase 17c (see the module docstring); ``refs["mt"]`` gets phase
+    21c's reference."""
+    from repro_torch.kernels import attention
     from repro_torch.models import model as tmodel
     from repro_torch.models import moe as tmoe
     from repro_torch.models.layers import mlp
@@ -4308,6 +4324,7 @@ def moe_training(torch, dev, seed: int, zero_counts, counted) -> dict:
         l1, g1 = grads_of(batches[0])
         l2, g2 = grads_of(batches[0])
         differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+
         print(f"moe train check: two runs of the loss and backward from the "
               f"same state: losses {float(l1)} and {float(l2)}, "
               f"{len(g1) - len(differ)}/{len(g1)} gradients bit-identical "
@@ -4316,6 +4333,8 @@ def moe_training(torch, dev, seed: int, zero_counts, counted) -> dict:
             raise SystemExit(f"moe train: gradients differ between two runs: "
                              f"{differ}")
         del g1, g2
+        refs["mt"] = train_family_ref(torch, tmodel, tmoe, params, cfg,
+                                      batches[0], FAMILY_GRADS["mt"])
         # the drops per layer and layer 0's MoE input, from one forward
         calls = []
         with torch.no_grad():
@@ -4340,6 +4359,10 @@ def moe_training(torch, dev, seed: int, zero_counts, counted) -> dict:
         capture={"layer 0": lambda p: p.layers[0].attn_core},
         before_opt=before_opt)
     out = run["record"]
+    refs["mt"].update(step_ms=out["step_ms"], peak=out["peak_bytes"])
+    flash_bwd_row(torch, attention, kernel, records, "moe (1, 4) rank",
+                  run["captured"]["layer 0"], RANK_HEADS["moe"],
+                  out["launches"]["flash_attention_bwd"])
     del run
     gc.collect()
     torch.cuda.empty_cache()
@@ -5654,10 +5677,11 @@ def host_top(torch, fn, n: int = 6) -> list:
 
 
 def serve_rank(args) -> int:
-    """One rank of phase 20 (``--serve-rank``): joins the NCCL group of
-    ``--serve-world`` ranks, one a card, sets the ``serve_tp`` rules and
-    runs each of ``--serve-jobs`` (:func:`serve_job`) in turn; every rank
-    writes its records to ``--serve-work``/serve-rank<r>.json."""
+    """One rank of phase 20 or 21 (``--serve-rank``): joins the NCCL group
+    of ``--serve-world`` ranks, one a card, sets the ``serve_tp`` rules and
+    runs each of ``--serve-jobs`` in turn (:func:`serve_job`, or
+    :func:`family_job` for phase 21's kinds); every rank writes its
+    records to ``--serve-work``/serve-rank<r>.json after each job."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5671,11 +5695,13 @@ def serve_rank(args) -> int:
     refs = torch.load(os.path.join(args.serve_work, "serve_refs.pt"))
     try:
         set_rules(serve_tp_rules())
-        out = [serve_job(torch, dev, job, args.seed, refs)
-               for job in args.serve_jobs.split(",")]
-        with open(os.path.join(args.serve_work, f"serve-rank{rank}.json"),
-                  "w") as f:
-            json.dump(out, f)
+        out = []
+        for job in args.serve_jobs.split(","):      # written job by job
+            out.append((family_job if job.split(":")[0] in FAMILY_JOBS
+                        else serve_job)(torch, dev, job, args.seed, refs))
+            with open(os.path.join(args.serve_work,
+                                   f"serve-rank{rank}.json"), "w") as f:
+                json.dump(out, f)
     finally:
         dist.destroy_process_group()
     return 0
@@ -5743,12 +5769,688 @@ def mesh_serving(torch, seed: int, lm7: dict, big: dict, records: list,
     return out
 
 
+# ---------------------------------------------------------------- phase 21
+#: 21c on four cards or more: Qwen2-MoE-A2.7B's published depth
+MOE_FULL_LAYERS = 24
+#: 21c: layer 0's expert-weight gradients held against 17c's over experts
+#: 0 .. FAMILY_EXPERTS - 1 (the whole three tensors are 2.1 GB of fp32)
+FAMILY_EXPERTS = 4
+#: the gradients phase 21's training jobs hold against phase 17's
+FAMILY_GRADS = {"mt": ("layers.0.wq", "layers.0.wk", "layers.0.wv",
+                       "layers.0.moe_w_in", "layers.0.moe_w_gate",
+                       "layers.0.moe_w_out"),
+                "wt": ("enc_layers.0.enc_wq", "layers.0.wq",
+                       "layers.0.xattn_wq")}
+#: the heads (query, KV) of one (1, 4) rank's shard: the per-rank rows of
+#: 16a/17c (Qwen2-MoE, 16 of 16) and 17a/17b (Whisper's encoder, 12 of 12)
+RANK_HEADS = {"moe": (4, 4), "whisper": (3, 3)}
+
+
+def expert_cut(name: str, g):
+    """An expert weight's gradient cut to its first FAMILY_EXPERTS
+    experts; another gradient whole."""
+    return g[:FAMILY_EXPERTS] if ".moe_w_" in name else g
+
+
+def dispatched(tmoe, run) -> list:
+    """Run ``run()`` with each ``dispatch`` call's experts (T, k) kept on
+    the host and its dropped assignments counted, one an MoE layer in
+    order (on a mesh every rank sees the whole batch's routing)."""
+    calls, saved = [], tmoe.dispatch
+
+    def recording(experts, num_experts, capacity):
+        pos, keep = saved(experts, num_experts, capacity)
+        calls.append({"experts": experts.cpu(),
+                      "dropped": int((~keep).sum())})
+        return pos, keep
+    tmoe.dispatch = recording
+    try:
+        run()
+    finally:
+        tmoe.dispatch = saved
+    return calls
+
+
+@contextlib.contextmanager
+def compute_dtype(tmodel, dtype):
+    """The model's compute dtype set to ``dtype`` inside the block."""
+    saved = tmodel.COMPUTE_DTYPE
+    tmodel.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        tmodel.COMPUTE_DTYPE = saved
+
+
+def drops_by_factor(torch, tmoe, tmodel, params, cfg, batch) -> dict:
+    """Each MoE layer's routing and drops in one fp32 forward of ``batch``
+    (no autograd; a bf16 rounding flips routings between batch splits,
+    fp32 next to never) at capacity factors ``cfg``'s and
+    MOE_TIGHT_FACTOR, the layers' spec swapped for the run: factor ->
+    :func:`dispatched`."""
+    out = {}
+    for factor in (cfg.moe.capacity_factor, MOE_TIGHT_FACTOR):
+        spec = dataclasses.replace(cfg.moe, capacity_factor=factor)
+        saved = [layer.cfg for layer in params.layers]
+        for layer in params.layers:
+            layer.cfg = dataclasses.replace(layer.cfg, moe=spec)
+        try:
+            with torch.no_grad(), compute_dtype(tmodel, torch.float32):
+                out[factor] = dispatched(
+                    tmoe, lambda: tmodel.lm_loss(params, cfg, batch))
+        finally:
+            for layer, c in zip(params.layers, saved):
+                layer.cfg = c
+    return out
+
+
+def serve_family_ref(torch, cfg, run: dict, experts=None) -> dict:
+    """What phase 21a/b holds a sharded serving run against, on the host,
+    from a ``family_serving`` run: the prompts (and frames), the greedy
+    ids, the timed prefill's last-position logits, the times and peak,
+    and (an MoE) each layer's routing in a kernel-route prefill."""
+    lm, rec = run["lm"], run["record"]
+    out = {"prompts": run["prompts"].cpu(), "gen": lm["gen"].cpu(),
+           "logits": lm["kernel_logits"].cpu(), "steps": rec["steps"],
+           "prefill_ms": lm["prefill_ms"], "decode_ms": lm["decode_ms"],
+           "peak": rec["peak_bytes"], "experts": experts}
+    if cfg.enc_dec:
+        out["frames"] = run["inputs"]["frames"].cpu()
+    return out
+
+
+def loss_and_grads(torch, tmodel, tmoe, params, cfg, batch: dict, names,
+                   dtype, keep_local: bool = False) -> dict:
+    """One loss and backward on ``batch`` (the kernel route) with the
+    compute dtype ``dtype``, on the host: the loss, the gradients
+    ``names`` (:func:`expert_cut`; whole: a DTensor's gathered) and each
+    MoE layer's routing in the forward; with ``keep_local`` also every
+    gradient's local shard (on the card), for a bit-identity check."""
+    out = {}
+
+    def run():
+        params.requires_grad_(True)
+        loss, _ = tmodel.lm_loss(params, cfg, batch)
+        loss.backward()
+        out["loss"] = float(tmodel.full_tensor(loss.detach()))
+    with compute_dtype(tmodel, dtype):
+        calls = dispatched(tmoe, run)
+    out["experts"] = [c["experts"] for c in calls[:cfg.num_layers]]
+    out["grads"] = {n: expert_cut(n, tmodel.full_tensor(
+        params.get_parameter(n).grad)).float().cpu() for n in names}
+    if keep_local:
+        out["local"] = {n: getattr(p.grad, "to_local", lambda: p.grad)()
+                        .clone() for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    return out
+
+
+def train_family_ref(torch, tmodel, tmoe, params, cfg, batch: dict, names
+                     ) -> dict:
+    """What phase 21c/d holds a sharded training run against, on the host:
+    ``batch`` and :func:`loss_and_grads` in bf16 and in fp32 (an MoE's
+    drops too, :func:`drops_by_factor`)."""
+    out = {"batch": {k: v.cpu() for k, v in batch.items()},
+           "layers": cfg.num_layers}
+    for dt in (torch.bfloat16, torch.float32):
+        out[str(dt).split(".")[-1]] = loss_and_grads(
+            torch, tmodel, tmoe, params, cfg, batch, names, dt)
+    if cfg.moe is not None:
+        out["routing"] = drops_by_factor(torch, tmoe, tmodel, params, cfg,
+                                         batch)
+    return out
+
+
+def flash_fwd_row(torch, attention, kernel, label: str, captured,
+                  causal: bool, heads: tuple, count: int) -> None:
+    """The forward kernel's record at a captured layer's (q, k, v, out)
+    cut to ``heads`` (query, KV: one rank's shard), beside its plain
+    version, SDPA and its bound."""
+    from torch_checks import attn_tol
+    h, kv = heads
+    q, k, v, o = (t[:, :, :n].contiguous() for t, n in zip(
+        captured, (h, kv, kv, h)))
+    B_, Sq, _, hd_ = q.shape
+    Skv = k.shape[1]
+    sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = {"enable_gqa": True} if h != kv else {}
+    kernel(f"flash_attention_fwd {label}", "attention.cu",
+           "src/repro/kernels/attention.py:67",
+           f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+           f"{'causal' if causal else 'bidirectional'}, bf16",
+           lambda: attention.flash_attention_fwd(q, k, v, causal=causal),
+           lambda: attention.flash_attention_fwd_plain(q, k, v,
+                                                       causal=causal),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           (2 * Sq * (Sq + 1) if causal else 4 * Sq * Skv) * hd_ * B_ * h,
+           10, count=count, tol=attn_tol(o, torch.bfloat16),
+           peak_ops=PEAK_BF16,
+           library=lambda: sdpa(sq, sk, sv, is_causal=causal, **gqa))
+
+
+def flash_bwd_row(torch, attention, kernel, records: list, label: str,
+                  c: dict, heads, count: int) -> None:
+    """The backward kernel's record at a flash module's first training
+    call (``c``: its q, k, v, mask and the out's gradient, brought to unit
+    RMS: exact), cut to ``heads`` (query, KV) unless None, beside its
+    plain version, SDPA's backward and its bound."""
+    from torch_checks import bwd_tol, unit_rms
+    cq, ck, cv = c["qkv"]
+    dout = c["dout"]
+    if heads is not None:
+        h, kv = heads
+        cq, ck, cv, dout = (t[:, :, :n].contiguous() for t, n in zip(
+            (cq, ck, cv, dout), (h, kv, kv, h)))
+    causal = c["mask"]["causal"]
+    udout = unit_rms(dout)
+    out, lse = attention.flash_attention_fwd(cq, ck, cv, causal=causal,
+                                             return_lse=True)
+    B_, Sq, H_, hd_ = cq.shape
+    Skv = ck.shape[1]
+    want = attention.flash_attention_bwd_plain(cq, ck, cv, out, lse, udout,
+                                               causal=causal)
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (cq, ck, cv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    so = sdpa(sq, sk, sv, is_causal=causal,
+              **({"enable_gqa": True} if H_ != ck.shape[2] else {}))
+    sdo = udout.transpose(1, 2).contiguous()
+    fwd_ops = (2 * Sq * (Sq + 1) if causal else 4 * Sq * Skv) * hd_ * B_ * H_
+    kernel(f"flash_attention_bwd {label}", "attention.cu",
+           "src/repro/models/flash.py:262",
+           f"q {tuple(cq.shape)}, k/v {tuple(ck.shape)}, "
+           f"{'causal' if causal else 'bidirectional'}, bf16",
+           lambda: attention.flash_attention_bwd(cq, ck, cv, out, lse,
+                                                 udout, causal=causal),
+           lambda: attention.flash_attention_bwd_plain(
+               cq, ck, cv, out, lse, udout, causal=causal),
+           2 * (4 * cq.numel() + 4 * ck.numel()) + 4 * lse.numel(),
+           2.5 * fwd_ops, 10, count=count,
+           tol=[bwd_tol(w, torch.bfloat16) for w in want],
+           peak_ops=PEAK_BF16,
+           library=lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
+                                               retain_graph=True))
+    records[-1]["train_launches"] = count
+
+
+def family_references(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 21's references without phases 2-20 (``--mesh-only``): 16a's
+    and 17a's serving runs (``family_serving``; 16a's routing from one
+    more prefill), and 17b's and 17c's first batch's loss and gradients
+    (17c's drops too) and TRAIN_TIMED timed steps after a first."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    refs = {}
+    for kind, arch, label, kw in (
+            ("ms", MOE_ARCH, "moe lm", {}),
+            ("ws", ENCDEC_ARCH, "whisper lm", {
+                "batch": ENCDEC_BATCH, "prompt": ENCDEC_PROMPT,
+                "steps": ENCDEC_STEPS})):
+        run = family_serving(torch, dev, seed, zero_counts, counted, arch,
+                             lambda cfg: (), label, **kw)
+        experts = None
+        if kind == "ms":
+            experts = [c["experts"] for c in dispatched(
+                tmoe, lambda: run["lm"]["prefill"](run["params"],
+                                                   run["inputs"]))]
+        refs[kind] = serve_family_ref(torch, run["cfg"], run, experts)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    for kind, arch, layers, batch, seq in (
+            ("mt", MOE_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH,
+             FAMILY_TRAIN_SEQ),
+            ("wt", ENCDEC_ARCH, None, ENCDEC_BATCH, ENCDEC_TRAIN_SEQ)):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, remat="full",
+                                  num_layers=layers or full.num_layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = tmodel.init_params(cfg, seed=seed, device=dev,
+                                    dtype=torch.float32)
+        b0 = family_batch(torch, dev, cfg, seed, 0, batch, seq)
+        ref = train_family_ref(torch, tmodel, tmoe, params, cfg, b0,
+                               FAMILY_GRADS[kind])
+        ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+        opt = init_opt_state(params, ocfg)
+        step = make_train_step(cfg, TrainConfig(ocfg))
+        params, opt, m = step(params, opt, b0)
+        times = []
+        for _ in range(TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b0)
+            float(m["loss"])
+            times.append(time.perf_counter() - t0)
+        ref.update(step_ms=statistics.median(times) * 1e3,
+                   peak=torch.cuda.max_memory_allocated())
+        print(f"family reference {kind}: {cfg.name} at {cfg.num_layers} "
+              f"layers unsharded, loss {ref['bfloat16']['loss']} (fp32 "
+              f"{ref['float32']['loss']}), step {ref['step_ms']}"
+              f" ms (median of {TRAIN_TIMED}), peak {ref['peak']} bytes")
+        refs[kind] = ref
+        del params, opt, m, step, b0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def train_state_bytes(cfg, mesh) -> int:
+    """Per-card bytes of fp32 parameters, gradients and both AdamW moments
+    (4 x the parameters' ``shard_bytes``) under the calling thread's rules
+    on the abstract ``mesh``."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel.sharding import logical_spec, shard_bytes
+    logical = tmodel.param_logical(cfg)
+    with set_mesh(mesh):
+        return 4 * sum(shard_bytes(t, logical_spec(t.shape, logical[k]),
+                                   mesh)
+                       for k, t in tmodel.abstract_params(cfg).items())
+
+
+def flips_of(torch, got: list, want: list) -> list:
+    """Per MoE layer, the (token, slot) routings that differ."""
+    return [int((a != b).sum()) for a, b in zip(got, want)]
+
+
+def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
+                     ref: dict, label: str) -> dict:
+    """Phase 21a (``ms``, Qwen2-MoE-A2.7B) or b (``ws``, Whisper-small) on
+    this rank under ``serve_tp``: the allocator's bytes against the dry
+    run's, the counted greedy run, the routing's flips (MoE), prefill and
+    decode timed and profiled, the logits and ids held against 16a's or
+    17a's (bit for bit on one card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.serve import step as tstep
+    cfg = get_config(MOE_ARCH if kind == "ms" else ENCDEC_ARCH)
+    prompts = ref["prompts"].to(dev)
+    extra = {"frames": ref["frames"].to(dev)} if cfg.enc_dec else {}
+    B, S = prompts.shape
+    steps = ref["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    param_bytes = torch.cuda.memory_allocated(dev) - base
+    cache = tmodel.init_cache(cfg, B, S + steps, mesh=mesh)
+    torch.cuda.synchronize()
+    cache_bytes = torch.cuda.memory_allocated(dev) - base - param_bytes
+    want = dryrun.serve_arg_bytes(cfg, AbstractMesh(shape, mesh.axis_names),
+                                  B, S + steps)
+    n_params = sum(1 for _ in params.parameters())
+    n_caches = sum(1 for k in cache if k != "pos")
+    out["bytes"] = {"params": param_bytes, "cache": cache_bytes,
+                    "dryrun": want, "slack_a_tensor": SERVE_ALLOC_SLACK}
+    if not (0 <= param_bytes - want["params"] <= n_params * SERVE_ALLOC_SLACK
+            and 0 <= cache_bytes - want["cache"]
+            <= n_caches * SERVE_ALLOC_SLACK):
+        raise SystemExit(f"{label}: the allocator holds {param_bytes} bytes "
+                         f"of parameters and {cache_bytes} of cache, the dry "
+                         f"run says {want} (slack {SERVE_ALLOC_SLACK} a "
+                         f"tensor)")
+    del cache
+
+    # the counted run: greedy_generate through the entry point
+    n_attn = flash_modules(params)
+    fwd = attention.flash_attention_fwd
+    fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_attention(attention):
+        gen = tstep.greedy_generate(params, cfg, prompts, steps=steps,
+                                    **extra)
+        torch.cuda.synchronize()
+    out["gen_s"] = time.perf_counter() - t0
+    out["launches"] = fwd.launches
+    if fwd.launches != n_attn or gen.shape != (B, steps):
+        raise SystemExit(f"{label}: {fwd.launches} flash launches in one "
+                         f"greedy run (want {n_attn}, one a flash module), "
+                         f"ids {tuple(gen.shape)}")
+    prefill = tstep.make_prefill_step(cfg, max_len=S + steps)
+    decode = tstep.make_decode_step(cfg)
+    inputs = {"tokens": prompts, **extra}
+    if cfg.moe is not None:
+        calls = dispatched(tmoe, lambda: prefill(params, inputs))
+        out["route_flips"] = flips_of(torch, [c["experts"] for c in calls],
+                                      ref["experts"])
+        out["dropped"] = [c["dropped"] for c in calls]
+        del calls
+
+    # prefill and decode timed apart, synchronized
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, inputs)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    last = logits.full_tensor()[:, -1, :cfg.vocab_size].float()
+    toks = [last.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        logits, cache = decode(params, {"tokens": toks[-1][:, None],
+                                        "cache": cache})
+        toks.append(tstep.next_ids(logits, cfg))
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["allocated_bytes"] = torch.cuda.memory_allocated(dev)
+    step = {"tokens": toks[-1][:, None], "cache": cache}
+    out["profile"] = {
+        "prefill": profile(f"{label}, one prefill", *device_profile(
+            torch, lambda: prefill(params, inputs))),
+        "decode": profile(f"{label}, one decode step", *device_profile(
+            torch, lambda: decode(params, step)))}
+    out["logits"] = held_logits(torch, last, ref["logits"].to(dev), label)
+    decided = torch.tensor(out["logits"]["decided"], device=dev)
+    want_gen = ref["gen"].to(dev)
+    first = gen[:, 0] == want_gen[:, 0]
+    out["first_token_agree"] = int(first.sum())
+    out["tokens_equal_to_reference"] = int((gen == want_gen).sum())
+    if not bool(first[decided].all()):
+        raise SystemExit(f"{label}: the first generated token differs from "
+                         f"the unsharded run's on a decided row: "
+                         f"{first.tolist()}, decided {decided.tolist()}")
+    if mesh.size == 1 and not (out["logits"]["bit_identical"]
+                               and torch.equal(gen, want_gen)
+                               and not any(out.get("route_flips", []))):
+        raise SystemExit(f"{label}: on one card the logits, ids and routing "
+                         f"must be the unsharded run's bit for bit: "
+                         f"{out['logits']}, ids equal "
+                         f"{out['tokens_equal_to_reference']}/{gen.numel()}, "
+                         f"flips {out.get('route_flips')}")
+    del params, cache, logits, gen, toks, last, prompts, inputs, step
+    return out
+
+
+def family_train_checks(torch, tmodel, tmoe, params, cfg, batch: dict,
+                        kind: str, ref: dict, mesh, label: str) -> dict:
+    """21c/d at the phase-17 cell's depth: two bf16 runs of the loss and
+    backward bit-identical; the loss within MESH_TOL and layer 0's
+    gradients within its L2 bound of phase 17's, in bf16 and in fp32;
+    in bf16 an expert weight's gradient is held only when no layer
+    routed otherwise than phase 17 did (a flip moves a token between
+    experts and, past the capacity, the tokens after it), printed
+    always; the MoE's drops at both capacity factors (fp32) equal to
+    17c's wherever every layer up to that one routed as 17c did (on one
+    card: every layer)."""
+    names = FAMILY_GRADS[kind]
+    runs = [loss_and_grads(torch, tmodel, tmoe, params, cfg, batch, names,
+                           torch.bfloat16, keep_local=True) for _ in (0, 1)]
+    same = runs[0]["loss"] == runs[1]["loss"] and all(
+        bits_equal(torch, g, runs[1]["local"][n])
+        for n, g in runs[0]["local"].items())
+    got = {"bfloat16": runs[0], "float32": loss_and_grads(
+        torch, tmodel, tmoe, params, cfg, batch, names, torch.float32)}
+    del runs
+    out = {"bit_identical": same, "errors": {}, "route_flips": {},
+           "loss": got["bfloat16"]["loss"],
+           "ref_loss": ref["bfloat16"]["loss"]}
+    bad = [] if same else ["two bf16 runs differ"]
+    for dt, g in got.items():
+        w = ref[dt]
+        flips = flips_of(torch, g["experts"], w["experts"])
+        err = {"loss": abs(g["loss"] - w["loss"]) / abs(w["loss"])}
+        for n in names:
+            err[n] = float((g["grads"][n] - w["grads"][n]).norm()
+                           / w["grads"][n].norm())
+        out["errors"][dt], out["route_flips"][dt] = err, flips
+        held = [n for n in err if n == "loss" or ".moe_w_" not in n
+                or dt == "float32" or not any(flips)]
+        bad += [f"{dt} {n} {err[n]}" for n in held if err[n] > MESH_TOL[
+            "loss" if n == "loss" else "grad"]]
+    if cfg.moe is not None:
+        routing = drops_by_factor(torch, tmoe, tmodel, params, cfg, batch)
+        out["drops"] = {}
+        for factor, calls in routing.items():
+            want = ref["routing"][factor]
+            flips = flips_of(torch, [c["experts"] for c in calls],
+                             [c["experts"] for c in want])
+            got_d = [c["dropped"] for c in calls]
+            want_d = [c["dropped"] for c in want]
+            alike = np.cumsum(flips) == 0
+            out["drops"][str(factor)] = {"mesh": got_d, "17c": want_d,
+                                         "flips": flips}
+            if (mesh.size == 1 and not alike.all()) or any(
+                    a != b for a, b, a_ in zip(got_d, want_d, alike) if a_):
+                bad.append(f"drops at capacity factor {factor}")
+    if bad:
+        raise SystemExit(f"{label}: against phase 17's run: {bad} "
+                         f"(tolerances {MESH_TOL}); {out}")
+    return out
+
+
+def family_train_job(torch, dev, kind: str, shape: tuple, mesh,
+                     layers: int, seed: int, ref: dict, label: str) -> dict:
+    """Phase 21c (``mt``, Qwen2-MoE-A2.7B at ``layers``) or d (``wt``,
+    Whisper-small) on this rank under the default rules, remat full, fp32
+    state: the per-card state reckoned by ``shard_bytes``; at the phase-17
+    cell's depth :func:`family_train_checks`; one counted step;
+    TRAIN_TIMED timed steps and one profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    from repro_torch.train.loop import distribute_batch
+    from repro_torch.train.step import TrainConfig, make_train_step
+    set_rules(DEFAULT_RULES)
+    full = get_config(MOE_ARCH if kind == "mt" else ENCDEC_ARCH)
+    cfg = dataclasses.replace(full, remat="full",
+                              num_layers=layers or full.num_layers)
+    out = {"layers": cfg.num_layers, "reckoned_state_bytes":
+           train_state_bytes(cfg, AbstractMesh(shape, mesh.axis_names))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, mesh=mesh,
+                                dtype=torch.float32)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    batch = distribute_batch({k: v.to(dev) for k, v in ref["batch"].items()},
+                             mesh)
+    n_attn = flash_modules(params)
+    if cfg.num_layers == ref["layers"]:
+        out.update(family_train_checks(torch, tmodel, tmoe, params, cfg,
+                                       batch, kind, ref, mesh, label))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, TrainConfig(ocfg))
+    counted = {"flash_attention_fwd": attention.flash_attention_fwd,
+               "flash_attention_bwd": attention.flash_attention_bwd}
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_attention(attention):
+        params, opt, m = step(params, opt, batch)
+        losses = [float(m["loss"])]
+    out["first_step_s"] = time.perf_counter() - t0
+    out["launches"] = n_ = {k: fn.launches for k, fn in counted.items()}
+    if (n_["flash_attention_fwd"] != 2 * n_attn
+            or n_["flash_attention_bwd"] != n_attn):
+        raise SystemExit(f"{label}: want {2 * n_attn} forward and {n_attn} "
+                         f"backward flash launches a step ({n_attn} flash "
+                         f"modules), saw {out['launches']}")
+    times = []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))         # waits for the step
+        times.append(time.perf_counter() - t0)
+    out.update(losses=losses, step_ms=statistics.median(times) * 1e3,
+               step_ms_all=[t * 1e3 for t in times],
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               allocated_bytes=torch.cuda.memory_allocated(dev))
+    out["profile"] = profile(f"{label}, one train step", *device_profile(
+        torch, lambda: step(params, opt, batch)))
+    if not all(np.isfinite(losses)) or (
+            cfg.num_layers != ref["layers"] and not losses[-1] < losses[0]):
+        raise SystemExit(f"{label}: losses {losses} not finite"
+                         + ("" if cfg.num_layers == ref["layers"]
+                            else " and falling"))
+    del params, opt, m, step, batch
+    return out
+
+
+def family_job(torch, dev, job: str, seed: int, refs: dict) -> dict:
+    """One phase-21 job on this rank: ``kind:DxM[:layers]`` (ms, ws:
+    serving; mt, wt: training) on the (D, M) device mesh."""
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.parallel.sharding import get_rules, set_rules
+    kind, shape_s, *rest = job.split(":")
+    shape = tuple(int(x) for x in shape_s.split("x"))
+    mesh = make_device_mesh(shape, ("data", "model"), dev)
+    label = f"21{FAMILY_JOBS[kind]} {job}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rules = get_rules()
+    try:
+        if kind in ("ms", "ws"):
+            out = family_serve_job(torch, dev, kind, shape, mesh, seed,
+                                   refs[kind], label)
+        else:
+            out = family_train_job(torch, dev, kind, shape, mesh,
+                                   int(rest[0]) if rest else 0, seed,
+                                   refs[kind], label)
+    finally:
+        set_rules(rules)
+    out.update(job=job, mesh=mesh.name, card=torch.cuda.get_device_name(dev),
+               job_s=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 21's job kinds, by the letter of their part of the phase
+FAMILY_JOBS = {"ms": "a", "ws": "b", "mt": "c", "wt": "d"}
+
+
+def families_across_cards(torch, seed: int, refs: dict, records: list,
+                          t_phase: float) -> dict:
+    """Phase 21 (see the module docstring): the MoE and the
+    encoder-decoder served and trained on device meshes, one NCCL rank a
+    card (``--serve-rank`` with phase 21's jobs)."""
+    n = torch.cuda.device_count()
+    jobs = [f"ms:1x{n}", f"ws:1x{n}"]
+    if n >= 4:
+        jobs += [f"ms:{n // 2}x2", f"ws:{n // 2}x2"]
+    jobs.append(f"mt:{n}x1:{MOE_TRAIN_LAYERS}")
+    if n >= 4:
+        jobs.append(f"mt:{n // 2}x2:{MOE_FULL_LAYERS}")
+    jobs.append(f"wt:{n}x1")
+    if n >= 4:
+        jobs.append(f"wt:{n // 2}x2")
+    print(f"families mesh: {n} card(s), one NCCL rank a card; jobs {jobs}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_families-")
+    atexit.register(shutil.rmtree, work, True)
+    torch.save(refs, os.path.join(work, "serve_refs.pt"))
+    t0 = time.perf_counter()
+    port = free_port()
+    try:
+        wait_processes(start_processes([_serve_cmd(r, n, port, work, jobs,
+                                                   seed) for r in range(n)]),
+                       "21", timeout=1500)
+    except SystemExit:
+        rank0 = os.path.join(work, "serve-rank0.json")
+        if os.path.exists(rank0):           # the jobs rank 0 finished
+            with open(rank0) as f:
+                print(json.dumps({"families_mesh_done": json.load(f)}))
+        raise
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(work, f"serve-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for i, job in enumerate(jobs):
+        a = ranks[0][i]
+        kind = job.split(":")[0]
+        ref = refs[kind]
+        per_rank = (f"per rank peak {[rk[i]['peak_bytes'] for rk in ranks]},"
+                    f" allocated {[rk[i]['allocated_bytes'] for rk in ranks]}")
+        if kind in ("ms", "ws"):
+            print(f"21{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
+                  f"({a['card']}): {a['launches']} flash launches in one "
+                  f"greedy run on each rank "
+                  f"{[rk[i]['launches'] for rk in ranks]}, no plain "
+                  f"attention; prefill {a['prefill_ms']} ms, decode "
+                  f"{a['decode_ms']} ms/step against the unsharded run's "
+                  f"{ref['prefill_ms']} ms and {ref['decode_ms']} ms/step; "
+                  f"logits {a['logits']} (tolerance {LOGIT_TOL['bfloat16']} "
+                  f"of max), first token equal on {a['first_token_agree']}/"
+                  f"{len(a['logits']['decided'])} rows, "
+                  f"{a['tokens_equal_to_reference']} greedy ids equal; "
+                  + (f"routings that differ from one card's per layer "
+                     f"{a['route_flips']}, drops {a['dropped']}; "
+                     if kind == "ms" else "")
+                  + f"peak {a['peak_bytes']} bytes on rank 0 against "
+                  f"{ref['peak']}; {per_rank}; bytes against the dry run "
+                  f"{a['bytes']}; rank 0's card busy / idle share: prefill "
+                  f"{a['profile']['prefill']['busy_ms']} ms / "
+                  f"{a['profile']['prefill']['idle_share']}, decode step "
+                  f"{a['profile']['decode']['busy_ms']} ms / "
+                  f"{a['profile']['decode']['idle_share']}; job "
+                  f"{a['job_s']} s [{CARD['smi']}]")
+        else:
+            held = (f"loss {a['loss']} against phase 17's {a['ref_loss']}, "
+                    f"relative differences by compute dtype {a['errors']} "
+                    f"(tolerances {MESH_TOL}), routings that differ from "
+                    f"phase 17's per layer {a['route_flips']}, two bf16 "
+                    f"runs bit-identical {a['bit_identical']}; "
+                    if "loss" in a else
+                    "no phase-17 reference at this depth; ")
+            drops = (f"drops (fp32) by capacity factor {a['drops']}; "
+                     if "drops" in a else "")
+            print(f"21{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
+                  f"({a['card']}), {a['layers']} layers: {held}{drops}"
+                  f"launches a step {a['launches']}, no plain attention; "
+                  f"losses {a['losses']}; step {a['step_ms']} ms (median "
+                  f"of {TRAIN_TIMED}; {a['step_ms_all']}) against the "
+                  f"unsharded run's {ref['step_ms']} ms; state reckoned "
+                  f"{a['reckoned_state_bytes']} bytes a card (shard_bytes, "
+                  f"fp32 parameters, gradients and moments), peak "
+                  f"{a['peak_bytes']} bytes on rank 0 against the unsharded "
+                  f"{ref['peak']}; {per_rank}; rank 0's card busy / idle "
+                  f"share over a step {a['profile']['busy_ms']} ms / "
+                  f"{a['profile']['idle_share']}; job {a['job_s']} s "
+                  f"[{CARD['smi']}]")
+    serve0 = ranks[0][0]["launches"]
+    train0 = ranks[0][jobs.index(f"mt:{n}x1:{MOE_TRAIN_LAYERS}")]["launches"]
+    for r in records:
+        if r["name"].startswith("flash_attention_fwd moe"):
+            r["family_mesh_launches"] = serve0
+        if r["name"].startswith("flash_attention_bwd moe"):
+            r["family_mesh_launches"] = train0["flash_attention_bwd"]
+    out = {"cards": n, "jobs": jobs, "ranks": ranks, "wall_s": wall,
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"families_mesh_path": out}))
+    print(f"phase 21 took {out['phase_s']} s ({wall} s of ranks)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-only", action="store_true",
-                    help="phase 1, then phase 19 beside an unsharded step "
-                    "of 13a's configuration (for a run on several cards)")
+                    help="phase 1, then phases 19-21 beside their "
+                    "unsharded references (for a run on several cards)")
     args = ap.parse_args()
 
     import torch
@@ -5842,6 +6544,11 @@ def main() -> int:
         lm7 = serve_reference(torch, dev, args.seed, zero_counts, counted)
         mesh_serving(torch, args.seed, lm7, big_serving(
             torch, dev, args.seed, zero_counts, counted, None), [], t20)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t21 = time.perf_counter()
+        families_across_cards(torch, args.seed, family_references(
+            torch, dev, args.seed, zero_counts, counted), [], t21)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6552,7 +7259,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
-    moe_serving(torch, dev, args.seed, zero_counts, counted, kernel)
+    refs = {}                       # phase 21's references
+    moe_serving(torch, dev, args.seed, zero_counts, counted, kernel, refs)
     ssm_serving(torch, dev, args.seed, zero_counts, counted)
     hybrid_serving(torch, dev, args.seed, zero_counts, counted, kernel)
     print(f"phase 16 took {time.perf_counter() - t16} s")
@@ -6562,10 +7270,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     t17 = time.perf_counter()
     encdec_serving(torch, dev, args.seed, zero_counts, counted, kernel,
-                   records)
+                   records, refs)
     encdec_training(torch, dev, args.seed, zero_counts, counted, kernel,
-                    records)
-    moe_training(torch, dev, args.seed, zero_counts, counted)
+                    records, refs)
+    moe_training(torch, dev, args.seed, zero_counts, counted, kernel,
+                 records, refs)
     ssm_training(torch, dev, args.seed, zero_counts, counted, SSM_ARCH,
                  "ssm train")
     ssm_training(torch, dev, args.seed, zero_counts, counted, HYBRID_ARCH,
@@ -6590,6 +7299,12 @@ def main() -> int:
     t20 = time.perf_counter()
     mesh_serving(torch, args.seed, lm7, big_serving(
         torch, dev, args.seed, zero_counts, counted, kernel), records, t20)
+
+    # ---- 21. the MoE and the encoder-decoder across cards ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_across_cards(torch, args.seed, refs, records,
+                          time.perf_counter())
 
     print(json.dumps({"kernels": records}))
     print(smi)

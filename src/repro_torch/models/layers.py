@@ -165,6 +165,8 @@ def cached_decode_attention(q: torch.Tensor, k: torch.Tensor,
     """One decode step's attention: the new position's k/v (B, 1, KV, hd)
     written into the caches (B, Smax, KV, hd) at ``mask.q_offset``, in
     place, then :func:`decode_attention` of q (B, 1, H, hd) against them.
+    With k and v None nothing is written (an encoder-decoder's
+    cross-attention reads the ``xk``/``xv`` caches its prefill wrote).
 
     On DTensor caches (a device mesh) the write and the attention run on
     each process's shard through ``local_map``, q, k and v taken at the
@@ -183,8 +185,9 @@ def cached_decode_attention(q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(q.shape[-1])
 
     def write(k_, v_, ck, cv):
-        write_cache(ck, k_, mask.q_offset)
-        write_cache(cv, v_, mask.q_offset)
+        if k_ is not None:
+            write_cache(ck, k_, mask.q_offset)
+            write_cache(cv, v_, mask.q_offset)
 
     if not hasattr(k_cache, "device_mesh"):
         write(k, v, k_cache, v_cache)
@@ -192,13 +195,14 @@ def cached_decode_attention(q: torch.Tensor, k: torch.Tensor,
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     mesh, pc = k_cache.device_mesh, list(k_cache.placements)
+    pin = (pc, None, None, pc, pc) if k is None else (pc,) * 5
 
     def whole(q_, k_, v_, ck, cv):
         write(k_, v_, ck, cv)
         return decode_values(decode_scores(q_, ck, scale), cv, mask)
 
     if not any(p.is_shard(3) for p in pc):
-        return local_map(whole, out_placements=pc, in_placements=(pc,) * 5,
+        return local_map(whole, out_placements=pc, in_placements=pin,
                          device_mesh=mesh, redistribute_inputs=True)(
             q, k, v, k_cache, v_cache)
 
@@ -207,7 +211,7 @@ def cached_decode_attention(q: torch.Tensor, k: torch.Tensor,
         return decode_scores(q_, ck, scale)
 
     partial = [Partial() if p.is_shard(3) else p for p in pc]
-    s = local_map(scores, out_placements=partial, in_placements=(pc,) * 5,
+    s = local_map(scores, out_placements=partial, in_placements=pin,
                   device_mesh=mesh, redistribute_inputs=True)(
         q, k, v, k_cache, v_cache)
     summed = [Replicate() if p.is_partial() else p for p in partial]

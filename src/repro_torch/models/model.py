@@ -30,8 +30,8 @@ bidirectional flash attention, RMSNorm and the gelu MLP, then
 residual plus the layer's mix, q against k/v projected from the encoder
 output (no bias, qk-norm or rope), through the flash kernel with
 ``causal=False`` in train and prefill; prefill writes those k/v to the
-``xk``/``xv`` caches, and decode reads them with the plain
-``decode_attention`` and never writes them.
+``xk``/``xv`` caches, and decode reads them with the plain decode
+attention (``cached_decode_attention`` with nothing to write).
 
 Training (``mode="train"``, autograd on) runs attention through
 ``flash_attention_vjp`` (the forward and backward kernels) and, unless
@@ -56,21 +56,28 @@ On a device mesh (``init_params(..., mesh=)``, a
 ``repro_torch.launch.mesh.DistMesh``) the parameters are DTensors placed by
 :func:`param_logical` (FSDP over ``data``, TP over ``model``, the
 reference's divisibility fallback; under the reference's ``serve_tp`` rules,
-``fsdp`` mapped to None, TP only) and the dense attention family trains and
-serves under the reference's sharding constraints
-(``parallel.sharding.constrain`` at the residual after the embedding, q
-after rope, the MLP hidden and the logits; identities on one device):
-DTensor propagates the products and their collectives, flash attention runs
-its kernels on each process's local heads and batch (``models.flash``), and
-the loss is vocab-parallel (``models.loss``).  The caches are DTensors placed
-by :func:`cache_logical`; prefill writes each process's shard of them, and
-decode writes and attends on each process's shard
-(``layers.cached_decode_attention``).  A table sharded on ``vocab`` alone
-(serving) is looked up where each row lives and summed over its axes; one
-sharded on both dimensions (training) is gathered whole for the lookup.
-Prefill and decode logits stay sharded on ``vocab``.  The other families,
-``ulysses_attn`` and ``seq_sharded`` raise on a device mesh (ROADMAP A11,
-A12).
+``fsdp`` mapped to None, TP only) and every family whose block is attention
+(the dense family, the MoE and the encoder-decoder) trains and serves under
+the reference's sharding constraints (``parallel.sharding.constrain`` at
+the residual after the embedding, q after rope, the MLP hidden and the
+logits; identities on one device): DTensor propagates the products and
+their collectives, flash attention runs its kernels on each process's
+local heads and batch (``models.flash``; causal, bidirectional and cross
+attention alike), the MoE dispatches its tokens to the processes that hold
+their experts (``models.moe``: expert parallelism over ``model``, or tensor
+parallelism inside each expert), and the loss is vocab-parallel
+(``models.loss``).  An encoder-decoder's frames are split by rows over the
+data axes and its sinusoidal positions placed whole on every process, as
+the rope angles are.  The caches are DTensors placed by
+:func:`cache_logical`; prefill writes each process's shard of them (the
+``xk``/``xv`` caches too), and decode writes and attends on each process's
+shard (``layers.cached_decode_attention``; the cross-attention reads its
+shard of ``xk``/``xv`` and writes none).  A table sharded on ``vocab``
+alone (serving) is looked up where each row lives and summed over its
+axes; one sharded on both dimensions (training) is gathered whole for the
+lookup.  Prefill and decode logits stay sharded on ``vocab``.  The SSM and
+hybrid blocks, ``ulysses_attn`` and ``seq_sharded`` raise on a device mesh
+(ROADMAP A11, A12).
 """
 from __future__ import annotations
 
@@ -90,9 +97,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnMask, apply_rope,
-                                       cached_decode_attention,
-                                       decode_attention, mlp, rms_norm,
-                                       rope_angles, write_cache)
+                                       cached_decode_attention, mlp,
+                                       rms_norm, rope_angles, write_cache)
 from repro_torch.models.loss import fused_ce_loss
 from repro_torch.parallel.sharding import (constrain, distribute,
                                           mesh_placements)
@@ -341,8 +347,9 @@ class DecoderLayer(nn.Module):
         q = (x.reshape(B * S, d) @ self.xattn_wq.to(dt).reshape(d, H * hd)
              ).view(B, S, H, hd)
         if mode == "decode":
-            out = decode_attention(q, cache["xk"], cache["xv"],
-                                   AttnMask(False, None, 0, None))
+            out = cached_decode_attention(q, None, None, cache["xk"],
+                                          cache["xv"],
+                                          AttnMask(False, None, 0, None))
         else:
             F_ = enc_out.shape[1]
             e2 = enc_out.reshape(B * F_, d)
@@ -353,8 +360,8 @@ class DecoderLayer(nn.Module):
             out = self.xattn_core(q, xk, xv, causal=False,
                                   train=mode == "train")
             if mode == "prefill":
-                cache["xk"].copy_(xk)
-                cache["xv"].copy_(xv)
+                write_cache(cache["xk"], xk, 0)
+                write_cache(cache["xv"], xv, 0)
         return (out.reshape(B * S, H * hd)
                 @ self.xattn_wo.to(dt).reshape(H * hd, d))
 
@@ -473,22 +480,18 @@ class Model(nn.Module):
 def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
     """``mesh`` if it is a device mesh (a ``DistMesh``), else None (no
     mesh, or an abstract one: nothing to place).  Raises
-    ``NotImplementedError`` on a device mesh unless ``cfg`` is of the dense
-    attention family that trains and serves there: the MoE, SSM, hybrid
-    and encoder-decoder families, ``ulysses_attn`` and ``seq_sharded`` are
-    not ported, in serving or training (ROADMAP A11, A12), and nothing is
-    replicated in their place."""
+    ``NotImplementedError`` on a device mesh unless ``cfg``'s block is
+    attention (the dense family, the MoE and the encoder-decoder train and
+    serve there): the SSM and hybrid blocks, ``ulysses_attn`` and
+    ``seq_sharded`` are not ported, in serving or training (ROADMAP A11,
+    A12), and nothing is replicated in their place."""
     if not isinstance(mesh, DistMesh):
         return None
-    what = [w for w, on in (
-        ("the MoE FFN", cfg.moe is not None),
-        (f"the {cfg.block} block", cfg.block != "attn"),
-        ("the encoder-decoder", cfg.enc_dec)) if on]
-    if what:
+    if cfg.block != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what)} on the {mesh.name} device mesh is "
-            f"not ported, in serving or training (ROADMAP A11: the families "
-            f"under a mesh)")
+            f"{cfg.name}: the {cfg.block} block on the {mesh.name} device "
+            f"mesh is not ported, in serving or training (ROADMAP A11: the "
+            f"SSM and hybrid families under a mesh)")
     what = [w for w in ("ulysses_attn", "seq_sharded") if getattr(cfg, w)]
     if what:
         raise NotImplementedError(
@@ -764,8 +767,12 @@ def _encoder(params: Model, cfg: ModelConfig, frames: torch.Tensor,
     ``enc_final_norm``."""
     B, F_, d = frames.shape
     dev = params.embed.device
-    x = (frames.to(device=dev, dtype=torch.float32)
-         + _sinusoidal(torch.arange(F_, device=dev), d)).to(COMPUTE_DTYPE)
+    if not hasattr(frames, "device_mesh"):
+        frames = frames.to(device=dev)
+    x = _replicated(params, frames, ("batch", None, "embed")).float()
+    pos = _replicated(params, _sinusoidal(torch.arange(F_, device=dev), d),
+                      (None, "embed"))
+    x = (x + pos).to(COMPUTE_DTYPE)
     for layer in params.enc_layers:
         x = _layer_call(cfg, train, layer, x, train)
     return rms_norm(x, params.enc_final_norm, cfg.norm_eps)

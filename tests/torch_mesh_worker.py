@@ -1,12 +1,14 @@
-"""The port's side of ``tests/test_torch_mesh_train.py`` and
-``tests/test_torch_mesh_serve.py``: processes of one ``gloo`` group on the
-CPU, each running the same program on its shard.
+"""The port's side of ``tests/test_torch_mesh_train.py``,
+``tests/test_torch_mesh_serve.py`` and ``tests/test_torch_mesh_families.py``:
+processes of one ``gloo`` group on the CPU, each running the same program
+on its shard.
 
 Imports ``torch`` and ``repro_torch`` only (a spawned process imports this
 module to find its function).  :func:`spawn` starts ``world`` processes that
 join a group through a file under a temporary directory (no TCP port, so
 test files may run side by side) and run ``fn(rank, *args)``;
-:func:`port_runs` (training) and :func:`serve_runs` (serving) are the
+:func:`port_runs` (training), :func:`serve_runs` (serving) and
+:func:`family_runs` (the MoE and the encoder-decoder, both) are the
 programs the tests hold against the reference.
 """
 from __future__ import annotations
@@ -25,8 +27,7 @@ MESHES = ((2, 2), (1, 4))
 ELASTIC = (4, 1)
 #: the configurations that raise on a device mesh, in serving and training
 #: (the families, and the two attention options no slice covers yet)
-UNCOVERED = ("qwen2_moe_a2_7b", "mamba2_2_7b", "hymba_1_5b",
-             "whisper_small", "ulysses_attn", "seq_sharded")
+UNCOVERED = ("mamba2_2_7b", "hymba_1_5b", "ulysses_attn", "seq_sharded")
 LOSS_CHUNK = 16
 #: the smoke configurations served on a mesh: GQA whose 2 KV heads do not
 #: divide 4, the parallel block, MQA, sliding windows, M-RoPE with a visual
@@ -39,6 +40,33 @@ SERVE_BATCH, SERVE_SEQ, SERVE_STEPS = 4, 40, 4
 #: the configurations whose ``init_params`` is held across meshes
 INIT_HELD = ("qwen2_7b", "command_r_plus_104b")
 INIT_SEED = 3
+#: the MoE and encoder-decoder cases on a mesh, each with its meshes: the
+#: smoke configs of Qwen2-MoE (shared experts, ``qkv_bias``), Granite-MoE
+#: (no shared experts, ``router_norm``, tied head, 2 KV heads that do not
+#: divide 4) and Whisper-small; Qwen2-MoE with 6 experts, which ``model``
+#: of 4 does not divide (``expert_mlp`` takes it: TP inside each expert),
+#: and at capacity factor 0.5 (drops, counted in global token order)
+FAMILY_CASES = {"qwen2_moe": MESHES, "granite_moe": MESHES,
+                "whisper": MESHES, "qwen2_moe_e6": ((1, 4),),
+                "qwen2_moe_c05": MESHES}
+#: the batch a family case trains on
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 32
+
+
+def family_config(case: str, get_smoke_config):
+    """A :data:`FAMILY_CASES` case's config from ``get_smoke_config`` (the
+    port's or the reference's: the same fields)."""
+    import dataclasses
+    arch = {"granite_moe": "granite_moe_3b_a800m",
+            "whisper": "whisper_small"}.get(case, "qwen2_moe_a2_7b")
+    cfg = get_smoke_config(arch)
+    if case == "qwen2_moe_e6":
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=6))
+    if case == "qwen2_moe_c05":
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.5))
+    return cfg
 
 
 def tag(shape) -> str:
@@ -297,5 +325,211 @@ def serve_runs(rank: int, shape: tuple, src: str, dst: str) -> None:
             out[f"init/{arch}/{k}"] = v
         del params
     attention.flash_attention_fwd = plain_fwd
+    if rank == 0:
+        np.savez(dst, **out)
+
+
+def _record_routing(calls: list):
+    """Wrap ``models.moe.dispatch`` and ``_expert_sums`` to record, per MoE
+    call, the experts (T, k), ``pos`` and ``keep`` every process ranked, and
+    the local weights' shape and buffer block each process ran; returns
+    the undo."""
+    from repro_torch.models import moe
+    dispatch, sums = moe.dispatch, moe._expert_sums
+
+    def rec_dispatch(experts, num_experts, capacity):
+        pos, keep = dispatch(experts, num_experts, capacity)
+        calls.append({"experts": experts.numpy().copy(),
+                      "pos": pos.numpy().copy(), "keep": keep.numpy().copy(),
+                      "capacity": capacity})
+        return pos, keep
+
+    def rec_sums(xf, gates, experts, pos, keep, w_in, w_gate, w_out, act,
+                 rows, cols):
+        calls[-1]["block"] = (tuple(w_in.shape), tuple(w_out.shape), rows,
+                              cols, tuple(xf.shape))
+        return sums(xf, gates, experts, pos, keep, w_in, w_gate, w_out,
+                    act, rows, cols)
+    moe.dispatch, moe._expert_sums = rec_dispatch, rec_sums
+
+    def undo():
+        moe.dispatch, moe._expert_sums = dispatch, sums
+    return undo
+
+
+def _routing_out(out: dict, key: str, calls: list) -> None:
+    for i, c in enumerate(calls):
+        for name in ("experts", "pos", "keep"):
+            out[f"{key}/{i}/{name}"] = c[name]
+        out[f"{key}/{i}/block"] = np.array(repr(c.get("block")))
+
+
+def family_runs(rank: int, shape: tuple, src: str, dst: str,
+                ckpt: str) -> None:
+    """On the (data, model) mesh ``shape``, each :data:`FAMILY_CASES` case
+    that runs there, at fp32 from ``src``'s parameters:
+
+    * under the ``serve_tp`` rules: the prefill's logits and caches, the
+      caches and logits after SERVE_STEPS - 1 decode steps, the greedy ids,
+      the prefill's routing (experts, ``pos``, ``keep``, each process's
+      local weights and buffer block), the flash wrapper's shapes, the
+      placements of the parameters and of ``init_cache``'s caches, rank 0's
+      local bytes;
+    * under the default rules: one train step (loss, ``grad_norm``, the
+      updated parameters and moments gathered whole), the placements of
+      the parameters and moments, the train forward's routing, and whether
+      two runs of the loss and backward give the same gradients bit for
+      bit.
+
+    On (2, 2) Qwen2-MoE's trained state is checkpointed under ``ckpt`` and
+    restored on :data:`ELASTIC`.  Rank 0 writes ``dst`` (npz)."""
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch.dryrun import serve_tp_rules
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    from repro_torch.serve import step as sstep
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import step as tstep
+    tmodel.COMPUTE_DTYPE = torch.float32
+    data = dict(np.load(src))
+    mesh = make_device_mesh(shape, ("data", "model"), "cpu")
+    ocfg = OptimConfig(warmup_steps=1, decay_steps=10)
+    seen = []
+    plain_fwd = attention.flash_attention_fwd
+
+    def counted_fwd(q, k, v, **kw):
+        seen.append((type(q).__name__, tuple(q.shape), tuple(k.shape),
+                     kw.get("causal")))
+        return plain_fwd(q, k, v, **kw)
+    attention.flash_attention_fwd = counted_fwd
+    out = {}
+    B, S, steps = SERVE_BATCH, SERVE_SEQ, SERVE_STEPS
+    for case, meshes in FAMILY_CASES.items():
+        if shape not in meshes:
+            continue
+        cfg = family_config(case, get_smoke_config)
+        flat = {k[len(case) + 3:]: v for k, v in data.items()
+                if k.startswith(f"{case}/p/")}
+        frames = ({"frames": torch.from_numpy(data[f"{case}/frames"])}
+                  if cfg.enc_dec else {})
+        names = [nm for nm in tmodel.CACHE_KEYS
+                 if nm in tmodel.cache_logical(cfg)]
+
+        # serving, under serve_tp
+        set_rules(serve_tp_rules())
+        params = tmodel.params_from_numpy(cfg, flat, mesh=mesh,
+                                          dtype=torch.float32)
+        for name, p in params.named_parameters():
+            out[f"{case}/serve/placement/{name}"] = np.array(_placements(p))
+        out[f"{case}/local_bytes/params"] = np.array(
+            _local_bytes(params.parameters()))
+        empty = tmodel.init_cache(cfg, B, S + steps, mesh=mesh)
+        for nm in names:
+            out[f"{case}/init_cache_placement/{nm}"] = np.array(
+                _placements(empty[nm]))
+        out[f"{case}/local_bytes/cache"] = np.array(
+            _local_bytes(empty[nm] for nm in names))
+        del empty
+        tokens = torch.from_numpy(data[f"{case}/tokens"])
+        prefill = sstep.make_prefill_step(cfg, max_len=S + steps)
+        decode = sstep.make_decode_step(cfg)
+        del seen[:]
+        calls = []
+        undo = _record_routing(calls)
+        try:
+            logits, cache = prefill(params, {"tokens": tokens, **frames})
+        finally:
+            undo()
+        _routing_out(out, f"{case}/serve_routing", calls)
+        out[f"{case}/flash_calls"] = np.array(repr(seen))
+        out[f"{case}/prefill_logits"] = logits.full_tensor().numpy()
+        for nm in names:
+            out[f"{case}/cache_placement/{nm}"] = np.array(
+                _placements(cache[nm]))
+            out[f"{case}/prefill_cache/{nm}"] = cache[nm].full_tensor(
+                ).numpy()
+        dec = []
+        for i in range(steps - 1):
+            logits, cache = decode(params, {
+                "tokens": torch.from_numpy(data[f"{case}/decode"][i]),
+                "cache": cache})
+            dec.append(logits.full_tensor().numpy())
+        out[f"{case}/decode_logits"] = np.stack(dec)
+        out[f"{case}/pos"] = np.array(cache["pos"])
+        for nm in names:
+            out[f"{case}/decode_cache/{nm}"] = cache[nm].full_tensor(
+                ).numpy()
+        out[f"{case}/greedy"] = sstep.greedy_generate(
+            params, cfg, tokens, steps, **frames).numpy()
+        del params, cache, logits
+
+        # training, under the default rules
+        set_rules(DEFAULT_RULES)
+        params = tmodel.params_from_numpy(cfg, flat, mesh=mesh,
+                                          dtype=torch.float32)
+        opt = init_opt_state(params, ocfg)
+        for name, p in params.named_parameters():
+            out[f"{case}/train/placement/{name}"] = np.array(_placements(p))
+            out[f"{case}/train/moment_placement/{name}"] = np.array(
+                _placements(opt["m"][name]))
+        batch = tloop.distribute_batch(
+            {k: torch.from_numpy(data[f"{case}/train/{k}"])
+             for k in ("tokens", "labels", "frames")
+             if f"{case}/train/{k}" in data}, mesh)
+        grads = []
+        for _ in range(2):
+            params.requires_grad_(True)
+            calls = []
+            undo = _record_routing(calls)
+            try:
+                loss, _ = tmodel.lm_loss(params, cfg, batch)
+                loss.backward()
+            finally:
+                undo()
+            grads.append({n: p.grad.to_local().clone()
+                          for n, p in params.named_parameters()})
+            params.zero_grad(set_to_none=True)
+            params.requires_grad_(False)
+        out[f"{case}/train_routing_calls"] = np.array(len(calls))
+        _routing_out(out, f"{case}/train_routing", calls)
+        out[f"{case}/grads_bit_identical"] = np.array(all(
+            torch.equal(a.view(torch.int32), grads[1][n].view(torch.int32))
+            for n, a in grads[0].items()))
+        del grads
+        step = tstep.make_train_step(cfg, tstep.TrainConfig(ocfg))
+        params, opt, metrics = step(params, opt, batch)
+        out[f"{case}/loss"] = metrics["loss"].numpy()
+        out[f"{case}/grad_norm"] = metrics["grad_norm"].numpy()
+        named = {n: p.detach() for n, p in params.named_parameters()}
+        for what, tree in (("p", named), ("m", opt["m"]), ("v", opt["v"])):
+            for k, v in _full_stacked(cfg, tree).items():
+                out[f"{case}/{what}/{k}"] = v
+        if case == "qwen2_moe" and shape == (2, 2):
+            ckpt_store.save_checkpoint(ckpt, 1,
+                                       tloop.checkpoint_state(params, opt))
+            elastic = make_device_mesh(ELASTIC, ("data", "model"), "cpu")
+            other = tmodel.init_params(cfg, seed=1, mesh=elastic,
+                                       dtype=torch.float32)
+            other_opt = init_opt_state(other, ocfg)
+            restored, step_ = ckpt_store.restore_checkpoint(
+                ckpt, tloop.checkpoint_state(other, other_opt))
+            tloop.load_checkpoint_state(other, other_opt, restored)
+            e = f"{case}/{tag(ELASTIC)}"
+            out[f"{e}/step"] = np.array(step_)
+            named = {n: p.detach() for n, p in other.named_parameters()}
+            for what, tree in (("p", named), ("m", other_opt["m"]),
+                               ("v", other_opt["v"])):
+                for k, v in _full_stacked(cfg, tree).items():
+                    out[f"{e}/{what}/{k}"] = v
+            for name, p in other.named_parameters():
+                out[f"{e}/placement/{name}"] = np.array(_placements(p))
+            del other, other_opt
+        del params, opt
+    attention.flash_attention_fwd = plain_fwd
+    set_rules(DEFAULT_RULES)
     if rank == 0:
         np.savez(dst, **out)
