@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--mesh-only]
+    python3 chip_smoke.py [--seed 0] [--mesh-only [--mesh-phases 19,20,21,22]]
 
 Phases (any failure exits non-zero and prints no result; ``--mesh-only``
 runs phase 1, then phase 19 beside an unsharded step of 13a's
-configuration, phase 20 beside an unsharded run of phase 7's cell and
+configuration, phase 20 beside an unsharded run of phase 7's cell,
 phase 21 beside stand-ins for 16a, 17a, 17b and 17c
-(``family_references``), for a run on several cards):
+(``family_references``) and phase 22 beside the same step of 13a's
+configuration, for a run on several cards; ``--mesh-phases`` runs only
+the ones it names):
 
 1. Device and build: the card's name and power limit, the torch/CUDA
    versions, and the build of every kernel under ``src/repro_torch/csrc``
@@ -560,6 +562,47 @@ phase 21 beside stand-ins for 16a, 17a, 17b and 17c
    backward) beside SDPA and the bound; the MoE flash records gain
    ``family_mesh_launches`` (rank 0's first job and first MoE train job).
    The phase's seconds are printed.
+22. ``ulysses_attn`` and ``seq_sharded`` across cards, after phase 21.
+   a: Granite-20B at its published width (d_model 6144, 48 / 1 heads of
+   128, d_ff 24576, vocab 49152, gelu, tied head: MQA, whose one KV head
+   divides no ``model`` axis) cut to 8 of its 52 layers, unsharded in
+   this process first through phase 7's path and checks (4 prompts of
+   2048 from ``--seed``, a 32-step ``greedy_generate`` with one flash
+   launch a layer and no plain attention, the kernel at layers 0 and 7
+   against its plain version, the kernel- vs plain-route logits in bf16
+   and fp32).  Then one NCCL rank a card (``--serve-rank`` with phase
+   22's jobs, ``sp_job``) under ``serve_tp``: on one card the (1, 1) mesh
+   with ``ulysses_attn``, whose logits and ids must be the unsharded
+   run's bit for bit; with 4 cards or more the 8 layers on (1, n) without
+   and with ``ulysses_attn`` in the same ranks, each held against the
+   unsharded run by ``held_logits``, then the published 52 layers on
+   (1, n) both ways (~10 GB of bf16 weights a card; SP_FULL_STEPS greedy
+   and decode steps).  Each job holds the allocator's bytes against
+   ``dryrun.serve_arg_bytes`` (SERVE_ALLOC_SLACK a tensor) and prints
+   prefill ms, decode ms a step, rank 0's flash time in one prefill
+   (CUDA events around each wrapper call, its launch counter), the
+   collectives of one prefill (``CommDebugMode``) and each rank's peak.
+   b: 13a's configuration (Qwen2-7B's width at 8 layers, 4 x 2048, remat
+   full, 13a's seed and first batch) with ``seq_sharded`` and
+   ``ulysses_attn``: on one card on (1, 1), the loss and layer 0's q/k/v
+   gradients 13a's bit for bit; with 4 cards on (n/2, 2) and (1, n)
+   within 1e-3 (loss, relative) and 1/16 (gradients, L2) of 13a's; every
+   job one counted step (16 forward and 8 backward flash launches on each
+   rank, the plain attention made to raise) and 3 timed steps; then the
+   published 28 layers on (n/2, 2) without and with both options in the
+   same ranks, their first losses within 1e-3 (relative), step ms and
+   each rank's peak printed both ways.  Rows 5u and 5bu, after the ranks
+   (not under ``--mesh-only``): the forward kernel at a (1, 4) rank's
+   Ulysses shard of 22a (layer 0's q cut to 512 positions at q_offset 0
+   and 1536 against its k/v (4, 2048, 1, 128), causal) and the backward
+   kernel at a (2, 2) rank's shard of 22b (q (2, 1024, 28, 128), k/v (2,
+   2048, 4, 128), standard normal from ``--seed``, dout at unit RMS, at
+   q_offset 0 and 1024), each against its plain version, beside SDPA
+   under the same boolean mask and the bound (allowed pairs x 4 hd flops,
+   2.5 x that backward, over 989e12 flop/s); the backward's dK and dV
+   past the shard's last query must be exactly 0.  Their ``launches``
+   are rank 0's in 22a's Ulysses job and 22b's first job.  The phase's
+   seconds are printed.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -604,10 +647,12 @@ both flash kernels under a mask, at
 at 256) x fp32 and bf16, causal) and ``FLASH_OFFSET_CASES`` (a chunk of
 queries against a longer cache with and without a window, one decode
 position, kv_len < Skv causal and full, cross attention, rows that see no
-key; each at head_dim 64, 128, 256 in fp32 and bf16), through
-``flash_mask_ratios``: the forward within ``attn_tol`` and, for bf16,
-``bf16_attn_err``, the lse within 1e-5, dq, dk, dv within ``bwd_tol`` and
-two backward launches bit-identical; the profiler must see the
+key, the Ulysses shards: 512 of 2048 queries at q_offset 0, 512 and
+1536, and 1536 under a window of 1024; each at head_dim 64, 128, 256 in
+fp32 and bf16), through ``flash_mask_ratios``: the forward within
+``attn_tol`` and, for bf16, ``bf16_attn_err``, the lse within 1e-5, dq,
+dk, dv within ``bwd_tol``, two backward launches bit-identical and dK and
+dV exactly 0 at every key no query sees; the profiler must see the
 tensor-core forward and backward kernels for bf16 under a window at
 head_dim 64, 128 and 256 and the CUDA-core ones for fp32 at 256.  Each
 path (phases 3, 8, 9) is driven with every launch counter set to 0 just
@@ -5677,11 +5722,12 @@ def host_top(torch, fn, n: int = 6) -> list:
 
 
 def serve_rank(args) -> int:
-    """One rank of phase 20 or 21 (``--serve-rank``): joins the NCCL group
-    of ``--serve-world`` ranks, one a card, sets the ``serve_tp`` rules and
-    runs each of ``--serve-jobs`` in turn (:func:`serve_job`, or
-    :func:`family_job` for phase 21's kinds); every rank writes its
-    records to ``--serve-work``/serve-rank<r>.json after each job."""
+    """One rank of phase 20, 21 or 22 (``--serve-rank``): joins the NCCL
+    group of ``--serve-world`` ranks, one a card, sets the ``serve_tp``
+    rules and runs each of ``--serve-jobs`` in turn (:func:`serve_job`,
+    :func:`family_job` for phase 21's kinds, :func:`sp_job` for phase
+    22's); every rank writes its records to
+    ``--serve-work``/serve-rank<r>.json after each job."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5697,8 +5743,10 @@ def serve_rank(args) -> int:
         set_rules(serve_tp_rules())
         out = []
         for job in args.serve_jobs.split(","):      # written job by job
-            out.append((family_job if job.split(":")[0] in FAMILY_JOBS
-                        else serve_job)(torch, dev, job, args.seed, refs))
+            kind = job.split(":")[0]
+            out.append((family_job if kind in FAMILY_JOBS else sp_job
+                        if kind in SP_JOBS else serve_job)(
+                torch, dev, job, args.seed, refs))
             with open(os.path.join(args.serve_work,
                                    f"serve-rank{rank}.json"), "w") as f:
                 json.dump(out, f)
@@ -6445,12 +6493,550 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
     return out
 
 
+# ---------------------------------------------------------------- phase 22
+SP_ARCH = "granite-20b"
+SP_LAYERS = 8               # 22a: 8 of Granite-20B's 52 layers, 6.6 GB bf16
+SP_FULL = 52                # 22a on 4 cards or more: the published depth
+#: 22a at the published depth: greedy steps of the counted run and decode
+#: steps timed (decode is host-bound on DTensor dispatch: PERF.md section 5)
+SP_FULL_STEPS = 4
+#: phase 22's job kinds (``--serve-rank``), by the letter of their part
+SP_JOBS = {"us": "a", "ut": "b"}
+#: a phase-22 job's option letters: the config fields each sets
+SP_FLAGS = {"u": "ulysses_attn", "s": "seq_sharded"}
+#: rows 5u and 5bu: the Ulysses shards of one rank (query positions, and
+#: the offsets of ranks 0 and the last) of 22a on (1, 4) and of 22b on
+#: (2, 2)
+SP_ROWS = {"5u": (512, (0, 1536)), "5bu": (1024, (0, 1024))}
+
+
+def sp_options(flags: str) -> dict:
+    """The config fields of a phase-22 job's option letters (``-``:
+    none)."""
+    return {SP_FLAGS[f]: True for f in flags if f != "-"}
+
+
+def sp_serve_reference(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 22a's unsharded side, in this process: Granite-20B at its
+    published width cut to SP_LAYERS layers, phase 7's serving path and
+    checks (``lm_serving``, ``check_layers`` at the first and last layer,
+    ``logit_route_checks``); returns what the ranks are held against
+    (``serve_record``), the flash launches of the counted run and layer
+    0's capture (q, k, v, out) on the host, for rows 5u."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import flash as tflash
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    cfg = dataclasses.replace(get_config(SP_ARCH), num_layers=SP_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"granite lm: {cfg.name} at {cfg.num_layers} of its {SP_FULL} "
+          f"layers (d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.mlp_act}, tied head): "
+          f"{torch.cuda.memory_allocated()} bytes on the card, made in "
+          f"{init_s} s")
+    prompts = serve_prompts(torch, cfg, seed).to(dev)
+    lm = lm_serving(torch, tstep, attention, params, cfg, {"tokens": prompts},
+                    LM_STEPS, zero_counts, counted, "granite lm",
+                    (0, cfg.num_layers - 1))
+    out = serve_record(torch, prompts, lm)
+    out["launches"] = lm["launches"]["flash_attention_fwd"]
+    layer_err = check_layers(attention, lm["captured"],
+                             tmodel.layer_windows(cfg), "granite lm check")
+    logit_checks = logit_route_checks(
+        torch, tmodel, tflash, attention, cfg, lm["prefill"], params,
+        {"tokens": prompts}, lm["kernel_logits"], "granite lm check")
+    fq, fk, fv, _, fo = lm["captured"][0]
+    out["captured"] = tuple(t.cpu() for t in (fq, fk, fv, fo))
+    print(json.dumps({"granite_lm_path": {
+        "arch": cfg.name, "layers": cfg.num_layers, "init_s": init_s,
+        "prefill_ms": lm["prefill_ms"], "decode_ms_per_step": lm["decode_ms"],
+        "launches": lm["launches"], "layer_checks": layer_err,
+        "logit_checks": logit_checks, "peak_bytes": out["peak"],
+        "card": CARD["smi"]}}))
+    del params, lm, prompts, fq, fk, fv, fo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ulysses_rows(torch, dev, seed: int, kernel, captured, counts: dict
+                 ) -> None:
+    """Rows 5u and 5bu: the forward kernel at a (1, 4) rank's Ulysses shard
+    of 22a (layer 0's captured q cut to SP_ROWS' positions at each offset,
+    against the captured k, v whole) and the backward kernel at a (2, 2)
+    rank's shard of 22b (standard-normal inputs from ``seed``, dout at unit
+    RMS), each beside its plain version, SDPA under the same boolean mask
+    (k and v broadcast to the query heads) and its bound: the allowed
+    pairs x 4 hd flops (2.5 x that backward) over 989e12 flop/s.  The
+    backward's dK and dV must be exactly zero at every key past the shard's
+    last query.  ``counts``: each row's launches on phase 22's path (rank
+    0's)."""
+    from repro_torch.kernels import attention
+    from torch_checks import attn_tol, bwd_tol, flash_bwd_inputs, unit_rms
+    fq, fk, fv, fo = (t.to(dev) for t in captured)
+    sq_, offsets = SP_ROWS["5u"]
+    k, v = fk.contiguous(), fv.contiguous()
+    for off in offsets:
+        q = fq[:, off:off + sq_].contiguous()
+        B_, Sq, H_, hd_ = q.shape
+        keep = attention.allowed(Sq, k.shape[1], causal=True, q_offset=off,
+                                 device=dev)
+        library, info = sdpa_beside(torch, q, k, v, keep)
+        kernel(f"flash_attention_fwd ulysses q_offset {off}", "attention.cu",
+               "src/repro/kernels/attention.py:67",
+               f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, q_offset "
+               f"{off}, bf16",
+               lambda: attention.flash_attention_fwd(q, k, v, causal=True,
+                                                     q_offset=off),
+               lambda: attention.flash_attention_fwd_plain(
+                   q, k, v, causal=True, q_offset=off),
+               2 * (2 * q.numel() + k.numel() + v.numel()),
+               4 * hd_ * int(keep.sum()) * B_ * H_, 10,
+               count=counts["5u"],
+               tol=attn_tol(fo[:, off:off + sq_], torch.bfloat16),
+               peak_ops=PEAK_BF16, library=library)
+        print(f"row 5u q_offset {off}: SDPA {info}")
+        del q, keep, library
+    del fq, fk, fv, fo, k, v
+
+    sq_, offsets = SP_ROWS["5bu"]
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = flash_bwd_inputs(rng, sq_, 128, 7, torch.bfloat16, dev,
+                                     batch=2, kv=4, skv=2 * sq_)
+    udout = unit_rms(dout)
+    for off in offsets:
+        out, lse = attention.flash_attention_fwd(q, k, v, causal=True,
+                                                 q_offset=off,
+                                                 return_lse=True)
+        got = attention.flash_attention_bwd(q, k, v, out, lse, udout,
+                                            causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        past = off + sq_                # keys past the shard's last query
+        if got[1][:, past:].any() or got[2][:, past:].any():
+            raise SystemExit(f"row 5bu q_offset {off}: dK or dV is not zero "
+                             f"past the last query ({past})")
+        B_, Sq, H_, hd_ = q.shape
+        keep = attention.allowed(Sq, k.shape[1], causal=True, q_offset=off,
+                                 device=dev)
+        want = attention.flash_attention_bwd_plain(q, k, v, out, lse, udout,
+                                                   causal=True, q_offset=off)
+        g = H_ // k.shape[2]
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k.repeat_interleave(g, dim=2),
+                                v.repeat_interleave(g, dim=2)))
+        library = None
+        try:
+            so = torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=keep)
+            sdo = udout.transpose(1, 2).contiguous()
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                so, (sq, sk, sv), sdo, retain_graph=True)
+            library()
+        except RuntimeError as exc:
+            library = None
+            print(f"row 5bu: SDPA's backward refused the inputs: {exc}"[:300])
+        kernel(f"flash_attention_bwd ulysses q_offset {off}", "attention.cu",
+               "src/repro/models/flash.py:262",
+               f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, q_offset "
+               f"{off}, bf16, dK and dV past key {past} exactly 0",
+               lambda: attention.flash_attention_bwd(q, k, v, out, lse,
+                                                     udout, causal=True,
+                                                     q_offset=off),
+               lambda: attention.flash_attention_bwd_plain(
+                   q, k, v, out, lse, udout, causal=True, q_offset=off),
+               2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+               2.5 * 4 * hd_ * int(keep.sum()) * B_ * H_, 10,
+               count=counts["5bu"],
+               tol=[bwd_tol(x, torch.bfloat16) for x in want],
+               peak_ops=PEAK_BF16, library=library)
+        del out, lse, got, want, keep, library, sq, sk, sv
+    del q, k, v, dout, udout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def flash_prefill_ms(torch, attention, run) -> tuple[float, int]:
+    """The flash kernel's card time over one ``run()`` (a prefill) on this
+    rank: the sum of CUDA-event spans around each wrapper call, and the
+    launches its counter saw (the wrapper counts on the module's name,
+    which the timing wrapper holds meanwhile)."""
+    fwd = attention.flash_attention_fwd
+    spans = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fwd(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+    before = timed.launches = fwd.launches
+    attention.flash_attention_fwd = timed
+    try:
+        run()
+    finally:
+        attention.flash_attention_fwd = fwd
+        fwd.launches = timed.launches
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans), fwd.launches - before
+
+
+def comm_counts(torch, run) -> dict:
+    """``CommDebugMode``'s collective counts over one ``run()``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    with CommDebugMode() as comm:
+        run()
+    torch.cuda.synchronize()
+    return {str(k): v for k, v in comm.get_comm_counts().items()}
+
+
+def sp_serve_job(torch, dev, shape: tuple, mesh, layers: int, opts: dict,
+                 seed: int, ref: dict, label: str) -> dict:
+    """Phase 22a on this rank under ``serve_tp``: Granite-20B at ``layers``
+    with ``opts``: the allocator's bytes against the dry run's, the counted
+    greedy run (one flash launch a layer, no plain attention), prefill and
+    decode timed, the flash kernel's time in one prefill, ``CommDebugMode``'s
+    counts of one prefill, each rank's peak; at SP_LAYERS the logits held
+    against the unsharded run's (bit for bit on one card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.serve import step as tstep
+    cfg = dataclasses.replace(get_config(SP_ARCH), num_layers=layers, **opts)
+    steps = LM_STEPS if layers == SP_LAYERS else SP_FULL_STEPS
+    ref = ref if layers == SP_LAYERS else None
+    prompts = (ref["prompts"] if ref else serve_prompts(torch, cfg, seed)
+               ).to(dev)
+    B, S = prompts.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"layers": layers, "options": sorted(opts),
+           "init_s": time.perf_counter() - t0}
+    param_bytes = torch.cuda.memory_allocated(dev) - base
+    cache = tmodel.init_cache(cfg, B, S + steps, mesh=mesh)
+    torch.cuda.synchronize()
+    cache_bytes = torch.cuda.memory_allocated(dev) - base - param_bytes
+    want = dryrun.serve_arg_bytes(cfg, AbstractMesh(shape, mesh.axis_names),
+                                  B, S + steps)
+    n_params = sum(1 for _ in params.parameters())
+    out["bytes"] = {"params": param_bytes, "cache": cache_bytes,
+                    "dryrun": want, "slack_a_tensor": SERVE_ALLOC_SLACK}
+    if not (0 <= param_bytes - want["params"] <= n_params * SERVE_ALLOC_SLACK
+            and 0 <= cache_bytes - want["cache"] <= 2 * SERVE_ALLOC_SLACK):
+        raise SystemExit(f"{label}: the allocator holds {param_bytes} bytes "
+                         f"of parameters and {cache_bytes} of cache, the dry "
+                         f"run says {want} (slack {SERVE_ALLOC_SLACK} a "
+                         f"tensor)")
+    del cache
+
+    # the counted run: greedy_generate through the entry point
+    fwd = attention.flash_attention_fwd
+    fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_attention(attention):
+        gen = tstep.greedy_generate(params, cfg, prompts, steps=steps)
+        torch.cuda.synchronize()
+    out["gen_s"] = time.perf_counter() - t0
+    out["launches"] = fwd.launches
+    if fwd.launches != layers or gen.shape != (B, steps):
+        raise SystemExit(f"{label}: {fwd.launches} flash launches in one "
+                         f"greedy run (want {layers}, one a layer), ids "
+                         f"{tuple(gen.shape)}")
+
+    # prefill and decode timed apart, synchronized
+    prefill = tstep.make_prefill_step(cfg, max_len=S + steps)
+    decode = tstep.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    last = logits.full_tensor()[:, -1, :cfg.vocab_size].float()
+    toks = [last.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        logits, cache = decode(params, {"tokens": toks[-1][:, None],
+                                        "cache": cache})
+        toks.append(tstep.next_ids(logits, cfg))
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    del cache, logits
+    out["flash_ms"], out["flash_launches"] = flash_prefill_ms(
+        torch, attention, lambda: prefill(params, {"tokens": prompts}))
+    out["prefill_comm"] = comm_counts(
+        torch, lambda: prefill(params, {"tokens": prompts}))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["allocated_bytes"] = torch.cuda.memory_allocated(dev)
+    if ref is not None:
+        out["logits"] = held_logits(torch, last, ref["logits"].to(dev),
+                                    label)
+        want_gen = ref["gen"].to(dev)
+        out["tokens_equal_to_reference"] = int((gen == want_gen).sum())
+        if mesh.size == 1 and not (out["logits"]["bit_identical"]
+                                   and torch.equal(gen, want_gen)):
+            raise SystemExit(f"{label}: on one card the logits and ids must "
+                             f"be the unsharded run's bit for bit: "
+                             f"{out['logits']}, ids equal "
+                             f"{out['tokens_equal_to_reference']}/"
+                             f"{gen.numel()}")
+    del params, gen, toks, last, prompts
+    return out
+
+
+def sp_train_job(torch, dev, shape: tuple, mesh, layers: int, opts: dict,
+                 seed: int, ref: dict, label: str) -> dict:
+    """Phase 22b on this rank under the default rules: 13a's configuration
+    at ``layers`` with ``opts`` (fp32 state, remat full, 13a's seed) on
+    13a's first batch: at TRAIN_LAYERS the loss and layer 0's wq, wk, wv
+    gradients against 13a's (bit for bit on one card, else within
+    MESH_TOL); one counted step (two forward and one backward flash
+    launch a layer, no plain attention); MESH_TIMED timed steps and the
+    rank's peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    from repro_torch.train.loop import distribute_batch
+    from repro_torch.train.step import TrainConfig, make_train_step
+    set_rules(DEFAULT_RULES)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers,
+                              **opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=seed, mesh=mesh,
+                                dtype=torch.float32)
+    torch.cuda.synchronize()
+    out = {"layers": layers, "options": sorted(opts),
+           "init_s": time.perf_counter() - t0}
+    batch = distribute_batch({k: ref[k].to(dev) for k in ("tokens",
+                                                           "labels")}, mesh)
+    if layers == TRAIN_LAYERS:
+        params.requires_grad_(True)
+        loss, _ = tmodel.lm_loss(params, cfg, batch)
+        loss.backward()
+        got = float(tmodel.full_tensor(loss.detach()))
+        grads = {n: tmodel.full_tensor(getattr(params.layers[0], n).grad)
+                 .cpu() for n in ("wq", "wk", "wv")}
+        params.zero_grad(set_to_none=True)
+        params.requires_grad_(False)
+        err = {"loss": abs(got - ref["loss"]) / abs(ref["loss"])}
+        for n, g in grads.items():
+            w = ref["grads"][n]
+            err[f"layer0.{n}"] = float((g - w).norm() / w.norm())
+        same = got == ref["loss"] and all(
+            bits_equal(torch, g, ref["grads"][n]) for n, g in grads.items())
+        out.update(loss=got, ref_loss=ref["loss"], errors=err,
+                   bit_identical=same)
+        if (mesh.size == 1 and not same) or not (
+                err["loss"] <= MESH_TOL["loss"]
+                and all(err[f"layer0.{n}"] <= MESH_TOL["grad"]
+                        for n in ("wq", "wk", "wv"))):
+            raise SystemExit(f"{label}: the loss and gradients against 13a's"
+                             f": {err}, bit-identical {same} (tolerances "
+                             f"{MESH_TOL}; bit for bit on one card)")
+        del loss, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, TrainConfig(ocfg))
+    counted = {"flash_attention_fwd": attention.flash_attention_fwd,
+               "flash_attention_bwd": attention.flash_attention_bwd}
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with no_plain_attention(attention):
+        params, opt, m = step(params, opt, batch)
+        losses = [float(m["loss"])]
+    out["launches"] = n_ = {k: fn.launches for k, fn in counted.items()}
+    if (n_["flash_attention_fwd"] != 2 * layers
+            or n_["flash_attention_bwd"] != layers):
+        raise SystemExit(f"{label}: want {2 * layers} forward and {layers} "
+                         f"backward flash launches a step, saw {n_}")
+    times = []
+    for _ in range(MESH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))         # waits for the step
+        times.append(time.perf_counter() - t0)
+    out.update(losses=losses, step_ms=statistics.median(times) * 1e3,
+               step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(
+                   times),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               allocated_bytes=torch.cuda.memory_allocated(dev))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit(f"{label}: losses {losses} not finite and falling")
+    del params, opt, m, step, batch
+    return out
+
+
+def sp_job(torch, dev, job: str, seed: int, refs: dict) -> dict:
+    """One phase-22 job on this rank: ``kind:DxM:layers:options`` (us:
+    serving Granite-20B, ut: training 13a's configuration; options of
+    SP_FLAGS, ``-`` for none) on the (D, M) device mesh."""
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.parallel.sharding import get_rules, set_rules
+    kind, shape_s, layers, flags = job.split(":")
+    shape = tuple(int(x) for x in shape_s.split("x"))
+    mesh = make_device_mesh(shape, ("data", "model"), dev)
+    label = f"22{SP_JOBS[kind]} {job}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rules = get_rules()
+    try:
+        out = (sp_serve_job if kind == "us" else sp_train_job)(
+            torch, dev, shape, mesh, int(layers), sp_options(flags), seed,
+            refs[kind], label)
+    finally:
+        set_rules(rules)
+    out.update(job=job, mesh=mesh.name, card=torch.cuda.get_device_name(dev),
+               job_s=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_jobs(n: int) -> list:
+    """Phase 22's jobs on ``n`` cards: on one card (or two or three) the
+    (1, 1) mesh with the options; with 4 or more 22a's 8 layers on (1, n)
+    without and with ``ulysses_attn``, then its 52 both ways, and 22b's
+    8 layers on (n/2, 2) and (1, n) with both options, then the published
+    28 on (n/2, 2) without and with them, each pair in the same ranks."""
+    if n < 4:
+        return [f"us:1x1:{SP_LAYERS}:u", f"ut:1x1:{TRAIN_LAYERS}:us"]
+    return [f"us:1x{n}:{SP_LAYERS}:-", f"us:1x{n}:{SP_LAYERS}:u",
+            f"us:1x{n}:{SP_FULL}:-", f"us:1x{n}:{SP_FULL}:u",
+            f"ut:{n // 2}x2:{TRAIN_LAYERS}:us", f"ut:1x{n}:{TRAIN_LAYERS}:us",
+            f"ut:{n // 2}x2:{MESH_FULL_LAYERS}:-",
+            f"ut:{n // 2}x2:{MESH_FULL_LAYERS}:us"]
+
+
+def sequence_parallel(torch, dev, seed: int, zero_counts, counted, kernel,
+                      train_ref: dict, records: list) -> dict:
+    """Phase 22 (see the module docstring): ``ulysses_attn`` and
+    ``seq_sharded`` on device meshes, one NCCL rank a card
+    (``--serve-rank`` with phase 22's jobs), after 22a's unsharded run in
+    this process; ``train_ref``: 13a's first batch, loss and layer 0's
+    q/k/v gradients; ``kernel`` (the records' maker) is None under
+    ``--mesh-only``, which times no row."""
+    t_phase = time.perf_counter()
+    serve_ref = sp_serve_reference(torch, dev, seed, zero_counts, counted)
+    captured = serve_ref.pop("captured")
+    n = torch.cuda.device_count()
+    world = n if n >= 4 else 1
+    jobs = sp_jobs(world)
+    print(f"sequence options: {n} card(s), {world} NCCL rank(s), one a "
+          f"card; jobs {jobs}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_sp-")
+    atexit.register(shutil.rmtree, work, True)
+    torch.save({"us": serve_ref, "ut": train_ref},
+               os.path.join(work, "serve_refs.pt"))
+    t0 = time.perf_counter()
+    port = free_port()
+    wait_processes(start_processes([_serve_cmd(r, world, port, work, jobs,
+                                               seed) for r in range(world)]),
+                   "22")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"serve-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for i, job in enumerate(jobs):
+        a = ranks[0][i]
+        per_rank = (f"per rank peak {[rk[i]['peak_bytes'] for rk in ranks]},"
+                    f" allocated {[rk[i]['allocated_bytes'] for rk in ranks]}")
+        if job.startswith("us"):
+            held = (f"logits {a['logits']} (tolerance "
+                    f"{LOGIT_TOL['bfloat16']} of max), "
+                    f"{a['tokens_equal_to_reference']}/"
+                    f"{LM_BATCH * LM_STEPS} greedy ids equal; "
+                    if "logits" in a else "no unsharded reference; ")
+            print(f"22a {job} on the {a['mesh']} mesh ({a['card']}), "
+                  f"options {a['options']}: {held}{a['launches']} flash "
+                  f"launches in one greedy run on each rank "
+                  f"{[rk[i]['launches'] for rk in ranks]}, no plain "
+                  f"attention; prefill {a['prefill_ms']} ms, decode "
+                  f"{a['decode_ms']} ms/step against the unsharded run's "
+                  f"{serve_ref['prefill_ms']} ms and "
+                  f"{serve_ref['decode_ms']} ms/step; rank 0's flash kernel "
+                  f"in one prefill {a['flash_ms']} ms over "
+                  f"{a['flash_launches']} launches; one prefill's "
+                  f"collectives (CommDebugMode) {a['prefill_comm']}; "
+                  f"{per_rank}; bytes against the dry run {a['bytes']}; job "
+                  f"{a['job_s']} s [{CARD['smi']}]")
+        else:
+            held = (f"loss {a['loss']} against 13a's {a['ref_loss']}, "
+                    f"relative differences {a['errors']} (tolerances "
+                    f"{MESH_TOL}), bit-identical {a['bit_identical']}; "
+                    if "loss" in a else "no 13a reference at this depth; ")
+            print(f"22b {job} on the {a['mesh']} mesh ({a['card']}), "
+                  f"{a['layers']} layers, options {a['options']}: {held}"
+                  f"launches a step {a['launches']}, no plain attention; "
+                  f"losses {a['losses']}; step {a['step_ms']} ms (median of "
+                  f"{MESH_TIMED}; {a['step_ms_all']}), {a['tokens_per_s']} "
+                  f"tokens/s; {per_rank}; job {a['job_s']} s "
+                  f"[{CARD['smi']}]")
+    full = [i for i, j in enumerate(jobs)
+            if j.startswith(f"ut:{world // 2}x2:{MESH_FULL_LAYERS}:")]
+    if full:
+        l0, l1 = (ranks[0][i]["losses"][0] for i in full)
+        rel = abs(l1 - l0) / abs(l0)
+        print(f"22b at the published {MESH_FULL_LAYERS} layers: first loss "
+              f"{l1} with both options against {l0} without, relative "
+              f"{rel}; step {ranks[0][full[1]]['step_ms']} ms against "
+              f"{ranks[0][full[0]]['step_ms']} ms, rank 0's peak "
+              f"{ranks[0][full[1]]['peak_bytes']} against "
+              f"{ranks[0][full[0]]['peak_bytes']} bytes")
+        if rel > MESH_TOL["loss"]:
+            raise SystemExit(f"22b: the losses with and without the options "
+                             f"differ by {rel} (tolerance "
+                             f"{MESH_TOL['loss']})")
+    serve_u = next(i for i, j in enumerate(jobs)
+                   if j.startswith("us") and j.endswith(f"{SP_LAYERS}:u"))
+    train_u = next(i for i, j in enumerate(jobs) if j.startswith("ut"))
+    counts = {"5u": ranks[0][serve_u]["launches"],
+              "5bu": ranks[0][train_u]["launches"]["flash_attention_bwd"]}
+    if kernel is not None:
+        ulysses_rows(torch, dev, seed, kernel, captured, counts)
+    del captured
+    out = {"cards": n, "jobs": jobs, "ranks": ranks, "wall_s": wall,
+           "unsharded": {k: serve_ref[k] for k in ("prefill_ms", "decode_ms",
+                                                   "peak")},
+           "row_launches": counts, "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"sequence_parallel_path": out}))
+    print(f"phase 22 took {out['phase_s']} s ({wall} s of ranks)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-only", action="store_true",
-                    help="phase 1, then phases 19-21 beside their "
+                    help="phase 1, then phases 19-22 beside their "
                     "unsharded references (for a run on several cards)")
+    ap.add_argument("--mesh-phases", default="19,20,21,22",
+                    help="with --mesh-only: which of phases 19-22 to run "
+                    "(comma-separated)")
     args = ap.parse_args()
 
     import torch
@@ -6536,19 +7122,33 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     if args.mesh_only:
-        mesh_training(torch, args.seed, mesh_reference(torch, dev, args.seed),
-                      [])
-        gc.collect()
-        torch.cuda.empty_cache()
-        t20 = time.perf_counter()
-        lm7 = serve_reference(torch, dev, args.seed, zero_counts, counted)
-        mesh_serving(torch, args.seed, lm7, big_serving(
-            torch, dev, args.seed, zero_counts, counted, None), [], t20)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t21 = time.perf_counter()
-        families_across_cards(torch, args.seed, family_references(
-            torch, dev, args.seed, zero_counts, counted), [], t21)
+        phases = {int(p) for p in args.mesh_phases.split(",")}
+        if not phases or not phases <= {19, 20, 21, 22}:
+            raise SystemExit(f"--mesh-phases: want some of 19-22, got "
+                             f"{args.mesh_phases}")
+        train_rec = (mesh_reference(torch, dev, args.seed)
+                     if phases & {19, 22} else None)
+        if 19 in phases:
+            mesh_training(torch, args.seed, train_rec, [])
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 20 in phases:
+            t20 = time.perf_counter()
+            lm7 = serve_reference(torch, dev, args.seed, zero_counts,
+                                  counted)
+            mesh_serving(torch, args.seed, lm7, big_serving(
+                torch, dev, args.seed, zero_counts, counted, None), [], t20)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 21 in phases:
+            t21 = time.perf_counter()
+            families_across_cards(torch, args.seed, family_references(
+                torch, dev, args.seed, zero_counts, counted), [], t21)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 22 in phases:
+            sequence_parallel(torch, dev, args.seed, zero_counts, counted,
+                              None, train_rec["mesh_reference"], [])
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7305,6 +7905,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     families_across_cards(torch, args.seed, refs, records,
                           time.perf_counter())
+
+    # ---- 22. ulysses_attn and seq_sharded across cards --------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sequence_parallel(torch, dev, args.seed, zero_counts, counted, kernel,
+                      train_rec["mesh_reference"], records)
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -75,9 +75,21 @@ shard (``layers.cached_decode_attention``; the cross-attention reads its
 shard of ``xk``/``xv`` and writes none).  A table sharded on ``vocab``
 alone (serving) is looked up where each row lives and summed over its
 axes; one sharded on both dimensions (training) is gathered whole for the
-lookup.  Prefill and decode logits stay sharded on ``vocab``.  The SSM and
-hybrid blocks, ``ulysses_attn`` and ``seq_sharded`` raise on a device mesh
-(ROADMAP A11, A12).
+lookup.  Prefill and decode logits stay sharded on ``vocab``.
+
+The reference's two sequence options run there too, in the same places.
+``ulysses_attn`` (DeepSpeed-Ulysses; train and prefill, self- and
+cross-attention, not decode): q is resharded to ("batch", "seq_sp") with
+every head whole and k and v whole over ``model``, so flash runs each
+process's slice of the queries at their absolute positions against every
+key (``models.flash``), and the output goes back to the heads layout;
+prefill still writes each process's shard of the caches.  ``seq_sharded``
+(Megatron-SP; training only): a layer's input, and so every remat-saved
+carry, sits on ("batch", "seq_sp", None); the port gathers the normed
+input whole over ``model`` before each branch's products and
+reduce-scatters each branch's output back onto the carry's rows, where
+the reference leaves both to XLA.  The SSM and hybrid blocks raise on a
+device mesh (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -321,18 +333,25 @@ class DecoderLayer(nn.Module):
             k = apply_rope(k, angles)
         q = constrain(q, ("batch", None, "heads", "head_dim"))
         if mode == "decode":
-            out = cached_decode_attention(q, k, v, cache_k, cache_v,
-                                          AttnMask(True, window, pos,
-                                                   pos + 1))
-        elif mode == "train":
-            skip = cfg.flash_block_skip
-            out = self.attn_core(q, k, v, causal=True, train=True,
-                                 window=window, block_skip=skip,
-                                 kv_chunk=512 if skip else 1024)
+            # back to q's layout: caches that shard ``head_dim`` (KV heads
+            # that do not divide ``model``) leave the output split there,
+            # and DTensor (torch 2.11) cannot flatten (H, hd) split on hd
+            out = constrain(cached_decode_attention(
+                q, k, v, cache_k, cache_v,
+                AttnMask(True, window, pos, pos + 1)),
+                ("batch", None, "heads", "head_dim"))
         else:
-            out = self.attn_core(q, k, v, causal=True, window=window)
-            write_cache(cache_k, k, 0)
-            write_cache(cache_v, v, 0)
+            q, k, v = _ulysses_in(cfg, q, k, v)
+            if mode == "train":
+                skip = cfg.flash_block_skip
+                out = self.attn_core(q, k, v, causal=True, train=True,
+                                     window=window, block_skip=skip,
+                                     kv_chunk=512 if skip else 1024)
+            else:
+                out = self.attn_core(q, k, v, causal=True, window=window)
+                write_cache(cache_k, k, 0)
+                write_cache(cache_v, v, 0)
+            out = _ulysses_out(cfg, out)
         return out.reshape(B * S, H * hd) @ self.wo.to(dt).reshape(H * hd, d)
 
     def _cross_attention(self, x, mode, cache, enc_out):
@@ -357,8 +376,9 @@ class DecoderLayer(nn.Module):
                   ).view(B, F_, KV, hd)
             xv = (e2 @ self.xattn_wv.to(dt).reshape(d, KV * hd)
                   ).view(B, F_, KV, hd)
-            out = self.xattn_core(q, xk, xv, causal=False,
-                                  train=mode == "train")
+            q, xk, xv = _ulysses_in(cfg, q, xk, xv)
+            out = _ulysses_out(cfg, self.xattn_core(q, xk, xv, causal=False,
+                                                    train=mode == "train"))
             if mode == "prefill":
                 write_cache(cache["xk"], xk, 0)
                 write_cache(cache["xv"], xv, 0)
@@ -387,11 +407,27 @@ class DecoderLayer(nn.Module):
         the encoder's output (B, F, d) for cross-attention in train and
         prefill."""
         cfg = self.cfg
+        sp = cfg.seq_sharded and mode == "train"
+
+        def rows(t):
+            """Megatron-SP (``seq_sharded``, training): ``t`` (B, S, d) on
+            the carry's rows, the sequence split over ``model`` (a
+            reduce-scatter of a branch's partial sums); ``t`` itself
+            otherwise."""
+            return constrain(t, SEQ_SP) if sp else t
+
+        def whole(t):
+            """The normed carry gathered whole over ``model`` before a
+            branch's column-parallel products (left to DTensor, the
+            products' redistribution may move weights); ``t`` itself
+            without ``seq_sharded``."""
+            return constrain(t, ("batch", None, "embed")) if sp else t
+        x = rows(x)
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         mix = None
         if cfg.block in ("attn", "hybrid"):
-            mix = self._attention(h, angles, mode, cache, pos,
-                                  window).view(x.shape)
+            mix = rows(self._attention(whole(h), angles, mode, cache, pos,
+                                       window).view(x.shape))
         if cfg.block in ("ssm", "hybrid"):
             ssm_out = self._ssm(h, mode, cache)
             mix = ssm_out if mix is None else mix + ssm_out
@@ -399,22 +435,58 @@ class DecoderLayer(nn.Module):
             mix = mix * 0.5                   # average the parallel heads
         if cfg.enc_dec:
             xh = rms_norm(x + mix, self.ln_x, cfg.norm_eps)
-            mix = mix + self._cross_attention(xh, mode, cache,
-                                              enc_out).view(x.shape)
+            mix = mix + rows(self._cross_attention(
+                whole(xh), mode, cache, enc_out).view(x.shape))
         p = self._params(("w_in", "w_gate", "w_out"))
         if cfg.parallel_block and cfg.moe is None and cfg.d_ff:
-            return x + mix + mlp(h, p, cfg.mlp_act)
+            return rows(x + mix + rows(mlp(whole(h), p, cfg.mlp_act)))
         x = x + mix
         if cfg.moe is not None:
             mo = {"router": self.router, "w_gate": self.moe_w_gate,
                   "w_in": self.moe_w_in, "w_out": self.moe_w_out,
                   **self._params(("shared_w_gate", "shared_w_in",
                                   "shared_w_out", "shared_gate"))}
-            return x + moe_lib.moe_ffn(rms_norm(x, self.ln2, cfg.norm_eps),
-                                       mo, cfg.moe, cfg.mlp_act)
+            return rows(x + rows(moe_lib.moe_ffn(
+                whole(rms_norm(x, self.ln2, cfg.norm_eps)), mo, cfg.moe,
+                cfg.mlp_act)))
         if cfg.d_ff:
-            x = x + mlp(rms_norm(x, self.ln2, cfg.norm_eps), p, cfg.mlp_act)
-        return x
+            x = x + rows(mlp(whole(rms_norm(x, self.ln2, cfg.norm_eps)), p,
+                             cfg.mlp_act))
+        return rows(x)
+
+
+#: the carry's logical names under ``seq_sharded`` (the reference's)
+SEQ_SP = ("batch", "seq_sp", None)
+
+
+def _ulysses_in(cfg: ModelConfig, q, k, v):
+    """DeepSpeed-Ulysses (``cfg.ulysses_attn``, train and prefill, the
+    reference's ``_attention_sub``): q resharded to the sequence over
+    ``model`` with every head whole (an all-to-all from the heads layout),
+    k and v whole over ``model``; the flash wrapper then runs each
+    process's queries against every key at their absolute positions
+    (``models.flash``).  k and v pass through their heads layout on the
+    way: the cross-attention's arrive as partial sums, and their
+    gradients, partial over ``model`` under Ulysses, then come back
+    reduce-scattered onto that layout (a partial gradient would have
+    DTensor gather the projection's weight whole in its backward).
+    (q, k, v) themselves without the option."""
+    if not cfg.ulysses_attn:
+        return q, k, v
+    heads, whole = ("batch", None, "kv_heads", "head_dim"), \
+        ("batch", None, None, None)
+    return (constrain(q, ("batch", "seq_sp", None, None)),
+            constrain(constrain(k, heads), whole),
+            constrain(constrain(v, heads), whole))
+
+
+def _ulysses_out(cfg: ModelConfig, out):
+    """The attention output back to the heads layout under
+    ``cfg.ulysses_attn`` (the all-to-all back); ``out`` itself
+    otherwise."""
+    if not cfg.ulysses_attn:
+        return out
+    return constrain(out, ("batch", None, "heads", "head_dim"))
 
 
 class EncoderLayer(nn.Module):
@@ -482,9 +554,9 @@ def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
     mesh, or an abstract one: nothing to place).  Raises
     ``NotImplementedError`` on a device mesh unless ``cfg``'s block is
     attention (the dense family, the MoE and the encoder-decoder train and
-    serve there): the SSM and hybrid blocks, ``ulysses_attn`` and
-    ``seq_sharded`` are not ported, in serving or training (ROADMAP A11,
-    A12), and nothing is replicated in their place."""
+    serve there, with ``ulysses_attn`` and ``seq_sharded`` or without): the
+    SSM and hybrid blocks are not ported, in serving or training (ROADMAP
+    A11), and nothing is replicated in their place."""
     if not isinstance(mesh, DistMesh):
         return None
     if cfg.block != "attn":
@@ -492,12 +564,6 @@ def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
             f"{cfg.name}: the {cfg.block} block on the {mesh.name} device "
             f"mesh is not ported, in serving or training (ROADMAP A11: the "
             f"SSM and hybrid families under a mesh)")
-    what = [w for w in ("ulysses_attn", "seq_sharded") if getattr(cfg, w)]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {' and '.join(what)} on the {mesh.name} device "
-            f"mesh is not ported, in serving or training (ROADMAP A12: "
-            f"ulysses_attn and seq_sharded)")
     return mesh
 
 

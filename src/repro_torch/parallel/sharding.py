@@ -132,9 +132,14 @@ def placements(spec, mesh: AbstractMesh) -> list:
 def mesh_placements(shape: Sequence[int], logical: Sequence[str | None],
                     mesh: AbstractMesh) -> list:
     """:func:`placements` of the :func:`logical_spec` of ``shape`` under
-    ``logical`` on ``mesh`` (whatever mesh is current)."""
+    ``logical`` on ``mesh`` (whatever mesh is current).  A dimension of
+    extent 1, which the guard can only give axes of size 1, is left whole:
+    the same layout, and one DTensor can flatten (an MQA model's one KV
+    head on a ``model`` axis of one device, ``wk.reshape(d, KV * hd)``)."""
     with set_mesh(mesh):
-        return placements(logical_spec(shape, logical), mesh)
+        spec = logical_spec(shape, logical)
+    return placements(tuple(None if n == 1 else entry
+                            for n, entry in zip(shape, spec)), mesh)
 
 
 def constrain(x: torch.Tensor, logical: Sequence[str | None]

@@ -19,7 +19,9 @@ must launch the forward kernel twice and the backward kernel once per
 layer.  Both kernels are held alike under a sliding window, a q_offset
 and a kv_len (``torch_checks.FLASH_WINDOW_CASES`` and
 ``FLASH_OFFSET_CASES``, shared with ``chip_smoke.py``'s phase 2),
-including rows that see no key (zeros, lse NEG_INF).
+including rows that see no key (zeros, lse NEG_INF) and the Ulysses shards
+(a quarter of the queries at its offset against every key), where every
+key that no query sees must get exactly zero dK and dV.
 
 The MoE FFN and the Mamba2 mixer on the card against the same functions
 on the CPU at smoke sizes, and ``greedy_generate`` of the MoE, SSM and
@@ -624,7 +626,8 @@ def test_flash_kernels_windowed(dev, s, window, hd, g, dtype):
 def test_flash_kernels_offset(dev, sq, skv, q_offset, kv_len, window, causal,
                               hd, dtype):
     """A chunk of queries against a longer cache, kv_len < Skv, cross
-    attention and rows that see no key, through both kernels."""
+    attention, rows that see no key and the Ulysses shards (dK and dV
+    exactly zero at keys no query sees), through both kernels."""
     rng = np.random.default_rng(sq + skv + hd)
     q, k, v, dout = flash_bwd_inputs(rng, sq, hd, 2 if hd == 256 else 7,
                                      dtype, dev, skv=skv)

@@ -455,8 +455,7 @@ def test_uncovered_configs_raise_on_a_device_mesh(runs, which):
     _, _, port, _ = runs
     msg = str(port[f"uncovered/{which}"])
     assert "not ported, in serving or training" in msg, msg
-    assert ("ROADMAP A11" if which in worker.UNCOVERED[:2]
-            else "ROADMAP A12") in msg, msg
+    assert "ROADMAP A11" in msg, msg
 
 
 def test_one_device_and_abstract_meshes_leave_tensors_alone():

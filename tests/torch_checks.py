@@ -90,9 +90,13 @@ FLASH_WINDOW_CASES = tuple(
 #: offset flash cases (Sq, Skv, q_offset, kv_len, window, causal): a chunk
 #: of queries against a longer cache, with and without a window; one
 #: decode position; kv_len < Skv, causal and full (a padded cache); cross
-#: attention (full, Sq != Skv); and rows that see no key (115..127 of the
-#: last case: q + 384 - 100 >= kv_len), written as zeros with an lse of
-#: NEG_INF.  Each runs at head_dim 64, 128 and 256 in fp32 and bf16.
+#: attention (full, Sq != Skv); rows that see no key (115..127 of the
+#: eighth case: q + 384 - 100 >= kv_len), written as zeros with an lse of
+#: NEG_INF; and the Ulysses shards of a 2048-position sequence over 4
+#: processes (Sq 512 against every key, no kv_len, causal): ranks 0, 1
+#: and 3, whose keys past their last query get no query, and rank 3 under
+#: a window of 1024.  Each runs at head_dim 64, 128 and 256 in fp32 and
+#: bf16.
 FLASH_OFFSET_CASES = (
     (64, 1000, 936, None, None, True),
     (200, 1000, 800, None, 100, True),
@@ -102,6 +106,10 @@ FLASH_OFFSET_CASES = (
     (200, 200, 0, 150, None, False),
     (77, 300, 0, None, None, False),
     (128, 512, 384, 400, 100, True),
+    (512, 2048, 0, None, None, True),
+    (512, 2048, 512, None, None, True),
+    (512, 2048, 1536, None, None, True),
+    (512, 2048, 1536, None, 1024, True),
 )
 
 
@@ -149,7 +157,10 @@ def flash_mask_ratios(attention, q, k, v, dout, *, causal: bool = True,
     :func:`bf16_attn_err`, bf16 only), of the lse (atol 1e-5), and of dq,
     dk, dv (:func:`bwd_tol`) from the backward on the kernel's own output
     and lse; ``repeat`` is 0 when two backward launches on the same inputs
-    are bit-identical, else infinity.  Every ratio must be <= 1."""
+    are bit-identical, else infinity; ``unseen`` is 0 when dk and dv are
+    exactly zero at every key that no query may see (past the last
+    query's diagonal, before the first one's window, past kv_len), else
+    infinity.  Every ratio must be <= 1."""
     dt = q.dtype
     out, lse = attention.flash_attention_fwd(q, k, v, causal=causal,
                                              return_lse=True, **mask)
@@ -174,6 +185,10 @@ def flash_mask_ratios(attention, q, k, v, dout, *, causal: bool = True,
         ratios[name] = err(a, b) / bwd_tol(b, dt)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     ratios["repeat"] = 0.0 if same else math.inf
+    unseen = ~attention.allowed(q.shape[1], k.shape[1], causal=causal,
+                                device=q.device, **mask).any(0)
+    ratios["unseen"] = 0.0 if not (got[1][:, unseen].any()
+                                   or got[2][:, unseen].any()) else math.inf
     return ratios
 
 

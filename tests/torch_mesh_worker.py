@@ -1,5 +1,6 @@
 """The port's side of ``tests/test_torch_mesh_train.py``,
-``tests/test_torch_mesh_serve.py`` and ``tests/test_torch_mesh_families.py``:
+``tests/test_torch_mesh_serve.py``, ``tests/test_torch_mesh_families.py``
+and ``tests/test_torch_mesh_sp.py``:
 processes of one ``gloo`` group on the CPU, each running the same program
 on its shard.
 
@@ -7,12 +8,14 @@ Imports ``torch`` and ``repro_torch`` only (a spawned process imports this
 module to find its function).  :func:`spawn` starts ``world`` processes that
 join a group through a file under a temporary directory (no TCP port, so
 test files may run side by side) and run ``fn(rank, *args)``;
-:func:`port_runs` (training), :func:`serve_runs` (serving) and
-:func:`family_runs` (the MoE and the encoder-decoder, both) are the
-programs the tests hold against the reference.
+:func:`port_runs` (training), :func:`serve_runs` (serving),
+:func:`family_runs` (the MoE and the encoder-decoder, both) and
+:func:`sp_runs` (``ulysses_attn`` and ``seq_sharded``) are the programs the
+tests hold against the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 
@@ -26,8 +29,8 @@ MESHES = ((2, 2), (1, 4))
 #: the mesh a checkpoint written on (2, 2) restores on
 ELASTIC = (4, 1)
 #: the configurations that raise on a device mesh, in serving and training
-#: (the families, and the two attention options no slice covers yet)
-UNCOVERED = ("mamba2_2_7b", "hymba_1_5b", "ulysses_attn", "seq_sharded")
+#: (the SSM and hybrid families)
+UNCOVERED = ("mamba2_2_7b", "hymba_1_5b")
 LOSS_CHUNK = 16
 #: the smoke configurations served on a mesh: GQA whose 2 KV heads do not
 #: divide 4, the parallel block, MQA, sliding windows, M-RoPE with a visual
@@ -125,8 +128,6 @@ def port_runs(rank: int, src: str, dst: str, ckpt: str) -> None:
     two cases, the parameters' and constraints' placements; a checkpoint
     of the (2, 2) state under ``ckpt`` restored on :data:`ELASTIC`; the
     uncovered configurations' errors.  Rank 0 writes ``dst`` (npz)."""
-    import dataclasses
-
     from repro_torch.checkpoint import store as ckpt_store
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_device_mesh
@@ -204,10 +205,9 @@ def port_runs(rank: int, src: str, dst: str, ckpt: str) -> None:
         out[f"{e}/placement/{name}"] = np.array(_placements(p))
 
     for which in UNCOVERED:
-        c = (dataclasses.replace(cfg, **{which: True}) if which in
-             ("ulysses_attn", "seq_sharded") else get_smoke_config(which))
         try:
-            tmodel.init_params(c, mesh=mesh, dtype=torch.float32)
+            tmodel.init_params(get_smoke_config(which), mesh=mesh,
+                               dtype=torch.float32)
         except NotImplementedError as err:
             out[f"uncovered/{which}"] = np.array(str(err))
     if rank == 0:
@@ -531,5 +531,256 @@ def family_runs(rank: int, shape: tuple, src: str, dst: str,
         del params, opt
     attention.flash_attention_fwd = plain_fwd
     set_rules(DEFAULT_RULES)
+    if rank == 0:
+        np.savez(dst, **out)
+
+
+# ------------------------------------------------ ulysses_attn, seq_sharded
+#: the smoke configurations run with the sequence options: GQA whose 2 KV
+#: heads do not divide 4, MQA, sliding windows (16, below SP_SEQ), the MoE
+#: and the encoder-decoder (cross-attention)
+SP_ARCHS = ("qwen2_7b", "granite_20b", "gemma3_4b", "qwen2_moe_a2_7b",
+            "whisper_small")
+#: the option sets: each flips these fields of the config
+SP_OPTIONS = {"ulysses": {"ulysses_attn": True},
+              "seq": {"seq_sharded": True},
+              "both": {"ulysses_attn": True, "seq_sharded": True}}
+#: the configuration whose train step's collectives are counted, with no
+#: option and with both
+SP_COMM_ARCH = "qwen2_7b"
+#: the batch of every case (training and prefill), and a sequence that
+#: neither model axis of :data:`MESHES` divides (the fallback)
+SP_BATCH, SP_SEQ, SP_ODD_SEQ = 4, 40, 41
+
+
+def sp_config(arch: str, opts: str | None, get_smoke_config):
+    """``arch``'s smoke config (the port's or the reference's) with the
+    fields of :data:`SP_OPTIONS` ``[opts]`` set (none for None)."""
+    import dataclasses
+    return dataclasses.replace(get_smoke_config(arch),
+                               **SP_OPTIONS.get(opts, {}))
+
+
+def param_shapes(cfg) -> set:
+    """Every shape a parameter of ``cfg`` (one layer's slice) or its
+    flattened matrix takes in the model's products: the parameter-like
+    shapes of :func:`_record_redistributions`."""
+    from repro_torch.models import model as tmodel
+    out = set()
+    for name, t in tmodel.abstract_params(cfg).items():
+        shape = tuple(t.shape if name in tmodel.GLOBAL_KEYS
+                      else t.shape[1:])
+        out.add(shape)
+        if len(shape) > 2:
+            out.add((shape[0], int(np.prod(shape[1:]))))
+            out.add((int(np.prod(shape[:-1])), shape[-1]))
+    return out
+
+
+def _record_redistributions(calls: list):
+    """Wrap DTensor's ``redistribute_local_tensor`` (as its explicit
+    redistributions and its operators' implicit ones call it) to record
+    each call's shape and the placements it went from and to; returns the
+    undo."""
+    from torch.distributed.tensor import _dispatch, _redistribute
+    saved = _redistribute.redistribute_local_tensor
+
+    def rec(local, current, target, **kw):
+        calls.append((tuple(current.shape),
+                      tuple(repr(p) for p in current.placements),
+                      tuple(repr(p) for p in target.placements)))
+        return saved(local, current, target, **kw)
+    _redistribute.redistribute_local_tensor = rec
+    _dispatch.redistribute_local_tensor = rec
+
+    def undo():
+        _redistribute.redistribute_local_tensor = saved
+        _dispatch.redistribute_local_tensor = saved
+    return undo
+
+
+def _gathered_over_model(calls: list, shapes: set) -> list:
+    """The recorded redistributions of a parameter-like shape that take a
+    tensor split over ``model`` (the second mesh axis) whole there."""
+    return sorted({repr(c) for c in calls if c[0] in shapes
+                   and "Shard(" in c[1][1] and c[2][1] == "Replicate()"})
+
+
+def _record_flash(seen: list):
+    """Wrap the flash kernels' wrappers (as ``models.flash`` calls them) to
+    record each call's type and shapes of q and k, its ``q_offset`` and
+    ``causal``; returns the undo."""
+    from repro_torch.kernels import attention
+    fwd, bwd = attention.flash_attention_fwd, attention.flash_attention_bwd
+
+    def rec_fwd(q, k, v, **kw):
+        seen.append(("fwd", type(q).__name__, tuple(q.shape),
+                     tuple(k.shape), kw.get("q_offset", 0),
+                     kw.get("causal")))
+        return fwd(q, k, v, **kw)
+
+    def rec_bwd(q, k, v, out, lse, dout, **kw):
+        seen.append(("bwd", type(q).__name__, tuple(q.shape),
+                     tuple(k.shape), kw.get("q_offset", 0),
+                     kw.get("causal")))
+        return bwd(q, k, v, out, lse, dout, **kw)
+    attention.flash_attention_fwd = rec_fwd
+    attention.flash_attention_bwd = rec_bwd
+
+    def undo():
+        attention.flash_attention_fwd, attention.flash_attention_bwd = \
+            fwd, bwd
+    return undo
+
+
+def sp_runs(rank: int, shape: tuple, src: str, dst: str) -> None:
+    """On the (data, model) mesh ``shape``, at fp32 from ``src``'s
+    parameters and batches, for each :data:`SP_ARCHS` configuration:
+
+    * under the default rules, for each option set of
+      :data:`SP_OPTIONS`: one ``make_train_step`` step (its loss, the
+      gradients it applied, the parameters after it, gathered whole); every
+      process's flash calls (shapes, ``q_offset``, ``causal``); each
+      layer's output placements; the redistributions of a parameter-like
+      shape that gathered it whole over ``model`` (and so, once more, with
+      no option); for :data:`SP_COMM_ARCH` with no option and with both,
+      ``CommDebugMode``'s collective counts;
+    * under ``serve_tp`` with ``ulysses_attn``: the prefill's logits and
+      caches and every process's flash calls.
+
+    Then Qwen2-7B's prefill with ``ulysses_attn`` at :data:`SP_ODD_SEQ`
+    positions (the fallback), its logits and flash calls.  Rank 0 writes
+    ``dst`` (npz)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.dryrun import serve_tp_rules
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    from repro_torch.serve import step as sstep
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import step as tstep
+    tmodel.COMPUTE_DTYPE = torch.float32
+    data = dict(np.load(src))
+    mesh = make_device_mesh(shape, ("data", "model"), "cpu")
+    ocfg = OptimConfig(warmup_steps=1, decay_steps=10)
+    world = dist.get_world_size()
+    out = {}
+
+    def every_rank(seen: list) -> str:
+        """Every process's records, in rank order."""
+        got = [None] * world
+        dist.all_gather_object(got, list(seen))
+        return repr(got)
+
+    applied = {}
+    apply_updates = tstep.apply_updates
+
+    def keep_grads(named, grads, opt_state, *a, **kw):
+        applied.update({n: g.clone() for n, g in grads.items()})
+        return apply_updates(named, grads, opt_state, *a, **kw)
+    tstep.apply_updates = keep_grads
+    try:
+        for arch in SP_ARCHS:
+            key = f"{arch}/"
+            flat = {k[len(key) + 2:]: v for k, v in data.items()
+                    if k.startswith(key + "p/")}
+            shapes = param_shapes(get_smoke_config(arch))
+            set_rules(DEFAULT_RULES)
+            for opts in (None, *SP_OPTIONS):
+                cfg = sp_config(arch, opts, get_smoke_config)
+                t = f"{arch}/{opts or 'none'}"
+                params = tmodel.params_from_numpy(cfg, flat, mesh=mesh,
+                                                  dtype=torch.float32)
+                opt = init_opt_state(params, ocfg)
+                batch = tloop.distribute_batch(
+                    {k: torch.from_numpy(data[f"{key}train/{k}"])
+                     for k in ("tokens", "labels", "frames")
+                     if f"{key}train/{k}" in data}, mesh)
+                seen, redist, carry = [], [], []
+                hooks = [layer.register_forward_hook(
+                    lambda m, a, y: carry.append(repr(tuple(y.placements))))
+                    for layer in params.layers]
+                undo = [_record_flash(seen), _record_redistributions(redist)]
+                applied.clear()
+                try:
+                    # the collectives of one step, counted where
+                    # SP_COMM_ARCH takes no option and both (the counter
+                    # doubles a step's time on the CPU)
+                    counting = arch == SP_COMM_ARCH and opts in (None, "both")
+                    with (CommDebugMode() if counting
+                          else contextlib.nullcontext()) as comm:
+                        step = tstep.make_train_step(cfg,
+                                                     tstep.TrainConfig(ocfg))
+                        params, opt, metrics = step(params, opt, batch)
+                finally:
+                    for u in undo:
+                        u()
+                    for h in hooks:
+                        h.remove()
+                out[f"{t}/gathered"] = np.array(
+                    _gathered_over_model(redist, shapes), dtype=object
+                    ).astype(str)
+                if counting:
+                    out[f"{t}/comm"] = np.array(repr(sorted(
+                        (str(k), v)
+                        for k, v in comm.get_comm_counts().items())))
+                if opts is None:
+                    continue
+                out[f"{t}/loss"] = metrics["loss"].numpy()
+                out[f"{t}/flash"] = np.array(every_rank(seen))
+                out[f"{t}/carry"] = np.array(repr(carry))
+                names = dict(params.named_parameters())
+                for k, v in _full_stacked(cfg, {
+                        n: applied[n] for n in names}).items():
+                    out[f"{t}/g/{k}"] = v
+                named = {n: p.detach() for n, p in names.items()}
+                for k, v in _full_stacked(cfg, named).items():
+                    out[f"{t}/p/{k}"] = v
+                del params, opt, metrics, step
+
+            # serving, under serve_tp, with ulysses_attn
+            set_rules(serve_tp_rules())
+            cfg = sp_config(arch, "ulysses", get_smoke_config)
+            params = tmodel.params_from_numpy(cfg, flat, mesh=mesh,
+                                              dtype=torch.float32)
+            extra = ({"frames": torch.from_numpy(data[f"{key}frames"])}
+                     if cfg.enc_dec else {})
+            seen = []
+            undo = _record_flash(seen)
+            try:
+                logits, cache = sstep.make_prefill_step(
+                    cfg, max_len=SP_SEQ + 2)(params, {
+                        "tokens": torch.from_numpy(data[f"{key}tokens"]),
+                        **extra})
+            finally:
+                undo()
+            out[f"{arch}/serve/flash"] = np.array(every_rank(seen))
+            out[f"{arch}/serve/prefill_logits"] = logits.full_tensor().numpy()
+            for nm in ("k", "v", "xk", "xv"):
+                if nm in cache:
+                    out[f"{arch}/serve/prefill_cache/{nm}"] = \
+                        cache[nm].full_tensor().numpy()
+            del params, cache, logits
+
+        # the fallback: a sequence that ``model`` does not divide
+        cfg = sp_config("qwen2_7b", "ulysses", get_smoke_config)
+        params = tmodel.params_from_numpy(cfg, {
+            k[len("qwen2_7b/p/"):]: v for k, v in data.items()
+            if k.startswith("qwen2_7b/p/")}, mesh=mesh, dtype=torch.float32)
+        seen = []
+        undo = _record_flash(seen)
+        try:
+            logits, _ = sstep.make_prefill_step(cfg)(params, {
+                "tokens": torch.from_numpy(data["odd/tokens"])})
+        finally:
+            undo()
+        out["odd/flash"] = np.array(every_rank(seen))
+        out["odd/prefill_logits"] = logits.full_tensor().numpy()
+    finally:
+        tstep.apply_updates = apply_updates
+        set_rules(DEFAULT_RULES)
     if rank == 0:
         np.savez(dst, **out)
