@@ -34,10 +34,13 @@ the ones it names):
    one bf16 ulp at the output's largest magnitude (2^-7 * max|plain|) and,
    element by element, ``tests/torch_checks.py``'s ``bf16_attn_err``: one
    bf16 ulp of the element plus 2^-12 of its output row's largest
-   magnitude, sharp enough to fail P rounded to bf16 before P V.  The
-   profiler must see the tensor-core kernel (``flash_fwd_wgmma``) run for
+   magnitude, sharp enough to fail P rounded to bf16 before P V.  The C
+   entry must launch the tensor-core kernel (``flash_fwd_wgmma``) for
    bf16 at head_dim 128 and 256 and the CUDA-core kernel
-   (``flash_fwd_kernel``) for fp32 at both.
+   (``flash_fwd_kernel``) for fp32 at both, once and no other (the
+   launches it counts at each kernel's launch site,
+   ``attention.kernel_launches``), and the profiler must see no other
+   flash kernel.
 3. The bitmap main path at the paper's record geometry (W = 32 eight-bit
    words, M = 256 keys): ``BitmapDB(num_keys=256).append_encoded`` of 8
    blocks of 2^22 records (2^25 records, a 1 GiB live index), made from
@@ -54,8 +57,10 @@ the ones it names):
    port's plain ``ref`` backend on the card, and the streamed index
    identical, block by block, to a plain create_index of the same records.
 5. Each bitmap kernel timed at the main path's shapes — its device time
-   from ``torch.profiler`` (and the span between two CUDA events beside
-   it) — next to its plain version and its bound: the larger of the bytes
+   from ``torch.profiler`` (for ``cam_match``, ``bit_transpose`` and
+   ``bitmap_query``, one kernel a call, its time over the launches whose
+   profiler records carry a time, and that count; and the span between two CUDA events
+   beside it) — next to its plain version and its bound: the larger of the bytes
    it must move over 3.35e12 B/s and the operations its function needs over
    6.7e13 op/s (the H100 SXM's published memory rate and 32-bit non-tensor
    peak), counted over this run's real work only (no pad query, pad
@@ -106,10 +111,10 @@ the ones it names):
    2*S*(S+1)*hd*B*H flops over 989e12 flop/s, the H100 SXM's dense bf16
    tensor-core peak); and the card's busy time and idle share over one
    prefill and one decode step.  In the profiled prefill the wrapper must
-   count one launch per layer and the profiler must see ``flash_fwd_wgmma``
-   and no ``flash_fwd_kernel``.  The fp32 logit check runs the CUDA-core
-   kernel (fp32 inputs); the bf16 one, and the layer checks, the
-   tensor-core kernel.
+   count one launch per layer, the C entry launch ``flash_fwd_wgmma``
+   alone, and the profiler see no ``flash_fwd_kernel``.  The fp32 logit
+   check runs the CUDA-core kernel (fp32 inputs); the bf16 one, and the
+   layer checks, the tensor-core kernel.
 
 8. The durable main path at the same geometry: ``BitmapDB(num_keys=256,
    path=<temporary directory>, spill_records=2^22)`` on the card takes the
@@ -238,10 +243,11 @@ the ones it names):
    around one ``make_train_step`` step, which must launch the forward
    kernel twice a layer (forward and recompute) and the backward kernel
    once a layer, and never the plain versions (that step runs under the
-   profiler, which must see 8 launches of each tensor-core backward kernel
-   and none of the CUDA-core pair; so must the profiled step below; when
-   the profiler records nothing or misses launches the next step, counted
-   alike, is profiled, up to three, then the run fails); forward hooks
+   profiler; the C entry must launch 8 of each tensor-core backward kernel
+   and none of the CUDA-core pair, and the profiler see none of that pair
+   and no more than those; so must the profiled step below; when the
+   profiler records nothing or misses launches the next step, counted
+   alike, is profiled, up to three); forward hooks
    capture q, k, v, the output and dout at layers 0 and 7, and the
    backward kernel there is held against its plain version by phase 2's
    backward check, on the step's dout times the power of two that brings
@@ -313,9 +319,10 @@ the ones it names):
    both bf16 checks of phase 2; the prefill's last-position logits against
    the plain route (``plain_routes``, which must receive every layer's
    window) in bf16 and fp32 as in phase 7; the card's busy time and idle
-   share over one prefill (whose profile must show ``flash_fwd_wgmma``
-   and no ``flash_fwd_kernel``: bf16 at head_dim 256 runs on the tensor
-   cores) and one decode step; row 5w
+   share over one prefill (whose C entry must launch ``flash_fwd_wgmma``
+   alone, once a layer, and whose profile must show no
+   ``flash_fwd_kernel``: bf16 at head_dim 256 runs on the tensor cores)
+   and one decode step; row 5w
    (the kernel at
    layer 0's shape beside its plain version, SDPA under the window's
    boolean mask, whose kernels are printed, and its bound: the allowed
@@ -336,8 +343,9 @@ the ones it names):
    activations), remat full, 2 x 4096 tokens: the loss and layer 0's
    wq/wk/wv gradients against the plain route within ROUTE_TOL, one step
    counted (12 forward and 6 backward launches, no plain version), one
-   timed with its peak memory, one profiled (the tensor-core backward pair
-   seen, never the CUDA-core pair), the backward kernel at layers 0 and 5
+   timed with its peak memory, one profiled (the C entry launching the
+   tensor-core backward pair once a layer and never the CUDA-core pair,
+   which the profiler must not see either), the backward kernel at layers 0 and 5
    against its plain version on the step's unit-RMS dout, and row 5bw (the
    backward at layer 0's shape beside its plain version, SDPA's backward
    under the same mask and its bound: 2.5x the forward's flops against the
@@ -603,6 +611,43 @@ the ones it names):
    past the shard's last query must be exactly 0.  Their ``launches``
    are rank 0's in 22a's Ulysses job and 22b's first job.  The phase's
    seconds are printed.
+23. The SSM and hybrid families across cards, after phase 22: unsharded
+   references on this card first (``ssm_references``: 16b's, 16c's,
+   17d's and 17e's cells, at the published depths with 4 cards or more,
+   else cut to SSM_ONE_CARD_LAYERS = 4 layers to keep the script in its
+   time limit), then one NCCL rank a card (``--serve-rank`` with phase
+   23's jobs, ``family_job``), each job on its (data, model) device mesh.
+   a: Mamba2-2.7B (published: 64 layers, d_inner 5120, 80 SSM heads,
+   d_state 128) served under ``serve_tp``, 16b's 4 x 2048 prompts and 32
+   greedy steps, on (1, n); b: Hymba-1.5B (32 layers, 25 / 5 heads of 64,
+   50 SSM heads), 16c's cell, on (1, n) and, with 4 cards, (n/2, 2).
+   Each as 21a holds its job (the allocator's bytes against
+   ``dryrun.serve_arg_bytes``, one flash launch an attention layer on
+   each rank in the counted ``greedy_generate``, none for Mamba2, the
+   plain attention made to raise, the logits by ``held_logits``), and the
+   ``conv`` and ``ssm`` caches of the first, middle and last layers after
+   the prefill within LOGIT_TOL's bf16 share of their largest magnitude
+   (layer 0's within SSM_LAYER0_CACHE_TOL = 1/64 of it); on one card
+   the logits, ids and those caches the unsharded run's bit for bit.  c: 17d's cell (Mamba2, 2 x 2048, remat full, fp32 state),
+   d: 17e's (Hymba), each on (n, 1) and, with 4 cards, on (n/2, 2)
+   instead: the loss within 1e-3 and layer 0's gradients (c: the SSM's
+   ``in_proj``, ``conv_w``, ``A_log``, ``out_proj``; d: q/k/v, ``in_proj``,
+   ``conv_w``, ``out_proj``) within 1/16 (L2) of the unsharded run's with
+   the compute dtype bf16, and within SSM_FP32_GRAD_TOL = 1e-3 with fp32
+   (a bf16 gradient held only where the
+   unsharded run's own bf16 gradient lies within 1/16 of its fp32 one,
+   else printed: a rounding order of its own moves it that far; Hymba's
+   forward kernel's bf16 rounding alone moved 17e's by 0.0647), and on
+   one card all of them the unsharded run's bit for bit; two bf16 runs
+   bit-identical; one counted step (two forward and one backward flash
+   launch an attention layer on each rank, no plain attention) and 3
+   timed steps beside the unsharded run's; the per-card state reckoned by
+   ``shard_bytes``.  Rows 5hr and 5bhr (made in 16c and 17e): both flash
+   kernels at a (2, 2) rank's shard of Hymba (half the batch, every head:
+   25 and 5 divide no ``model`` axis; layer 1's window of 1024) beside
+   their plain versions, SDPA under the window's boolean mask and the
+   bound; their ``ssm_mesh_launches`` are rank 0's in b's last job and
+   d's job.  The phase's seconds are printed.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -628,14 +673,16 @@ gradient tolerance, for fp32; one bf16 ulp at the output's largest
 magnitude plus that atol for bf16), and two launches
 on the same inputs bit-identical, and once more at phase 13a's shape (B =
 4, S = 2048, H = 28, KV = 4, hd = 128, causal, bf16) on standard-normal
-inputs, max|plain| printed beside each tolerance; the profiler must see
-the tensor-core pair (``flash_bwd_dq_wgmma``, ``flash_bwd_dkdv_wgmma``)
-for bf16 at head_dim 64, 128 and 256 and the CUDA-core pair
-(``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``) for fp32 (at 128 and
-256) and for bf16 at head_dim 32: one launch of each of the pair and
-none of the other pair in a session of one call (for bf16 at 256, whose
-dq record the profiler once lost here, the pair may be seen across up to
-three sessions).  Both flash kernels, bidirectional, at
+inputs, max|plain| printed beside each tolerance; the C entry must
+launch each kernel of the tensor-core pair (``flash_bwd_dq_wgmma``,
+``flash_bwd_dkdv_wgmma``) once for bf16 at head_dim 64, 128 and 256, and
+of the CUDA-core pair (``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``)
+for fp32 (at 128 and 256) and for bf16 at head_dim 32, and no other
+kernel (its counts at the launch sites), and the profiler must see no
+kernel of the other pair and no more launches than the call made, in
+each of up to three sessions of one call; what it saw of the pair's own
+kernels is printed (it loses records: the dq kernel's in every session
+of some runs).  Both flash kernels, bidirectional, at
 Whisper's shapes (``tests/torch_checks.py``'s ``ENCDEC_FLASH_CASES``:
 batch 8, 12/12 heads of 64, Sq = Skv = 1500 and Sq = 224, 448 against
 Skv = 1500, fp32 and bf16) through ``flash_mask_ratios``, each case one
@@ -652,9 +699,10 @@ key, the Ulysses shards: 512 of 2048 queries at q_offset 0, 512 and
 fp32 and bf16), through ``flash_mask_ratios``: the forward within
 ``attn_tol`` and, for bf16, ``bf16_attn_err``, the lse within 1e-5, dq,
 dk, dv within ``bwd_tol``, two backward launches bit-identical and dK and
-dV exactly 0 at every key no query sees; the profiler must see the
+dV exactly 0 at every key no query sees; the C entries must launch the
 tensor-core forward and backward kernels for bf16 under a window at
-head_dim 64, 128 and 256 and the CUDA-core ones for fp32 at 256.  Each
+head_dim 64, 128 and 256 and the CUDA-core ones for fp32 at 256, and the
+profiler must see none of the other route's.  Each
 path (phases 3, 8, 9) is driven with every launch counter set to 0 just
 before it and read just after; so is each of phases 10, 11 and 12a's runs
 (11b's wake and one-shot step together).  Each of those runs also fails
@@ -742,6 +790,13 @@ FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 4, 2048, 32
 MOE_ARCH = "qwen2-moe-a2.7b"    # 16a: capacity dispatch, shared experts
 SSM_ARCH = "mamba2-2.7b"        # 16b: attention-free SSD at 64 layers
 HYBRID_ARCH = "hymba-1.5b"      # 16c: parallel attention and SSM heads
+#: rows 5hr and 5bhr: Hymba's flash kernels at a (2, 2) rank's shard (half
+#: the batch, every head: 25 / 5 divide no ``model`` axis)
+HYBRID_RANK = "hybrid (2, 2) rank"
+#: phase 23 on fewer than 4 cards: Mamba2's and Hymba's depth, cut to keep
+#: the script in its time limit (Hymba's layers 0, 2, 3 global, 1 local),
+#: the references recomputed at it
+SSM_ONE_CARD_LAYERS = 4
 #: 16a: the MoE layer at layer 0's captured input against its per-token
 #: dense form, both in fp32 (the same products summed in other orders),
 #: as a fraction of the dense form's largest magnitude; at the config's
@@ -874,13 +929,16 @@ def event_ms(torch, fn, reps: int, back_to_back: bool = False) -> float:
     return statistics.median(times)
 
 
-def device_profile(torch, fn, reps: int = 1, counts: dict | None = None
-                   ) -> tuple[float, float, dict]:
+def device_profile(torch, fn, reps: int = 1, counts: dict | None = None,
+                   timed: dict | None = None) -> tuple[float, float, dict]:
     """(host wall ms, card busy ms, {kernel: card ms}) per run of ``fn``,
     from ``torch.profiler``'s CUDA activity over ``reps`` runs (the card's
     own kernel and copy durations, without host gaps).  ``counts``, when
     given, receives {kernel: launches} over all ``reps`` runs, from every
-    card record (also one without device time).  The
+    card record (also one without device time).  ``timed``, when given,
+    receives {kernel: [records that carry device time, their card ms]}
+    over all ``reps`` runs: the profiler drops some launches' records and
+    keeps others without their time (PERF.md section 7).  The
     profiler can miss a session's first kernel, so a session starts with
     a marker kernel (``torch.cuda._sleep``'s, left out of the readings)."""
     from torch.profiler import ProfilerActivity, profile
@@ -906,6 +964,13 @@ def device_profile(torch, fn, reps: int = 1, counts: dict | None = None
         if counts is not None and (
                 us or ev.device_type == torch.autograd.DeviceType.CUDA):
             counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    for ev in prof.events() if timed is not None else ():
+        us = (getattr(ev, "self_device_time_total", 0)
+              or getattr(ev, "self_cuda_time_total", 0))
+        if us and PROFILE_MARKER not in ev.name:
+            got = timed.setdefault(ev.name, [0, 0.0])
+            got[0] += 1
+            got[1] += us / 1e3
     return wall, sum(by_name.values()), by_name
 
 
@@ -995,6 +1060,18 @@ def print_in_turn(title: str, times: dict) -> None:
 def launches_named(counts: dict, symbol: str) -> int:
     """Launches of the kernels whose profiler name contains ``symbol``."""
     return sum(n for key, n in counts.items() if symbol in key)
+
+
+def route_launches(torch, attention, fn):
+    """(``fn()``, {flash kernel: launches over it}) as the C entries count
+    them where they launch each kernel: the route the calls took, which
+    does not hang on the profiler's records (it loses some, PERF.md
+    section 7)."""
+    torch.cuda.synchronize()
+    attention.kernel_launches(reset=True)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, attention.kernel_launches(reset=True)
 
 
 def bucket_table(buckets, m: int, segments: int = 1) -> tuple[list, float]:
@@ -2198,14 +2275,14 @@ def check_flash_backward(torch, dev, rng, attention) -> None:
     print(f"check flash_attention_bwd at the training shape {case}, unit "
           f"scale: {errs}; two launches bit-identical")
     del q, k, v, dout, out, lse, got, again, want
-    # the profiler must see one launch of each kernel of the pair the C
-    # entry picks, and no kernel of the other pair, in a session of one
-    # call; a session that recorded fewer than the two launches is taken
-    # again, up to three times.  For bf16 at head_dim 256 alone, whose dq
-    # record the profiler lost in three sessions in a row here once (never
-    # in the card tests, nor when this check ran by itself; the cause is
-    # not known), the two kernels may instead be seen in different
-    # sessions, each session showing no more than its one call launched
+    # in each of up to three sessions of one call (a session that recorded
+    # fewer than the two launches is taken again) the C entry must launch
+    # each kernel of the pair it picks once and no other kernel (its count
+    # at the launch site), and the profiler must see no kernel of the
+    # other pair and no more than those launches.  The profiler loses
+    # records (PERF.md section 7: the dq kernel's, in every session of
+    # some runs, while the card tests saw it), so what it saw of the
+    # pair's own kernels is printed
     for dt, hd, route in ((torch.bfloat16, 128, "tensor cores"),
                           (torch.bfloat16, 64, "tensor cores"),
                           (torch.bfloat16, 256, "tensor cores"),
@@ -2219,27 +2296,27 @@ def check_flash_backward(torch, dev, rng, attention) -> None:
         union, clean = set(), True
         for _ in range(3):
             seen = {}
-            device_profile(torch, lambda: attention.flash_attention_bwd(
-                q, k, v, out, lse, dout, causal=True), 1, seen)
+            _, launched = route_launches(torch, attention, lambda: (
+                device_profile(torch, lambda: attention.flash_attention_bwd(
+                    q, k, v, out, lse, dout, causal=True), 1, seen)))
             got = {n: launches_named(seen, n)
                    for both in BWD_KERNELS.values() for n in both}
             union |= {n for n in pair if got[n]}
             clean = clean and all(got[n] <= 1 for n in pair) and (
                 launches_named(seen, "flash_bwd") == sum(got[n] for n in pair))
+            if launched != {n: int(n in pair) for n in attention.KERNELS}:
+                raise SystemExit(f"flash_attention_bwd {dt} hd={hd}: the C "
+                                 f"entry launched {launched}, want one "
+                                 f"launch each of {pair}")
             if launches_named(seen, "flash_bwd") >= 2:
                 break
-        if (all(got[n] == 1 for n in pair)
-                and launches_named(seen, "flash_bwd") == 2):
-            print(f"check flash_attention_bwd {dt} hd={hd}: the profiler saw "
-                  f"one launch each of {pair} ({route})")
-        elif (dt, hd) == (torch.bfloat16, 256) and clean and union == set(
-                pair):
-            print(f"check flash_attention_bwd {dt} hd={hd}: the profiler lost "
-                  f"records; over its sessions it saw each of {pair} "
-                  f"({route}) and no kernel of the other pair")
-        else:
+        if not clean:
             raise SystemExit(f"flash_attention_bwd {dt} hd={hd}: profiler "
                              f"saw {seen}, want one launch each of {pair}")
+        print(f"check flash_attention_bwd {dt} hd={hd}: the C entry launched "
+              f"one each of {pair} ({route}); over its sessions the "
+              f"profiler saw {sorted(union)} of them and no kernel of the "
+              f"other pair")
 
 
 #: the kernels of each route of the two C entries under a window, as the
@@ -2286,13 +2363,14 @@ def check_flash_masked(torch, dev, rng, attention) -> None:
         print(f"check flash under a mask {dt} hd={hd} {name}: "
               f"{n_cases[dt, hd, name]} windowed and offset cases within "
               f"tolerance, worst err/tol {ratio} at {case}")
-    # under a window the C entries pick each route's kernels: the profiler
-    # must see none of the other route's, in up to three sessions of the
-    # forward and of the backward alone (phase 2's unmasked shape).  It
-    # loses kernel records, up to all of a session's (PERF.md section 7;
-    # it lost this forward's in every session of two runs of phase 2 while
-    # the card tests saw it), so what it saw of the route's own kernels is
-    # printed, never required
+    # under a window the C entries pick each route's kernels: in each of
+    # up to three sessions of the forward and of the backward alone (phase
+    # 2's unmasked shape) they must launch each of the route's kernels once
+    # and no other (their counts at the launch sites), and the profiler
+    # must see none of the other route's.  It loses kernel records, up to
+    # all of a session's (PERF.md section 7; it lost this forward's in
+    # every session of two runs of phase 2 while the card tests saw it), so
+    # what it saw of the route's own kernels is printed
     for hd, dt, route in ((64, torch.bfloat16, "tensor cores"),
                           (128, torch.bfloat16, "tensor cores"),
                           (256, torch.bfloat16, "tensor cores"),
@@ -2310,7 +2388,13 @@ def check_flash_masked(torch, dev, rng, attention) -> None:
                                  for n in names), 0)
             for _ in range(3):
                 seen = {}
-                device_profile(torch, fn, 1, seen)
+                _, launched = route_launches(
+                    torch, attention, lambda: device_profile(torch, fn, 1,
+                                                             seen))
+                if launched != {n: int(n in want) for n in launched}:
+                    raise SystemExit(f"flash {what} under a window, {dt} "
+                                     f"hd={hd}: the C entry launched "
+                                     f"{launched}, want one each of {want}")
                 for n in got:
                     got[n] += launches_named(seen, n)
                 if all(got[n] for n in want):
@@ -2321,9 +2405,10 @@ def check_flash_masked(torch, dev, rng, attention) -> None:
                                  f"hd={hd}: the profiler saw {others}, "
                                  f"kernels of the route other than "
                                  f"{route}'s {want}")
-            print(f"check flash {what} under a window, {dt} hd={hd}: no "
-                  f"kernel of the other route; of {want} ({route}) the "
-                  f"profiler saw {[got[n] for n in want]} launches in "
+            print(f"check flash {what} under a window, {dt} hd={hd}: the C "
+                  f"entry launched one each of {want} ({route}) and no "
+                  f"other; the profiler saw no kernel of the other route "
+                  f"and, of {want}, {[got[n] for n in want]} launches in "
                   f"sessions of one call (last session's kernels: "
                   f"{sorted(seen)[:4]})")
 
@@ -2379,19 +2464,29 @@ def check_flash_encdec(torch, dev, rng, attention) -> None:
         del q, k, v, dout, out, lse
 
 
-def check_step_backward(seen: dict, layers: int, label: str) -> dict:
-    """The backward kernels the profiler saw over one train step (``seen``,
-    {kernel: launches}): one launch a layer of each tensor-core kernel and
-    none of the CUDA-core pair, else the run fails."""
+def check_step_backward(seen: dict, launched: dict, layers: int,
+                        label: str) -> dict:
+    """The backward kernels of one train step: the C entry must have
+    launched (``launched``, {kernel: launches} as it counts them) one a
+    layer of each tensor-core kernel and none of the CUDA-core pair, and
+    the profiler (``seen``, {kernel: launches}) must see none of the
+    CUDA-core pair and no more than those; it loses records (PERF.md
+    section 7), so what it saw of the tensor-core pair is printed.  Else
+    the run fails."""
     got = {n: launches_named(seen, n)
            for pair in BWD_KERNELS.values() for n in pair}
     got["kernels seen"] = sum(seen.values())
-    if (any(got[n] != layers for n in BWD_KERNELS["tensor cores"])
+    if (any(launched[n] != layers for n in BWD_KERNELS["tensor cores"])
+            or any(launched[n] for n in BWD_KERNELS["CUDA cores"])
+            or any(got[n] > layers for n in BWD_KERNELS["tensor cores"])
             or any(got[n] for n in BWD_KERNELS["CUDA cores"])):
-        raise SystemExit(f"train {label}: the profiler saw backward "
-                         f"launches {got}, want {layers} of each of "
-                         f"{BWD_KERNELS['tensor cores']} and none else")
-    print(f"train {label}: the profiler saw backward launches {got}")
+        raise SystemExit(f"train {label}: the C entry launched {launched}, "
+                         f"the profiler saw backward launches {got}; want "
+                         f"{layers} of each of {BWD_KERNELS['tensor cores']}"
+                         f" and none else")
+    print(f"train {label}: the C entry launched {layers} of each of "
+          f"{BWD_KERNELS['tensor cores']} and none of the CUDA-core pair; "
+          f"the profiler saw backward launches {got}")
     return got
 
 
@@ -2630,9 +2725,10 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
                 zero_counts()
                 first_seen, res = {}, []
                 t0 = time.perf_counter()
-                device_profile(torch, lambda: res.append(step(params, opt,
-                                                              first)),
-                               1, first_seen)
+                _, first_launched = route_launches(
+                    torch, attention, lambda: device_profile(
+                        torch, lambda: res.append(step(params, opt, first)),
+                        1, first_seen))
                 params, opt, m = res[0]
                 first_s = first_s or time.perf_counter() - t0
                 losses.append(float(m["loss"]))
@@ -2657,8 +2753,8 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
     if not first_seen:
         raise SystemExit("train: the profiler recorded no kernel in three "
                          "counted steps")
-    bwd_seen = [check_step_backward(first_seen, cfg.num_layers,
-                                    f"step {len(losses)}")]
+    bwd_seen = [check_step_backward(first_seen, first_launched,
+                                    cfg.num_layers, f"step {len(losses)}")]
 
     # the backward kernel at the captured layers, by the bf16 check, on
     # the step's dout brought to unit RMS by a power of two (exact; the
@@ -2742,12 +2838,13 @@ def training_path(torch, dev, seed: int, zero_counts, counted, read_waves,
     batch = next(stream)
     for _ in range(3):                  # the profiler now and then sees none
         seen = {}
-        wall, busy, by_name = device_profile(
-            torch, lambda: step(params, opt, batch), 1, seen)
+        (wall, busy, by_name), launched = route_launches(
+            torch, attention, lambda: device_profile(
+                torch, lambda: step(params, opt, batch), 1, seen))
         if seen:
             break
     prof = profile("one train step", wall, busy, by_name)
-    bwd_seen.append(check_step_backward(seen, cfg.num_layers,
+    bwd_seen.append(check_step_backward(seen, launched, cfg.num_layers,
                                         "the profiled step"))
     bwd_ms = sum(v for k_, v in by_name.items() if "flash_bwd" in k_)
     groups = {"flash backward kernel": ("flash_bwd",),
@@ -3131,25 +3228,30 @@ def window_serving(torch, dev, seed: int, zero_counts, counted, kernel
                          f"the tiles outside the window")
 
     # where the time goes: one prefill, one decode step.  At head_dim 256
-    # the profiler must see the tensor-core forward in the prefill, never
-    # flash_fwd_kernel (a session this long keeps its records)
+    # the C entry must launch only the tensor-core forward in the prefill,
+    # one a layer (its count at the launch site), and the profiler must
+    # never see flash_fwd_kernel (what it saw of the tensor-core forward
+    # is printed: it loses records, PERF.md section 7)
     for _ in range(3):          # the profiler now and then misses launches
         seen = {}
+        reading, launched = route_launches(
+            torch, attention, lambda: device_profile(torch, lambda: prefill(
+                params, {"tokens": prompts}), 1, seen))
         prof = {"prefill": profile(
-            f"one windowed prefill ({WIN_BATCH} x {WIN_PROMPT})",
-            *device_profile(torch, lambda: prefill(
-                params, {"tokens": prompts}), 1, seen))}
+            f"one windowed prefill ({WIN_BATCH} x {WIN_PROMPT})", *reading)}
         if launches_named(seen, "flash_fwd") >= cfg.num_layers:
             break
     flash_kernels = {sym: launches_named(seen, sym)
                      for sym in ("flash_fwd_wgmma", "flash_fwd_kernel")}
-    print(f"window lm check: the profiler saw {flash_kernels} in the "
-          f"profiled prefill")
-    if flash_kernels["flash_fwd_kernel"] or not flash_kernels[
-            "flash_fwd_wgmma"]:
-        raise SystemExit(f"window lm: want the prefill's flash launches on "
-                         f"the tensor cores (bf16 at head_dim "
-                         f"{cfg.head_dim}), the profiler saw {flash_kernels}")
+    print(f"window lm check: the C entry launched {launched} in the "
+          f"profiled prefill; the profiler saw {flash_kernels}")
+    if (launched != {n: cfg.num_layers * (n == "flash_fwd_wgmma")
+                     for n in attention.KERNELS}
+            or flash_kernels["flash_fwd_kernel"]):
+        raise SystemExit(f"window lm: want the prefill's {cfg.num_layers} "
+                         f"flash launches on the tensor cores (bf16 at "
+                         f"head_dim {cfg.head_dim}), the C entry launched "
+                         f"{launched}, the profiler saw {flash_kernels}")
     prof["prefill"]["flash_kernels"] = flash_kernels
     logits, cache = prefill(params, {"tokens": prompts})
     nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
@@ -3351,18 +3453,22 @@ def window_training(torch, dev, seed: int, zero_counts, counted, kernel
           f"{peak} bytes allocated")
     if not (np.isfinite(first_loss) and np.isfinite(second_loss)):
         raise SystemExit("window train: a loss is not finite")
-    # one more step under the profiler: bf16 at head_dim 256 must show the
-    # tensor-core backward pair, never the CUDA-core pair
+    # one more step under the profiler: at bf16 and head_dim 256 the C
+    # entry must launch the tensor-core backward pair, one a layer each,
+    # and never the CUDA-core pair (its count at the launch site); the
+    # profiler must never see the CUDA-core pair (what it saw of the
+    # tensor-core pair is printed: it loses records, PERF.md section 7)
     for _ in range(3):                  # the profiler now and then misses
         seen = {}                       # some or all of the launches
-        reading = device_profile(torch, lambda: step(params, opt, batch), 1,
-                                 seen)
+        reading, launched = route_launches(
+            torch, attention, lambda: device_profile(
+                torch, lambda: step(params, opt, batch), 1, seen))
         got = {n: launches_named(seen, n)
                for pair in BWD_KERNELS.values() for n in pair}
         if all(got[n] for n in BWD_KERNELS["tensor cores"]):
             break
-    print(f"window train check: the profiler saw backward launches {got} in "
-          f"a profiled step")
+    print(f"window train check: the C entry launched {launched}, the "
+          f"profiler saw backward launches {got} in a profiled step")
     prof = profile("one windowed train step", *reading)
     prof["flash_ms_a_launch"] = {
         n: sum(ms for k, ms in reading[2].items() if n in k)
@@ -3370,11 +3476,14 @@ def window_training(torch, dev, seed: int, zero_counts, counted, kernel
         for n in ("flash_fwd_wgmma",) + BWD_KERNELS["tensor cores"]}
     print(f"window train: card ms a launch in the profiled step "
           f"{prof['flash_ms_a_launch']}")
-    if any(got[n] for n in BWD_KERNELS["CUDA cores"]) or not all(
-            got[n] for n in BWD_KERNELS["tensor cores"]):
+    if (any(launched[n] != cfg.num_layers
+            for n in BWD_KERNELS["tensor cores"])
+            or any(launched[n] for n in BWD_KERNELS["CUDA cores"])
+            or any(got[n] for n in BWD_KERNELS["CUDA cores"])):
         raise SystemExit(f"window train: want the backward on the tensor "
-                         f"cores (bf16 at head_dim {cfg.head_dim}), the "
-                         f"profiler saw {got}")
+                         f"cores (bf16 at head_dim {cfg.head_dim}), one "
+                         f"launch a layer, the C entry launched {launched}, "
+                         f"the profiler saw {got}")
 
     # the backward kernel at the captured layers against its plain
     # version, on the step's dout brought to unit RMS (exact)
@@ -3459,8 +3568,8 @@ def window_training(torch, dev, seed: int, zero_counts, counted, kernel
 
 def family_serving(torch, dev, seed: int, zero_counts, counted, arch: str,
                    layers_of, label: str, batch: int = FAMILY_BATCH,
-                   prompt: int = FAMILY_PROMPT, steps: int = FAMILY_STEPS
-                   ) -> dict:
+                   prompt: int = FAMILY_PROMPT, steps: int = FAMILY_STEPS,
+                   layers: int | None = None) -> dict:
     """Phase 16's (and 17a's) serving run of one model at its published
     config: random bf16 weights from ``seed``, ``batch`` prompts of
     ``prompt`` tokens (an encoder-decoder's with ``enc_frames`` frame
@@ -3468,12 +3577,15 @@ def family_serving(torch, dev, seed: int, zero_counts, counted, arch: str,
     ``lm_serving`` (``greedy_generate`` of ``steps`` tokens counted,
     prefill and decode timed, the flash module of each layer of
     ``layers_of(cfg)`` captured), the peak memory over it, and the card's
-    busy time and idle share over one prefill and one decode step."""
+    busy time and idle share over one prefill and one decode step.
+    ``layers``: the depth cut to that many layers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention
     from repro_torch.models import model as tmodel
     from repro_torch.serve import step as tstep
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = tmodel.init_params(cfg, seed=seed, device=dev)
@@ -3798,6 +3910,25 @@ def hybrid_serving(torch, dev, seed: int, zero_counts, counted, kernel
            count=lm["launches"]["flash_attention_fwd"],
            tol=attn_tol(fo, torch.bfloat16), peak_ops=PEAK_BF16,
            library=library)
+    # row 5hr: the same at a (2, 2) rank's shard (half the batch)
+    b2 = B_ // 2
+    rq, rk, rv = (t[:b2].contiguous() for t in (fq, fk, fv))
+    library_r, _ = sdpa_beside(torch, rq, rk, rv, keep)
+    kernel(f"flash_attention_fwd {HYBRID_RANK}", "attention.cu",
+           "src/repro/kernels/attention.py:67",
+           f"q {tuple(rq.shape)}, k/v {tuple(rk.shape)}, causal, window "
+           f"{w1}, bf16",
+           lambda: attention.flash_attention_fwd(rq, rk, rv, causal=True,
+                                                 window=w1),
+           lambda: attention.flash_attention_fwd_plain(rq, rk, rv,
+                                                       causal=True,
+                                                       window=w1),
+           2 * (2 * rq.numel() + rk.numel() + rv.numel()),
+           4 * hd_ * pairs * b2 * H_, 10,
+           count=lm["launches"]["flash_attention_fwd"],
+           tol=attn_tol(fo[:b2], torch.bfloat16), peak_ops=PEAK_BF16,
+           library=library_r)
+    del rq, rk, rv, library_r
     out = dict(run["record"], layer_checks=layer_err,
                logit_checks=logit_checks, step_check=steps,
                sdpa_kernels=sdpa_kernels)
@@ -4453,21 +4584,43 @@ def moe_training(torch, dev, seed: int, zero_counts, counted, kernel,
     return out
 
 
-def ssm_training(torch, dev, seed: int, zero_counts, counted, arch: str,
-                 label: str, route_names=(), capture=()) -> dict:
-    """Phase 17d (Mamba2) and 17e (Hymba): see the module docstring.  With
-    attention (Hymba) the gradients are held kernel vs mixed route and in
-    fp32 kernel vs plain route, not kernel vs plain in bf16: there the
-    forward's bf16 rounding alone moves layer 0's gradients past ROUTE_TOL
-    (mixed vs plain 0.0647 on batch 0 of a first card run, with the
-    backward kernel's share 0.023 and fp32 kernel vs plain 1e-5)."""
-    from repro_torch.configs import get_config
-    full = get_config(arch)
+def ssm_train_layers(full) -> int:
+    """Phase 17d's and 17e's depth: the published one, cut until the fp32
+    training state takes at most TRAIN_STATE_SHARE of the card."""
     layers = full.num_layers
     while STATE_BYTES_PER_PARAM * dataclasses.replace(
             full, num_layers=layers).param_count() > TRAIN_STATE_SHARE * \
             CARD_BYTES:
         layers -= 1
+    return layers
+
+
+def ssm_serve_ref(torch, tmodel, run: dict) -> dict:
+    """Phase 23a's or b's reference from 16b's or 16c's run:
+    :func:`serve_family_ref` and the SSM caches after one more prefill of
+    its prompts (:func:`ssm_caches`)."""
+    cfg, params, lm = run["cfg"], run["params"], run["lm"]
+    _, cache = lm["prefill"](params, {"tokens": run["prompts"]})
+    ref = serve_family_ref(torch, cfg, run)
+    ref["caches"] = ssm_caches(tmodel, cache, cfg)
+    return ref
+
+
+def ssm_training(torch, dev, seed: int, zero_counts, counted, arch: str,
+                 label: str, route_names=(), capture=(), kernel=None,
+                 records=None) -> dict:
+    """Phase 17d (Mamba2) and 17e (Hymba): see the module docstring.  With
+    attention (Hymba) the gradients are held kernel vs mixed route and in
+    fp32 kernel vs plain route, not kernel vs plain in bf16: there the
+    forward's bf16 rounding alone moves layer 0's gradients past ROUTE_TOL
+    (mixed vs plain 0.0647 on batch 0 of a first card run, with the
+    backward kernel's share 0.023 and fp32 kernel vs plain 1e-5).  With
+    ``kernel``, the backward kernel's row at a (2, 2) rank's shard of the
+    first captured flash module (row 5bhr)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    full = get_config(arch)
+    layers = ssm_train_layers(full)
     held = {}
 
     def before_opt(params, cfg, batches):
@@ -4481,6 +4634,11 @@ def ssm_training(torch, dev, seed: int, zero_counts, counted, arch: str,
         capture=capture, hold_plain=False, fp32_route=bool(route_names),
         before_opt=before_opt)
     out = dict(run["record"], ssd_grad_check=held["ssd"])
+    if kernel is not None and capture:
+        flash_bwd_row(torch, attention, kernel, records, HYBRID_RANK,
+                      run["captured"][next(iter(dict(capture)))], None,
+                      out["launches"]["flash_attention_bwd"],
+                      batch=SSM_TRAIN_BATCH // 2)
     print(json.dumps({f"{label.split()[0]}_train_path": out}))
     del run
     gc.collect()
@@ -5722,11 +5880,11 @@ def host_top(torch, fn, n: int = 6) -> list:
 
 
 def serve_rank(args) -> int:
-    """One rank of phase 20, 21 or 22 (``--serve-rank``): joins the NCCL
-    group of ``--serve-world`` ranks, one a card, sets the ``serve_tp``
-    rules and runs each of ``--serve-jobs`` in turn (:func:`serve_job`,
-    :func:`family_job` for phase 21's kinds, :func:`sp_job` for phase
-    22's); every rank writes its records to
+    """One rank of phase 20, 21, 22 or 23 (``--serve-rank``): joins the
+    NCCL group of ``--serve-world`` ranks, one a card, sets the
+    ``serve_tp`` rules and runs each of ``--serve-jobs`` in turn
+    (:func:`serve_job`, :func:`family_job` for phase 21's and 23's kinds,
+    :func:`sp_job` for phase 22's); every rank writes its records to
     ``--serve-work``/serve-rank<r>.json after each job."""
     import torch
     import torch.distributed as dist
@@ -5828,7 +5986,26 @@ FAMILY_GRADS = {"mt": ("layers.0.wq", "layers.0.wk", "layers.0.wv",
                        "layers.0.moe_w_in", "layers.0.moe_w_gate",
                        "layers.0.moe_w_out"),
                 "wt": ("enc_layers.0.enc_wq", "layers.0.wq",
-                       "layers.0.xattn_wq")}
+                       "layers.0.xattn_wq"),
+                "st": ("layers.0.ssm_in_proj", "layers.0.ssm_conv_w",
+                       "layers.0.ssm_A_log", "layers.0.ssm_out_proj"),
+                "ht": ("layers.0.wq", "layers.0.wk", "layers.0.wv",
+                       "layers.0.ssm_in_proj", "layers.0.ssm_conv_w",
+                       "layers.0.ssm_out_proj")}
+#: the model of each job kind of phases 21 and 23
+FAMILY_ARCH = {"ms": MOE_ARCH, "mt": MOE_ARCH, "ws": ENCDEC_ARCH,
+               "wt": ENCDEC_ARCH, "ss": SSM_ARCH, "st": SSM_ARCH,
+               "hs": HYBRID_ARCH, "ht": HYBRID_ARCH}
+#: phase 23's kinds: on one card bit for bit the unsharded runs' (logits,
+#: ids, caches, the loss and gradients)
+EXACT_ON_ONE = ("ss", "hs", "st", "ht")
+#: phase 23 across cards: layer 0's conv and SSM caches within this share
+#: of their largest magnitude (read up to 0.0046 of it on four cards, one
+#: bf16 step; deeper layers carry the route noise on, and keep
+#: LOGIT_TOL's), and the fp32 gradients within this L2 share (read
+#: 1.8e-5 to 4.3e-5): far below what a wrong split or reduction moves
+SSM_LAYER0_CACHE_TOL = 1 / 64
+SSM_FP32_GRAD_TOL = 1e-3
 #: the heads (query, KV) of one (1, 4) rank's shard: the per-rank rows of
 #: 16a/17c (Qwen2-MoE, 16 of 16) and 17a/17b (Whisper's encoder, 12 of 12)
 RANK_HEADS = {"moe": (4, 4), "whisper": (3, 3)}
@@ -5889,6 +6066,40 @@ def drops_by_factor(torch, tmoe, tmodel, params, cfg, batch) -> dict:
         finally:
             for layer, c in zip(params.layers, saved):
                 layer.cfg = c
+    return out
+
+
+def cache_layers(cfg) -> list:
+    """The layers whose SSM caches phase 23 holds: the first, the middle
+    and the last."""
+    return sorted({0, cfg.num_layers // 2, cfg.num_layers - 1})
+
+
+def ssm_caches(tmodel, cache: dict, cfg) -> dict:
+    """The ``conv`` and ``ssm`` caches of :func:`cache_layers`, whole (a
+    DTensor's gathered: every rank calls this), on the host."""
+    return {f"{nm} {i}": tmodel.full_tensor(cache[nm][i]).cpu()
+            for nm in ("conv", "ssm") for i in cache_layers(cfg)}
+
+
+def held_caches(torch, got: dict, want: dict, label: str, exact: bool
+                ) -> dict:
+    """A sharded run's SSM caches (:func:`ssm_caches`) against the
+    unsharded run's: each within LOGIT_TOL's bf16 share of its largest
+    magnitude (layer 0's within SSM_LAYER0_CACHE_TOL's), and with
+    ``exact`` (one card) bit for bit."""
+    out = {}
+    for k, w in want.items():
+        err = max_abs_err(got[k].float(), w.float())
+        frac = (SSM_LAYER0_CACHE_TOL if k.endswith(" 0")
+                else LOGIT_TOL["bfloat16"])
+        out[k] = {"err": err, "tol": frac * float(w.float().abs().max()),
+                  "bit_identical": bits_equal(torch, got[k], w)}
+    bad = {k: v for k, v in out.items() if not v["err"] <= v["tol"]
+           or exact and not v["bit_identical"]}
+    if bad:
+        raise SystemExit(f"{label}: the SSM caches differ from the "
+                         f"unsharded run's{' bits' if exact else ''}: {bad}")
     return out
 
 
@@ -5978,11 +6189,14 @@ def flash_fwd_row(torch, attention, kernel, label: str, captured,
 
 
 def flash_bwd_row(torch, attention, kernel, records: list, label: str,
-                  c: dict, heads, count: int) -> None:
+                  c: dict, heads, count: int, batch: int | None = None
+                  ) -> None:
     """The backward kernel's record at a flash module's first training
     call (``c``: its q, k, v, mask and the out's gradient, brought to unit
-    RMS: exact), cut to ``heads`` (query, KV) unless None, beside its
-    plain version, SDPA's backward and its bound."""
+    RMS: exact), cut to ``heads`` (query, KV) unless None and to the first
+    ``batch`` rows unless None, under the call's window, beside its plain
+    version, SDPA's backward (under the window's boolean mask) and its
+    bound (allowed pairs x 4 hd flops a head, 2.5 x that)."""
     from torch_checks import bwd_tol, unit_rms
     cq, ck, cv = c["qkv"]
     dout = c["dout"]
@@ -5990,29 +6204,41 @@ def flash_bwd_row(torch, attention, kernel, records: list, label: str,
         h, kv = heads
         cq, ck, cv, dout = (t[:, :, :n].contiguous() for t, n in zip(
             (cq, ck, cv, dout), (h, kv, kv, h)))
-    causal = c["mask"]["causal"]
+    if batch is not None:
+        cq, ck, cv, dout = (t[:batch].contiguous()
+                            for t in (cq, ck, cv, dout))
+    causal, window = c["mask"]["causal"], c["mask"].get("window")
     udout = unit_rms(dout)
     out, lse = attention.flash_attention_fwd(cq, ck, cv, causal=causal,
-                                             return_lse=True)
+                                             window=window, return_lse=True)
     B_, Sq, H_, hd_ = cq.shape
     Skv = ck.shape[1]
     want = attention.flash_attention_bwd_plain(cq, ck, cv, out, lse, udout,
-                                               causal=causal)
+                                               causal=causal, window=window)
     sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (cq, ck, cv))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    so = sdpa(sq, sk, sv, is_causal=causal,
-              **({"enable_gqa": True} if H_ != ck.shape[2] else {}))
+    gqa = {"enable_gqa": True} if H_ != ck.shape[2] else {}
+    if window is None:
+        so = sdpa(sq, sk, sv, is_causal=causal, **gqa)
+        fwd_ops = (2 * Sq * (Sq + 1) if causal else 4 * Sq * Skv) * hd_ \
+            * B_ * H_
+    else:
+        keep = attention.allowed(Sq, Skv, causal=causal, window=window,
+                                 device=cq.device)
+        so = sdpa(sq, sk, sv, attn_mask=keep, **gqa)
+        fwd_ops = 4 * int(keep.sum()) * hd_ * B_ * H_
     sdo = udout.transpose(1, 2).contiguous()
-    fwd_ops = (2 * Sq * (Sq + 1) if causal else 4 * Sq * Skv) * hd_ * B_ * H_
     kernel(f"flash_attention_bwd {label}", "attention.cu",
            "src/repro/models/flash.py:262",
            f"q {tuple(cq.shape)}, k/v {tuple(ck.shape)}, "
-           f"{'causal' if causal else 'bidirectional'}, bf16",
+           f"{'causal' if causal else 'bidirectional'}"
+           f"{f', window {window}' if window else ''}, bf16",
            lambda: attention.flash_attention_bwd(cq, ck, cv, out, lse,
-                                                 udout, causal=causal),
+                                                 udout, causal=causal,
+                                                 window=window),
            lambda: attention.flash_attention_bwd_plain(
-               cq, ck, cv, out, lse, udout, causal=causal),
+               cq, ck, cv, out, lse, udout, causal=causal, window=window),
            2 * (4 * cq.numel() + 4 * ck.numel()) + 4 * lse.numel(),
            2.5 * fwd_ops, 10, count=count,
            tol=[bwd_tol(w, torch.bfloat16) for w in want],
@@ -6086,6 +6312,64 @@ def family_references(torch, dev, seed: int, zero_counts, counted) -> dict:
     return refs
 
 
+def ssm_references(torch, dev, seed: int, zero_counts, counted) -> dict:
+    """Phase 23's references, unsharded on this card: 16b's and 16c's
+    serving cells (``family_serving``, :func:`ssm_serve_ref`), and 17d's
+    and 17e's first batch's loss and gradients (``train_family_ref``) and
+    TRAIN_TIMED timed steps after a first, at the published depths
+    (:func:`ssm_train_layers`) with 4 cards or more, else at
+    SSM_ONE_CARD_LAYERS."""
+    cut = None if torch.cuda.device_count() >= 4 else SSM_ONE_CARD_LAYERS
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.train.step import TrainConfig, make_train_step
+    refs = {}
+    for kind, arch, label in (("ss", SSM_ARCH, "23a ssm lm reference"),
+                              ("hs", HYBRID_ARCH,
+                               "23b hybrid lm reference")):
+        run = family_serving(torch, dev, seed, zero_counts, counted, arch,
+                             lambda cfg: (), label, layers=cut)
+        refs[kind] = ssm_serve_ref(torch, tmodel, run)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kind, arch in (("st", SSM_ARCH), ("ht", HYBRID_ARCH)):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, remat="full",
+                                  num_layers=cut or ssm_train_layers(full))
+        torch.cuda.reset_peak_memory_stats()
+        params = tmodel.init_params(cfg, seed=seed, device=dev,
+                                    dtype=torch.float32)
+        b0 = family_batch(torch, dev, cfg, seed, 0, SSM_TRAIN_BATCH,
+                          FAMILY_TRAIN_SEQ)
+        ref = train_family_ref(torch, tmodel, tmoe, params, cfg, b0,
+                               FAMILY_GRADS[kind])
+        ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=100)
+        opt = init_opt_state(params, ocfg)
+        step = make_train_step(cfg, TrainConfig(ocfg))
+        params, opt, m = step(params, opt, b0)
+        times = []
+        for _ in range(TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b0)
+            float(m["loss"])
+            times.append(time.perf_counter() - t0)
+        ref.update(step_ms=statistics.median(times) * 1e3,
+                   peak=torch.cuda.max_memory_allocated())
+        print(f"ssm reference {kind}: {cfg.name} at {cfg.num_layers} layers "
+              f"unsharded, loss {ref['bfloat16']['loss']} (fp32 "
+              f"{ref['float32']['loss']}), step {ref['step_ms']} ms (median "
+              f"of {TRAIN_TIMED}), peak {ref['peak']} bytes")
+        refs[kind] = ref
+        del params, opt, m, step, b0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
 def train_state_bytes(cfg, mesh) -> int:
     """Per-card bytes of fp32 parameters, gradients and both AdamW moments
     (4 x the parameters' ``shard_bytes``) under the calling thread's rules
@@ -6106,12 +6390,14 @@ def flips_of(torch, got: list, want: list) -> list:
 
 
 def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
-                     ref: dict, label: str) -> dict:
-    """Phase 21a (``ms``, Qwen2-MoE-A2.7B) or b (``ws``, Whisper-small) on
-    this rank under ``serve_tp``: the allocator's bytes against the dry
-    run's, the counted greedy run, the routing's flips (MoE), prefill and
-    decode timed and profiled, the logits and ids held against 16a's or
-    17a's (bit for bit on one card)."""
+                     ref: dict, label: str, layers: int = 0) -> dict:
+    """Phase 21a (``ms``, Qwen2-MoE-A2.7B), 21b (``ws``, Whisper-small),
+    23a (``ss``, Mamba2-2.7B) or 23b (``hs``, Hymba-1.5B) on this rank
+    under ``serve_tp``: the allocator's bytes against the dry run's, the
+    counted greedy run, the routing's flips (MoE), prefill and decode
+    timed and profiled, the logits and ids (and the SSM's conv and state
+    caches after the prefill, :func:`held_caches`) held against 16a's,
+    17a's, 16b's or 16c's (bit for bit on one card)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention
     from repro_torch.launch import dryrun
@@ -6119,7 +6405,9 @@ def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
     from repro_torch.models import model as tmodel
     from repro_torch.models import moe as tmoe
     from repro_torch.serve import step as tstep
-    cfg = get_config(MOE_ARCH if kind == "ms" else ENCDEC_ARCH)
+    cfg = get_config(FAMILY_ARCH[kind])
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     prompts = ref["prompts"].to(dev)
     extra = {"frames": ref["frames"].to(dev)} if cfg.enc_dec else {}
     B, S = prompts.shape
@@ -6182,6 +6470,9 @@ def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
     logits, cache = prefill(params, inputs)
     torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    if "caches" in ref:
+        out["caches"] = held_caches(torch, ssm_caches(tmodel, cache, cfg),
+                                    ref["caches"], label, mesh.size == 1)
     last = logits.full_tensor()[:, -1, :cfg.vocab_size].float()
     toks = [last.argmax(-1)]
     t0 = time.perf_counter()
@@ -6223,15 +6514,20 @@ def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
 
 def family_train_checks(torch, tmodel, tmoe, params, cfg, batch: dict,
                         kind: str, ref: dict, mesh, label: str) -> dict:
-    """21c/d at the phase-17 cell's depth: two bf16 runs of the loss and
-    backward bit-identical; the loss within MESH_TOL and layer 0's
-    gradients within its L2 bound of phase 17's, in bf16 and in fp32;
-    in bf16 an expert weight's gradient is held only when no layer
-    routed otherwise than phase 17 did (a flip moves a token between
-    experts and, past the capacity, the tokens after it), printed
-    always; the MoE's drops at both capacity factors (fp32) equal to
-    17c's wherever every layer up to that one routed as 17c did (on one
-    card: every layer)."""
+    """21c/d and 23c/d at the reference's depth: two bf16 runs of the
+    loss and backward bit-identical; the loss within MESH_TOL and layer
+    0's gradients within its L2 bound of the unsharded run's, in bf16 and
+    in fp32; in bf16 an expert weight's gradient is held only when no
+    layer routed otherwise than 17c did (a flip moves a token between
+    experts and, past the capacity, the tokens after it), and in phase 23
+    a gradient only where the unsharded run's own bf16 gradient lies
+    within the bound of its fp32 one (``bf16_noise``: Hymba's forward
+    kernel's bf16 rounding alone moved 17e's by 0.0647), printed always,
+    and its fp32 gradients within SSM_FP32_GRAD_TOL;
+    for phase 23 on one card the loss and gradients in both dtypes the
+    unsharded run's bit for bit; the MoE's drops at both capacity factors
+    (fp32) equal to 17c's wherever every layer up to that one routed as
+    17c did (on one card: every layer)."""
     names = FAMILY_GRADS[kind]
     runs = [loss_and_grads(torch, tmodel, tmoe, params, cfg, batch, names,
                            torch.bfloat16, keep_local=True) for _ in (0, 1)]
@@ -6245,6 +6541,13 @@ def family_train_checks(torch, tmodel, tmoe, params, cfg, batch: dict,
            "loss": got["bfloat16"]["loss"],
            "ref_loss": ref["bfloat16"]["loss"]}
     bad = [] if same else ["two bf16 runs differ"]
+    exact = mesh.size == 1 and kind in EXACT_ON_ONE
+    out["bit_identical_to_reference"] = {}
+    # the unsharded run's own bf16 rounding: its bf16 gradients against its
+    # fp32 ones
+    out["bf16_noise"] = noise = {n: float(
+        (ref["bfloat16"]["grads"][n] - ref["float32"]["grads"][n]).norm()
+        / ref["float32"]["grads"][n].norm()) for n in names}
     for dt, g in got.items():
         w = ref[dt]
         flips = flips_of(torch, g["experts"], w["experts"])
@@ -6253,10 +6556,23 @@ def family_train_checks(torch, tmodel, tmoe, params, cfg, batch: dict,
             err[n] = float((g["grads"][n] - w["grads"][n]).norm()
                            / w["grads"][n].norm())
         out["errors"][dt], out["route_flips"][dt] = err, flips
-        held = [n for n in err if n == "loss" or ".moe_w_" not in n
-                or dt == "float32" or not any(flips)]
-        bad += [f"{dt} {n} {err[n]}" for n in held if err[n] > MESH_TOL[
-            "loss" if n == "loss" else "grad"]]
+        # bf16: an expert weight only where no routing flipped; in phase
+        # 23 a gradient only where the unsharded run's own bf16 rounding
+        # stays within the tolerance (a rounding order of its own moves
+        # it that far)
+        held = [n for n in err if n == "loss" or dt == "float32" or (
+            ".moe_w_" not in n or not any(flips)) and (
+            kind not in EXACT_ON_ONE or noise[n] <= MESH_TOL["grad"])]
+        grad_tol = (SSM_FP32_GRAD_TOL if kind in EXACT_ON_ONE
+                    and dt == "float32" else MESH_TOL["grad"])
+        bad += [f"{dt} {n} {err[n]}" for n in held if err[n] > (
+            MESH_TOL["loss"] if n == "loss" else grad_tol)]
+        same_bits = g["loss"] == w["loss"] and all(
+            bits_equal(torch, g["grads"][n], w["grads"][n]) for n in names)
+        out["bit_identical_to_reference"][dt] = same_bits
+        if exact and not same_bits:
+            bad.append(f"{dt}: on one card the loss and gradients must be "
+                       f"the unsharded run's bit for bit")
     if cfg.moe is not None:
         routing = drops_by_factor(torch, tmoe, tmodel, params, cfg, batch)
         out["drops"] = {}
@@ -6295,7 +6611,7 @@ def family_train_job(torch, dev, kind: str, shape: tuple, mesh,
     from repro_torch.train.loop import distribute_batch
     from repro_torch.train.step import TrainConfig, make_train_step
     set_rules(DEFAULT_RULES)
-    full = get_config(MOE_ARCH if kind == "mt" else ENCDEC_ARCH)
+    full = get_config(FAMILY_ARCH[kind])
     cfg = dataclasses.replace(full, remat="full",
                               num_layers=layers or full.num_layers)
     out = {"layers": cfg.num_layers, "reckoned_state_bytes":
@@ -6358,22 +6674,24 @@ def family_train_job(torch, dev, kind: str, shape: tuple, mesh,
 
 
 def family_job(torch, dev, job: str, seed: int, refs: dict) -> dict:
-    """One phase-21 job on this rank: ``kind:DxM[:layers]`` (ms, ws:
-    serving; mt, wt: training) on the (D, M) device mesh."""
+    """One phase-21 or phase-23 job on this rank: ``kind:DxM[:layers]``
+    (ms, ws, ss, hs: serving; mt, wt, st, ht: training) on the (D, M)
+    device mesh."""
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.parallel.sharding import get_rules, set_rules
     kind, shape_s, *rest = job.split(":")
     shape = tuple(int(x) for x in shape_s.split("x"))
     mesh = make_device_mesh(shape, ("data", "model"), dev)
-    label = f"21{FAMILY_JOBS[kind]} {job}"
+    label = f"{FAMILY_JOBS[kind]} {job}"
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     rules = get_rules()
     try:
-        if kind in ("ms", "ws"):
+        if kind in ("ms", "ws", "ss", "hs"):
             out = family_serve_job(torch, dev, kind, shape, mesh, seed,
-                                   refs[kind], label)
+                                   refs[kind], label,
+                                   int(rest[0]) if rest else 0)
         else:
             out = family_train_job(torch, dev, kind, shape, mesh,
                                    int(rest[0]) if rest else 0, seed,
@@ -6387,16 +6705,20 @@ def family_job(torch, dev, job: str, seed: int, refs: dict) -> dict:
     return out
 
 
-#: phase 21's job kinds, by the letter of their part of the phase
-FAMILY_JOBS = {"ms": "a", "ws": "b", "mt": "c", "wt": "d"}
+#: the job kinds of phases 21 and 23, by their part of the phase
+FAMILY_JOBS = {"ms": "21a", "ws": "21b", "mt": "21c", "wt": "21d",
+               "ss": "23a", "hs": "23b", "st": "23c", "ht": "23d"}
 
 
-def families_across_cards(torch, seed: int, refs: dict, records: list,
-                          t_phase: float) -> dict:
-    """Phase 21 (see the module docstring): the MoE and the
-    encoder-decoder served and trained on device meshes, one NCCL rank a
-    card (``--serve-rank`` with phase 21's jobs)."""
-    n = torch.cuda.device_count()
+def family_jobs(phase: int, n: int) -> list:
+    """Phase 21's or 23's jobs on ``n`` cards."""
+    if phase == 23:
+        if n >= 4:
+            return [f"ss:1x{n}", f"hs:1x{n}", f"hs:{n // 2}x2",
+                    f"st:{n // 2}x2", f"ht:{n // 2}x2"]
+        cut = f":{SSM_ONE_CARD_LAYERS}"
+        return [f"ss:1x{n}{cut}", f"hs:1x{n}{cut}", f"st:{n}x1{cut}",
+                f"ht:{n}x1{cut}"]
     jobs = [f"ms:1x{n}", f"ws:1x{n}"]
     if n >= 4:
         jobs += [f"ms:{n // 2}x2", f"ws:{n // 2}x2"]
@@ -6406,8 +6728,20 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
     jobs.append(f"wt:{n}x1")
     if n >= 4:
         jobs.append(f"wt:{n // 2}x2")
-    print(f"families mesh: {n} card(s), one NCCL rank a card; jobs {jobs}")
-    work = tempfile.mkdtemp(prefix="chip_smoke_families-")
+    return jobs
+
+
+def families_across_cards(torch, seed: int, refs: dict, records: list,
+                          t_phase: float, phase: int = 21) -> dict:
+    """Phase 21 or 23 (see the module docstring): the MoE and the
+    encoder-decoder, or the SSM and hybrid families, served and trained
+    on device meshes, one NCCL rank a card (``--serve-rank`` with the
+    phase's jobs, :func:`family_jobs`)."""
+    n = torch.cuda.device_count()
+    jobs = family_jobs(phase, n)
+    what = "families" if phase == 21 else "ssm"
+    print(f"{what} mesh: {n} card(s), one NCCL rank a card; jobs {jobs}")
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{what}-")
     atexit.register(shutil.rmtree, work, True)
     torch.save(refs, os.path.join(work, "serve_refs.pt"))
     t0 = time.perf_counter()
@@ -6415,12 +6749,12 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
     try:
         wait_processes(start_processes([_serve_cmd(r, n, port, work, jobs,
                                                    seed) for r in range(n)]),
-                       "21", timeout=1500)
+                       str(phase), timeout=1500)
     except SystemExit:
         rank0 = os.path.join(work, "serve-rank0.json")
         if os.path.exists(rank0):           # the jobs rank 0 finished
             with open(rank0) as f:
-                print(json.dumps({"families_mesh_done": json.load(f)}))
+                print(json.dumps({f"{what}_mesh_done": json.load(f)}))
         raise
     wall = time.perf_counter() - t0
     ranks = []
@@ -6433,8 +6767,8 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
         ref = refs[kind]
         per_rank = (f"per rank peak {[rk[i]['peak_bytes'] for rk in ranks]},"
                     f" allocated {[rk[i]['allocated_bytes'] for rk in ranks]}")
-        if kind in ("ms", "ws"):
-            print(f"21{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
+        if kind in ("ms", "ws", "ss", "hs"):
+            print(f"{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
                   f"({a['card']}): {a['launches']} flash launches in one "
                   f"greedy run on each rank "
                   f"{[rk[i]['launches'] for rk in ranks]}, no plain "
@@ -6448,6 +6782,8 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
                   + (f"routings that differ from one card's per layer "
                      f"{a['route_flips']}, drops {a['dropped']}; "
                      if kind == "ms" else "")
+                  + (f"SSM caches after the prefill {a['caches']}; "
+                     if "caches" in a else "")
                   + f"peak {a['peak_bytes']} bytes on rank 0 against "
                   f"{ref['peak']}; {per_rank}; bytes against the dry run "
                   f"{a['bytes']}; rank 0's card busy / idle share: prefill "
@@ -6457,16 +6793,23 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
                   f"{a['profile']['decode']['idle_share']}; job "
                   f"{a['job_s']} s [{CARD['smi']}]")
         else:
+            fp32_tol = (f", fp32 gradients {SSM_FP32_GRAD_TOL}"
+                        if kind in EXACT_ON_ONE else "")
             held = (f"loss {a['loss']} against phase 17's {a['ref_loss']}, "
                     f"relative differences by compute dtype {a['errors']} "
-                    f"(tolerances {MESH_TOL}), routings that differ from "
+                    f"(tolerances {MESH_TOL}{fp32_tol}), routings that "
+                    f"differ from "
                     f"phase 17's per layer {a['route_flips']}, two bf16 "
-                    f"runs bit-identical {a['bit_identical']}; "
+                    f"runs bit-identical {a['bit_identical']}, bit-identical"
+                    f" to phase 17's by dtype "
+                    f"{a['bit_identical_to_reference']}, phase 17's own "
+                    f"bf16 against fp32 gradients {a['bf16_noise']} (bf16 "
+                    f"held where that is within the bound); "
                     if "loss" in a else
                     "no phase-17 reference at this depth; ")
             drops = (f"drops (fp32) by capacity factor {a['drops']}; "
                      if "drops" in a else "")
-            print(f"21{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
+            print(f"{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
                   f"({a['card']}), {a['layers']} layers: {held}{drops}"
                   f"launches a step {a['launches']}, no plain attention; "
                   f"losses {a['losses']}; step {a['step_ms']} ms (median "
@@ -6479,17 +6822,31 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
                   f"share over a step {a['profile']['busy_ms']} ms / "
                   f"{a['profile']['idle_share']}; job {a['job_s']} s "
                   f"[{CARD['smi']}]")
-    serve0 = ranks[0][0]["launches"]
-    train0 = ranks[0][jobs.index(f"mt:{n}x1:{MOE_TRAIN_LAYERS}")]["launches"]
-    for r in records:
-        if r["name"].startswith("flash_attention_fwd moe"):
-            r["family_mesh_launches"] = serve0
-        if r["name"].startswith("flash_attention_bwd moe"):
-            r["family_mesh_launches"] = train0["flash_attention_bwd"]
+    if phase == 21:
+        serve0 = ranks[0][0]["launches"]
+        train0 = ranks[0][jobs.index(f"mt:{n}x1:{MOE_TRAIN_LAYERS}")][
+            "launches"]
+        for r in records:
+            if r["name"].startswith("flash_attention_fwd moe"):
+                r["family_mesh_launches"] = serve0
+            if r["name"].startswith("flash_attention_bwd moe"):
+                r["family_mesh_launches"] = train0["flash_attention_bwd"]
+    else:
+        # rows 5hr and 5bhr: a rank's launches in Hymba's last serving job
+        # and in its training job
+        serve0 = ranks[0][max(i for i, j in enumerate(jobs)
+                              if j.startswith("hs:"))]["launches"]
+        train0 = ranks[0][jobs.index(next(j for j in jobs if j.startswith(
+            "ht:")))]["launches"]
+        for r in records:
+            if r["name"] == f"flash_attention_fwd {HYBRID_RANK}":
+                r["ssm_mesh_launches"] = serve0
+            if r["name"] == f"flash_attention_bwd {HYBRID_RANK}":
+                r["ssm_mesh_launches"] = train0["flash_attention_bwd"]
     out = {"cards": n, "jobs": jobs, "ranks": ranks, "wall_s": wall,
            "phase_s": time.perf_counter() - t_phase}
-    print(json.dumps({"families_mesh_path": out}))
-    print(f"phase 21 took {out['phase_s']} s ({wall} s of ranks)")
+    print(json.dumps({f"{what}_mesh_path": out}))
+    print(f"phase {phase} took {out['phase_s']} s ({wall} s of ranks)")
     return out
 
 
@@ -7032,10 +7389,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-only", action="store_true",
-                    help="phase 1, then phases 19-22 beside their "
+                    help="phase 1, then phases 19-23 beside their "
                     "unsharded references (for a run on several cards)")
-    ap.add_argument("--mesh-phases", default="19,20,21,22",
-                    help="with --mesh-only: which of phases 19-22 to run "
+    ap.add_argument("--mesh-phases", default="19,20,21,22,23",
+                    help="with --mesh-only: which of phases 19-23 to run "
                     "(comma-separated)")
     args = ap.parse_args()
 
@@ -7123,8 +7480,8 @@ def main() -> int:
 
     if args.mesh_only:
         phases = {int(p) for p in args.mesh_phases.split(",")}
-        if not phases or not phases <= {19, 20, 21, 22}:
-            raise SystemExit(f"--mesh-phases: want some of 19-22, got "
+        if not phases or not phases <= {19, 20, 21, 22, 23}:
+            raise SystemExit(f"--mesh-phases: want some of 19-23, got "
                              f"{args.mesh_phases}")
         train_rec = (mesh_reference(torch, dev, args.seed)
                      if phases & {19, 22} else None)
@@ -7149,6 +7506,12 @@ def main() -> int:
         if 22 in phases:
             sequence_parallel(torch, dev, args.seed, zero_counts, counted,
                               None, train_rec["mesh_reference"], [])
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 23 in phases:
+            t23 = time.perf_counter()
+            families_across_cards(torch, args.seed, ssm_references(
+                torch, dev, args.seed, zero_counts, counted), [], t23, 23)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7349,7 +7712,10 @@ def main() -> int:
         print(f"check flash_attention_fwd {dt} hd={hd}: "
               f"{len(seqs) * len(groups) * 2} ragged cases within the {check} "
               f"tolerance, worst err/tol {ratio} at {case}")
-    # the profiler must see the kernel the C entry picks
+    # the C entry must launch the kernel of its route once and no other
+    # (its count at the launch site); the profiler must see no other flash
+    # kernel either (it loses records, PERF.md section 7: what it saw of
+    # the route's own is printed)
     for dt, hd, want in ((torch.bfloat16, 128, "flash_fwd_wgmma"),
                          (torch.bfloat16, 256, "flash_fwd_wgmma"),
                          (torch.float32, 128, "flash_fwd_kernel"),
@@ -7359,16 +7725,20 @@ def main() -> int:
                       for heads in (8, 2, 2))
         for _ in range(3):              # the profiler now and then misses
             seen = {}                   # the launch
-            device_profile(torch, lambda: attention.flash_attention_fwd(
-                fq, fk, fv, causal=True), 1, seen)
+            _, launched = route_launches(torch, attention, lambda: (
+                device_profile(torch, lambda: attention.flash_attention_fwd(
+                    fq, fk, fv, causal=True), 1, seen)))
             if launches_named(seen, "flash_fwd"):
                 break
-        if launches_named(seen, want) != 1 or launches_named(
-                seen, "flash_fwd") != 1:
-            raise SystemExit(f"flash_attention_fwd {dt} hd={hd}: profiler saw "
-                             f"{seen}, want one {want} launch")
-        print(f"check flash_attention_fwd {dt} hd={hd}: the profiler saw one "
-              f"{want} launch")
+        if (launched != {n: int(n == want) for n in attention.KERNELS}
+                or launches_named(seen, "flash_fwd") > launches_named(
+                    seen, want) or launches_named(seen, want) > 1):
+            raise SystemExit(f"flash_attention_fwd {dt} hd={hd}: the C entry "
+                             f"launched {launched}, the profiler saw {seen}; "
+                             f"want one {want} launch and no other")
+        print(f"check flash_attention_fwd {dt} hd={hd}: the C entry launched "
+              f"one {want}; the profiler saw {launches_named(seen, want)} of "
+              f"it and no other flash kernel")
     check_flash_backward(torch, dev, rng, attention)
     check_flash_masked(torch, dev, rng, attention)
     check_flash_encdec(torch, dev, rng, attention)
@@ -7454,7 +7824,7 @@ def main() -> int:
     records = []
 
     def kernel(name, src, line, shape_s, run, plain, nbytes, ops, reps, *,
-               count, tol=0, peak_ops=PEAK_OPS, library=None):
+               count, tol=0, peak_ops=PEAK_OPS, library=None, symbol=None):
         """Check ``run`` against ``plain`` (within ``tol``; a kernel with
         several outputs, each within its own entry of ``tol``), time both and
         ``library`` (one PyTorch call of the same function, or None), and
@@ -7464,7 +7834,8 @@ def main() -> int:
         profiler has seen part of SDPA's backward only, and a quarter of
         the backward kernel).  Without one, by the profiler's card time,
         held against the bound and, for the kernel, against back-to-back
-        events."""
+        events; with ``symbol``, the one kernel a call launches, the
+        kernel's time is its time a launch the profiler timed."""
         got, want = run(), plain()
         if not isinstance(got, (tuple, list)):
             got, want = (got,), (want,)
@@ -7482,15 +7853,28 @@ def main() -> int:
                              f"tolerances {tol}, max|plain| {want_max}")
         b_ms, b_by = bound(nbytes, ops, peak_ops)
 
-        def card_ms(fn, n, what, b2b=0.0):
-            """The profiler's card time.  A reading below the bound, or
-            below half of ``b2b`` (back-to-back events, when they exceed
-            0.1 ms, past a launch's host cost), is a partial capture: it
-            is taken again, then fails."""
+        def card_ms(fn, n, what, b2b=0.0, symbol=None):
+            """The profiler's card time, and the launches of ``symbol`` it
+            timed of the ``n``.  With ``symbol`` the kernel's part is its
+            time over the launches whose records carry a time: the
+            profiler drops records and keeps some without their time
+            (PERF.md section 7), and the count says how many it timed.
+            Without, a reading below half of ``b2b`` (back-to-back
+            events, when they exceed 0.1 ms, past a launch's host cost)
+            is a partial capture.  A reading below the bound is one too.
+            A partial capture is taken again, then fails."""
             for _ in range(3):
-                got_ms = device_profile(torch, fn, n)[1]
-                if got_ms >= b_ms and (b2b < 0.1 or got_ms >= 0.5 * b2b):
-                    return got_ms
+                timed = {}
+                got_ms = device_profile(torch, fn, n, timed=timed)[1]
+                kept = n
+                if symbol:
+                    kept = sum(c for k, (c, _) in timed.items() if symbol in k)
+                    part = sum(t for k, (_, t) in timed.items() if symbol in k)
+                    got_ms += part / kept - part / n if kept else -got_ms
+                    if got_ms >= b_ms:
+                        return got_ms, kept
+                elif got_ms >= b_ms and (b2b < 0.1 or got_ms >= 0.5 * b2b):
+                    return got_ms, kept
                 print(f"{name}: the profiler saw {got_ms} ms of {what} "
                       f"(bound {b_ms} ms, back-to-back events {b2b} ms); "
                       f"profiling again")
@@ -7499,9 +7883,11 @@ def main() -> int:
                              f"back-to-back events {b2b} ms)")
         ev_ms = event_ms(torch, run, reps)
         b2b_ms = event_ms(torch, run, reps, back_to_back=True)
+        kept = None
         if library is None:
-            ms, lib_ms = card_ms(run, reps, "the kernel", b2b_ms), None
-            plain_ms = card_ms(plain, 2, "the plain version")
+            (ms, kept), lib_ms = card_ms(run, reps, "the kernel", b2b_ms,
+                                         symbol), None
+            plain_ms = card_ms(plain, 2, "the plain version")[0]
         else:
             ms = b2b_ms
             plain_ms = event_ms(torch, plain, 2, back_to_back=True)
@@ -7516,12 +7902,14 @@ def main() -> int:
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "event_ms": ev_ms, "b2b_ms": b2b_ms,
+            "profiled_launches": None if kept is None else [kept, reps],
             "shape": shape_s, "errs": errs, "tols": list(tol),
             "want_max": want_max})
         print(f"kernel {name} at {shape_s}: errors {errs}, tolerances "
               f"{list(tol)}, max|plain| {want_max}")
         print(f"kernel {name} at {shape_s}: {ms} ms on the card "
-              f"({'back-to-back events' if library else 'profiler'}; "
+              f"({'back-to-back events' if library else 'profiler'}"
+              f"{f', {kept} of {reps} launches timed' if symbol else ''}; "
               f"{b2b_ms} ms a call back to back, {ev_ms} ms between events "
               f"around one call; plain {plain_ms} ms; library {lib_ms} ms; "
               f"bound {b_ms} ms by {b_by})")
@@ -7535,12 +7923,13 @@ def main() -> int:
            lambda: cam_match.cam_match(rec0, keys),
            lambda: cam_match.cam_match_plain(rec0, keys),
            nrec * W * 4 + M * 4 + nrec * M // 8, nrec * W * M // 32, 5,
-           count=launches["cam_match"])
+           count=launches["cam_match"], symbol="cam_match_kernel")
     kernel("bit_transpose", "bit_transpose.cu",
            "src/repro/kernels/bit_transpose.py:65", f"{tuple(rm.shape)}",
            lambda: bit_transpose.bit_transpose(rm),
            lambda: bit_transpose.bit_transpose_plain(rm),
-           2 * rm.numel() * 4, 0, 10, count=launches["bit_transpose"])
+           2 * rm.numel() * 4, 0, 10, count=launches["bit_transpose"],
+           symbol="bit_transpose_kernel")
     # On the path the planner has just gathered bitmap_query's rows, so
     # they sit in L2; a ring of copies past the L2 times it from HBM, where
     # its HBM bound holds.  The record also keeps the L2-resident time.
@@ -7552,7 +7941,7 @@ def main() -> int:
            hbm_ring(bq, qrows, qinv, l2_bytes=l2),
            hbm_ring(bq_plain, qrows, qinv, l2_bytes=l2),
            (qrows.shape[0] + 1) * nw * 4 + 8, 3 * qrows.numel(), 20,
-           count=launches["bitmap_query"])
+           count=launches["bitmap_query"], symbol="bitmap_query_kernel")
     records[-1]["l2_ms"] = device_profile(torch, lambda: bq(qrows, qinv),
                                           20)[1]
     # informational: bitmap_query on aligned rows and on views 4 bytes past
@@ -7757,27 +8146,33 @@ def main() -> int:
 
     # where the time goes: one prefill, one decode step.  The prefill must
     # launch the flash kernel once per layer (the wrapper's count), all on
-    # the tensor cores: the profiler sees flash_fwd_wgmma, never
-    # flash_fwd_kernel.
+    # the tensor cores: the C entry launches flash_fwd_wgmma alone (its
+    # count at the launch site), and the profiler never sees
+    # flash_fwd_kernel (what it saw of flash_fwd_wgmma is printed: it
+    # loses records, PERF.md section 7).
     flash_fn = attention.flash_attention_fwd
     for _ in range(3):          # the profiler now and then misses launches
         seen = {}
         flash_fn.launches = 0
+        reading, launched = route_launches(
+            torch, attention, lambda: device_profile(
+                torch, lambda: prefill(params, {"tokens": prompts}), 1, seen))
         lm_prof = {"prefill": profile(
-            f"one prefill ({LM_BATCH} x {LM_PROMPT})", *device_profile(
-                torch, lambda: prefill(params, {"tokens": prompts}), 1,
-                seen))}
+            f"one prefill ({LM_BATCH} x {LM_PROMPT})", *reading)}
         if launches_named(seen, "flash_fwd") >= cfg.num_layers:
             break
     flash_kernels = {sym: launches_named(seen, sym)
                      for sym in ("flash_fwd_wgmma", "flash_fwd_kernel")}
     print(f"lm check: the profiled prefill launched the flash wrapper "
-          f"{flash_fn.launches} times; the profiler saw {flash_kernels}")
-    if (flash_fn.launches != cfg.num_layers or flash_kernels["flash_fwd_kernel"]
-            or not flash_kernels["flash_fwd_wgmma"]):
+          f"{flash_fn.launches} times, the C entry {launched}; the profiler "
+          f"saw {flash_kernels}")
+    if (flash_fn.launches != cfg.num_layers
+            or launched != {n: cfg.num_layers * (n == "flash_fwd_wgmma")
+                            for n in attention.KERNELS}
+            or flash_kernels["flash_fwd_kernel"]):
         raise SystemExit(f"prefill: want {cfg.num_layers} flash launches, all "
-                         f"tensor-core, saw {flash_fn.launches} and "
-                         f"{flash_kernels}")
+                         f"tensor-core, saw {flash_fn.launches}, "
+                         f"{launched} and {flash_kernels}")
     lm_prof["prefill"]["flash_kernels"] = flash_kernels
     logits, cache = prefill(params, {"tokens": prompts})
     nxt = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
@@ -7880,7 +8275,8 @@ def main() -> int:
     ssm_training(torch, dev, args.seed, zero_counts, counted, HYBRID_ARCH,
                  "hybrid train", ("layers.0.wq", "layers.0.wk", "layers.0.wv"),
                  {"layer 1 (local)": lambda p: p.layers[1].attn_core,
-                  "layer 16 (global)": lambda p: p.layers[16].attn_core})
+                  "layer 16 (global)": lambda p: p.layers[16].attn_core},
+                 kernel=kernel, records=records)
     print(f"phase 17 took {time.perf_counter() - t17} s")
 
     # ---- 18. the dry run, held against the card --------------------------
@@ -7911,6 +8307,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     sequence_parallel(torch, dev, args.seed, zero_counts, counted, kernel,
                       train_rec["mesh_reference"], records)
+
+    # ---- 23. the SSM and hybrid families across cards -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    families_across_cards(torch, args.seed, ssm_references(
+        torch, dev, args.seed, zero_counts, counted), records, t23, 23)
 
     print(json.dumps({"kernels": records}))
     print(smi)

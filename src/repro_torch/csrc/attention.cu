@@ -192,13 +192,25 @@
 //   causal tiles are skipped on both sides; elements past S or above the
 //   diagonal have p = 0.  head_dim 256 takes 32 x 32 tiles to fit shared
 //   memory.
+//
+// Each launch site adds one to its kernel's entry of g_launched, which
+// flash_attention_launched reads: the route each call took, counted where
+// it launches, not inferred from its arguments.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// flash_fwd_wgmma, flash_fwd_kernel, flash_bwd_dq_wgmma,
+// flash_bwd_dkdv_wgmma, flash_bwd_dq_kernel, flash_bwd_dkdv_kernel
+enum Launched { FWD_WGMMA, FWD_KERNEL, DQ_WGMMA, DKDV_WGMMA, DQ_KERNEL,
+                DKDV_KERNEL, N_LAUNCHED };
+std::atomic<long long> g_launched[N_LAUNCHED];
 
 constexpr int BQ = 64;                 // queries per block
 constexpr int THREADS = 256;           // 16 x 16: ty owns 4 rows, tx columns
@@ -486,6 +498,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, (int)S, mk.skv,
       (int)H, (int)KV, (int)nq, mk.causal, mk.window, mk.qoff, mk.kvlen,
       (float)(1.0 / sqrt((double)HD)));
+  ++g_launched[FWD_KERNEL];
   return (int)cudaGetLastError();
 }
 
@@ -1110,6 +1123,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
       tq, tk, tv, (__nv_bfloat16*)o, lse, (int)S, (int)H, (int)KV,
       (int)(B * H), (int)nq, mk.causal, mk.window, mk.qoff, mk.kvlen,
       scale_log2);
+  ++g_launched[FWD_WGMMA];
   return (int)cudaGetLastError();
 }
 
@@ -1447,11 +1461,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, lse,
       (const T*)dout, (T*)dq, delta, (int)S, (int)H, (int)KV, (int)nt, mk,
       scale);
+  ++g_launched[DQ_KERNEL];
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kkv<<<(unsigned)(B * KV * nkt), THREADS, smem_kv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, lse, delta, (const T*)dout,
       (T*)dk, (T*)dv, (int)S, (int)H, (int)KV, (int)nkt, mk, scale);
+  ++g_launched[DKDV_KERNEL];
   return (int)cudaGetLastError();
 }
 
@@ -2092,16 +2108,26 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
       tq, tdo, tk, tv, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
       lse, (__nv_bfloat16*)dq, delta, (int)S, (int)H, (int)KV, (int)(B * H),
       (int)nq, mk, (float)scale, scale_log2);
+  ++g_launched[DQ_WGMMA];
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kkv<<<(unsigned)(B * KV * nkt), BW_THREADS, L::KV_SMEM, stream>>>(
       tk2, tv2, tq2, tdo2, lse, delta, (__nv_bfloat16*)dk,
       (__nv_bfloat16*)dv, (int)S, (int)H, (int)KV, (int)(B * KV), mk,
       (float)scale, scale_log2);
+  ++g_launched[DKDV_WGMMA];
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// out[i] = launches of kernel i (the Launched order) since the library was
+// loaded or last reset; reset != 0 sets them to 0 after the read
+extern "C" int flash_attention_launched(long long* out, long long reset) {
+  for (int i = 0; i < N_LAUNCHED; ++i)
+    out[i] = reset ? g_launched[i].exchange(0) : g_launched[i].load();
+  return 0;
+}
 
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,

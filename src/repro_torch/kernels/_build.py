@@ -47,6 +47,7 @@ SIGNATURES = {
                             (_P,) * 5 + (_I,) * 11 + (_P,)),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             (_P,) * 10 + (_I,) * 11 + (_P,)),
+    "flash_attention_launched": ("flash_attention_launched", (_P, _I)),
 }
 
 #: which source file holds each kernel
@@ -55,7 +56,8 @@ SOURCES = {"cam_match": "cam_match.cu", "bit_transpose": "bit_transpose.cu",
            "bulk_program_stacked": "bitmap_ops.cu",
            "bulk_program_plan": "bitmap_ops.cu",
            "flash_attention_fwd": "attention.cu",
-           "flash_attention_bwd": "attention.cu"}
+           "flash_attention_bwd": "attention.cu",
+           "flash_attention_launched": "attention.cu"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}       # source file -> loaded library

@@ -54,10 +54,12 @@ The forward replaces ``src/repro/kernels/attention.py::flash_attention_fwd``;
 the backward replaces the plain-JAX backward of
 ``repro.models.flash.flash_attention_vjp`` (``_flash_bwd_dense``), which is
 no TPU kernel.  The source note in the ``.cu`` file gives each kernel's
-bound and design.
+bound and design.  :func:`kernel_launches` reads the launches the C entries
+count at each kernel's launch site: which route the calls took.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -70,6 +72,22 @@ WINDOW_INF = 2 ** 30
 #: head dims the kernel is instantiated for (every config's head_dim)
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+#: the kernels of both C entries, in the order ``flash_attention_launched``
+#: reports their launches
+KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel", "flash_bwd_dq_wgmma",
+           "flash_bwd_dkdv_wgmma", "flash_bwd_dq_kernel",
+           "flash_bwd_dkdv_kernel")
+
+
+def kernel_launches(reset: bool = False) -> dict:
+    """{kernel: launches} of :data:`KERNELS` as the C entries counted them
+    where they launched each kernel in this process, since the library was
+    loaded or last reset; ``reset`` sets them to 0 after the read.  Card
+    only (it loads the kernel library)."""
+    got = (ctypes.c_longlong * len(KERNELS))()
+    _build.check(_build.library("flash_attention_launched")(got, int(reset)),
+                 "flash_attention_launched")
+    return dict(zip(KERNELS, got))
 
 
 def _model_layout(q, k, v):

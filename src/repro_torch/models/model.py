@@ -88,8 +88,18 @@ prefill still writes each process's shard of the caches.  ``seq_sharded``
 carry, sits on ("batch", "seq_sp", None); the port gathers the normed
 input whole over ``model`` before each branch's products and
 reduce-scatters each branch's output back onto the carry's rows, where
-the reference leaves both to XLA.  The SSM and hybrid blocks raise on a
-device mesh (ROADMAP A11).
+the reference leaves both to XLA.  With either option the SSM and hybrid
+blocks raise on a device mesh (ROADMAP A16).
+
+The SSM (Mamba2) and hybrid (Hymba) blocks train and serve there without
+the options: the Mamba2 mixer runs its mesh route (``models.ssm``: each
+process's columns of ``in_proj``, channels of the conv and of its cache,
+SSM heads and state, and rows of ``out_proj``, with explicit collectives),
+and Hymba averages the two branches on the mixer output's placement.  Where
+a projection's heads do not divide ``model`` (Hymba's 25 query and 5 KV
+heads) the reference's rule splits ``head_dim``; :func:`heads_in` and
+:func:`heads_out` then multiply each process's local slices, never
+flattening a split ``head_dim`` (torch 2.11's DTensor refuses that view).
 """
 from __future__ import annotations
 
@@ -318,9 +328,9 @@ class DecoderLayer(nn.Module):
         dt = x.dtype
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         x2 = x.reshape(B * S, d)
-        q = (x2 @ self.wq.to(dt).reshape(d, H * hd)).view(B, S, H, hd)
-        k = (x2 @ self.wk.to(dt).reshape(d, KV * hd)).view(B, S, KV, hd)
-        v = (x2 @ self.wv.to(dt).reshape(d, KV * hd)).view(B, S, KV, hd)
+        q = heads_in(x2, self.wq, dt).view(B, S, H, hd)
+        k = heads_in(x2, self.wk, dt).view(B, S, KV, hd)
+        v = heads_in(x2, self.wv, dt).view(B, S, KV, hd)
         if cfg.qkv_bias:
             q = q + self.bq.to(dt)
             k = k + self.bk.to(dt)
@@ -352,7 +362,7 @@ class DecoderLayer(nn.Module):
                 write_cache(cache_k, k, 0)
                 write_cache(cache_v, v, 0)
             out = _ulysses_out(cfg, out)
-        return out.reshape(B * S, H * hd) @ self.wo.to(dt).reshape(H * hd, d)
+        return heads_out(out, self.wo, dt)
 
     def _cross_attention(self, x, mode, cache, enc_out):
         """Attention of x to the encoder output, bidirectional, with no
@@ -363,8 +373,7 @@ class DecoderLayer(nn.Module):
         B, S, d = x.shape
         dt = x.dtype
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = (x.reshape(B * S, d) @ self.xattn_wq.to(dt).reshape(d, H * hd)
-             ).view(B, S, H, hd)
+        q = heads_in(x.reshape(B * S, d), self.xattn_wq, dt).view(B, S, H, hd)
         if mode == "decode":
             out = cached_decode_attention(q, None, None, cache["xk"],
                                           cache["xv"],
@@ -372,22 +381,22 @@ class DecoderLayer(nn.Module):
         else:
             F_ = enc_out.shape[1]
             e2 = enc_out.reshape(B * F_, d)
-            xk = (e2 @ self.xattn_wk.to(dt).reshape(d, KV * hd)
-                  ).view(B, F_, KV, hd)
-            xv = (e2 @ self.xattn_wv.to(dt).reshape(d, KV * hd)
-                  ).view(B, F_, KV, hd)
+            xk = heads_in(e2, self.xattn_wk, dt).view(B, F_, KV, hd)
+            xv = heads_in(e2, self.xattn_wv, dt).view(B, F_, KV, hd)
             q, xk, xv = _ulysses_in(cfg, q, xk, xv)
             out = _ulysses_out(cfg, self.xattn_core(q, xk, xv, causal=False,
                                                     train=mode == "train"))
             if mode == "prefill":
                 write_cache(cache["xk"], xk, 0)
                 write_cache(cache["xv"], xv, 0)
-        return (out.reshape(B * S, H * hd)
-                @ self.xattn_wo.to(dt).reshape(H * hd, d))
+        return heads_out(out, self.xattn_wo, dt)
 
     def _ssm(self, x, mode, cache):
         """The Mamba2 mixer; its conv and state caches written in place
-        (prefill fills them, decode steps them; training writes none)."""
+        (prefill fills them, decode steps them; training writes none).  On
+        a device mesh the mixer returns each process's shard of the new
+        states at the caches' placements, and each process writes its own
+        shard."""
         p = {n[len("ssm_"):]: t for n, t in self.named_parameters()
              if n.startswith("ssm_")}
         state = ({"conv": cache["conv"].to(x.dtype), "ssm": cache["ssm"]}
@@ -396,8 +405,12 @@ class DecoderLayer(nn.Module):
             p, x, self.cfg, mode="step" if mode == "decode" else "full",
             state=state)
         if mode != "train":
-            cache["conv"].copy_(new["conv"])
-            cache["ssm"].copy_(new["ssm"])
+            for nm in ("conv", "ssm"):
+                dst, src = cache[nm], new[nm]
+                if hasattr(dst, "device_mesh"):
+                    dst, src = dst.to_local(), src.redistribute(
+                        dst.device_mesh, dst.placements).to_local()
+                dst.copy_(src)
         return out
 
     def forward(self, x, angles, mode, cache=None, pos=0, window=None,
@@ -430,7 +443,10 @@ class DecoderLayer(nn.Module):
                                        window).view(x.shape))
         if cfg.block in ("ssm", "hybrid"):
             ssm_out = self._ssm(h, mode, cache)
-            mix = ssm_out if mix is None else mix + ssm_out
+            # both branches on the mixer output's rows, whole over the
+            # other axes (the attention's product may be a partial sum)
+            mix = ssm_out if mix is None else constrain(
+                mix, ("batch", None, "embed")) + ssm_out
         if cfg.block == "hybrid":
             mix = mix * 0.5                   # average the parallel heads
         if cfg.enc_dec:
@@ -489,6 +505,70 @@ def _ulysses_out(cfg: ModelConfig, out):
     return constrain(out, ("batch", None, "heads", "head_dim"))
 
 
+def _split_on(t, dim: int) -> bool:
+    """Whether ``t`` is a DTensor that splits its dimension ``dim`` over a
+    mesh axis of more than one device."""
+    return hasattr(t, "placements") and any(
+        p.is_shard(dim) and t.device_mesh.size(i) > 1
+        for i, p in enumerate(t.placements))
+
+
+def heads_in(x2, w, dt):
+    """x2 (T, d) projected onto the heads of ``w`` (d, N, hd): (T, N, hd)
+    in ``dt``, one product with (N, hd) flattened.  Where a DTensor ``w``
+    splits ``head_dim`` (its N heads do not divide ``model``, so the
+    reference's rule gives ``model`` to ``head_dim``) the flattened
+    dimension would be a strided shard, which DTensor refuses to make in
+    some versions (torch 2.11); there each process multiplies its rows of
+    x2 by its own (d, N, hd / m) slice flattened, under ``local_map``,
+    ``w``'s FSDP shards gathered as DTensor's product gathers them.  The
+    gradients: x2's partial over the axes that split ``head_dim``, ``w``'s
+    partial over those that split x2's rows."""
+    d, N, hd = w.shape
+    if not _split_on(w, 2):
+        return (x2 @ w.to(dt).reshape(d, N * hd)).view(x2.shape[0], N, hd)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    wp = [Shard(2) if p.is_shard(2) else Replicate() for p in w.placements]
+    xp = [Replicate() if p.is_shard() or q.is_shard(1) else q
+          for p, q in zip(wp, x2.placements)]
+    out = [p if p.is_shard() else q for p, q in zip(wp, xp)]
+    gx = [Partial() if p.is_shard() else q for p, q in zip(wp, xp)]
+    gw = [Partial() if q.is_shard(0) else p for p, q in zip(wp, xp)]
+    return local_map(
+        lambda x_, w_: (x_ @ w_.to(dt).reshape(d, -1)).view(
+            x_.shape[0], N, -1),
+        out_placements=out, in_placements=(xp, wp),
+        in_grad_placements=(gx, gw), device_mesh=w.device_mesh,
+        redistribute_inputs=True)(x2, w)
+
+
+def heads_out(o, w, dt):
+    """The output projection: ``o`` (..., N, hd), the heads' outputs, times
+    ``w`` (N, hd, d) summed over (N, hd): (T, d) in ``dt``, T the product
+    of o's leading dimensions.  Where a DTensor ``w`` splits ``head_dim``,
+    each process multiplies its local slices flattened (as
+    :func:`heads_in`) and the (T, d) partial sums are left to DTensor;
+    ``w``'s gradient is partial over the axes that split o's rows."""
+    N, hd, d = w.shape
+    T = o.numel() // (N * hd)
+    if not _split_on(w, 1):
+        return o.reshape(T, N * hd) @ w.to(dt).reshape(N * hd, d)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    wp = [Shard(1) if p.is_shard(1) else Replicate() for p in w.placements]
+    op = [Shard(o.ndim - 1) if p.is_shard() else q if q.is_shard(0)
+          else Replicate() for p, q in zip(wp, o.placements)]
+    out = [Partial() if p.is_shard() else q for p, q in zip(wp, op)]
+    gw = [Partial() if q.is_shard(0) else p for p, q in zip(wp, op)]
+    return local_map(
+        lambda o_, w_: o_.reshape(-1, o_.shape[-2] * o_.shape[-1])
+        @ w_.to(dt).reshape(-1, d),
+        out_placements=out, in_placements=(op, wp),
+        in_grad_placements=(op, gw), device_mesh=w.device_mesh,
+        redistribute_inputs=True)(o, w)
+
+
 class EncoderLayer(nn.Module):
     """One encoder layer of an encoder-decoder: RMSNorm, bidirectional
     attention (through its own ``attn_core``, so hooks see it) and ``wo``,
@@ -508,12 +588,11 @@ class EncoderLayer(nn.Module):
         dt = x.dtype
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         h = rms_norm(x, self.enc_ln1, cfg.norm_eps).reshape(B * F_, d)
-        q = (h @ self.enc_wq.to(dt).reshape(d, H * hd)).view(B, F_, H, hd)
-        k = (h @ self.enc_wk.to(dt).reshape(d, KV * hd)).view(B, F_, KV, hd)
-        v = (h @ self.enc_wv.to(dt).reshape(d, KV * hd)).view(B, F_, KV, hd)
+        q = heads_in(h, self.enc_wq, dt).view(B, F_, H, hd)
+        k = heads_in(h, self.enc_wk, dt).view(B, F_, KV, hd)
+        v = heads_in(h, self.enc_wv, dt).view(B, F_, KV, hd)
         out = self.attn_core(q, k, v, causal=False, train=train)
-        x = x + (out.reshape(B * F_, H * hd)
-                 @ self.enc_wo.to(dt).reshape(H * hd, d)).view(B, F_, d)
+        x = x + heads_out(out, self.enc_wo, dt).view(B, F_, d)
         h2 = rms_norm(x, self.enc_ln2, cfg.norm_eps)
         return x + mlp(h2, {"w_in": self.enc_w_in, "w_out": self.enc_w_out},
                        "gelu")
@@ -551,19 +630,21 @@ class Model(nn.Module):
 # ------------------------------------------------------------ construction
 def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
     """``mesh`` if it is a device mesh (a ``DistMesh``), else None (no
-    mesh, or an abstract one: nothing to place).  Raises
-    ``NotImplementedError`` on a device mesh unless ``cfg``'s block is
-    attention (the dense family, the MoE and the encoder-decoder train and
-    serve there, with ``ulysses_attn`` and ``seq_sharded`` or without): the
-    SSM and hybrid blocks are not ported, in serving or training (ROADMAP
-    A11), and nothing is replicated in their place."""
+    mesh, or an abstract one: nothing to place).  Every block trains and
+    serves on a device mesh: attention (the dense family, the MoE and the
+    encoder-decoder, with ``ulysses_attn`` and ``seq_sharded`` or
+    without), the SSM (Mamba2) and the hybrid (Hymba).  Raises
+    ``NotImplementedError`` for the SSM and hybrid blocks with either
+    sequence option (ROADMAP A16: the reference constrains the SSM
+    branch's carry too), and nothing is replicated in their place."""
     if not isinstance(mesh, DistMesh):
         return None
-    if cfg.block != "attn":
+    if cfg.block != "attn" and (cfg.ulysses_attn or cfg.seq_sharded):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.block} block on the {mesh.name} device "
-            f"mesh is not ported, in serving or training (ROADMAP A11: the "
-            f"SSM and hybrid families under a mesh)")
+            f"{cfg.name}: the {cfg.block} block with ulysses_attn or "
+            f"seq_sharded on the {mesh.name} device mesh is not ported, in "
+            f"serving or training (ROADMAP A16: the sequence options on the "
+            f"SSM and hybrid blocks)")
     return mesh
 
 

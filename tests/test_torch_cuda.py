@@ -518,6 +518,34 @@ def test_flash_backward_launches_the_named_kernels(dev):
             dtype, hd, seen)
 
 
+def test_flash_launch_counts_name_the_route(dev):
+    """The C entries count each kernel where they launch it: one call of
+    the forward adds one to the kernel the profiler tests above see, one
+    call of the backward one to each kernel of its pair, and nothing else
+    moves; a reset reads the counts and sets them to 0."""
+    rng = np.random.default_rng(7)
+    tensor = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+    cuda = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    for dtype, hd, want in ((torch.bfloat16, 128, tensor),
+                            (torch.bfloat16, 64, tensor),
+                            (torch.bfloat16, 256, tensor),
+                            (torch.float32, 128, cuda),
+                            (torch.bfloat16, 32, cuda)):
+        q, k, v, dout = flash_bwd_inputs(rng, 200, hd, 7, dtype, dev)
+        torch.cuda.synchronize()
+        tfa.kernel_launches(reset=True)
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                           return_lse=True)
+        torch.cuda.synchronize()
+        assert tfa.kernel_launches() == {
+            n: int(n == want[0]) for n in tfa.KERNELS}, (dtype, hd)
+        tfa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+        torch.cuda.synchronize()
+        assert tfa.kernel_launches(reset=True) == {
+            n: int(n in want) for n in tfa.KERNELS}, (dtype, hd)
+        assert not any(tfa.kernel_launches().values())
+
+
 def test_flash_attention_kernel_reference_layout(dev):
     rng = np.random.default_rng(3)
     q, k, v = (torch.from_numpy(rng.standard_normal((3, 300, 32))

@@ -663,17 +663,13 @@ def test_dry_run_bytes_of_qwen2_moe_at_published_width(shape):
 # ------------------------------------------------ what the slice covers
 @pytest.mark.parametrize("arch", ARCHS)
 def test_device_mesh_for_admits_every_attention_block(arch):
-    """``device_mesh_for`` returns a device mesh for every configuration
-    whose block is attention (the dense family, the MoE, the
-    encoder-decoder) and raises for the SSM and hybrid blocks, naming
-    ROADMAP A11 (no process group needed: the mesh's type decides)."""
+    """``device_mesh_for`` returns a device mesh for every configuration,
+    whatever its block: attention (the dense family, the MoE, the
+    encoder-decoder), the SSM and the hybrid (no process group needed:
+    the mesh's type decides), and None off a device mesh."""
     cfg = get_config(arch)
     mesh = tmesh.DistMesh((1,), ("data",), None, torch.device("cpu"))
-    if cfg.block == "attn":
-        assert tmodel.device_mesh_for(cfg, mesh) is mesh
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tmodel.device_mesh_for(cfg, mesh)
+    assert tmodel.device_mesh_for(cfg, mesh) is mesh
     assert tmodel.device_mesh_for(cfg, tmesh.make_production_mesh()) is None
 
 

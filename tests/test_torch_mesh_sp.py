@@ -41,7 +41,8 @@ for the same configs without the options:
 On one process, the plain flash route on q split into 4 sequence pieces,
 each at its offset against k/v whole, concatenated (dk/dv summed), is the
 unsplit route in fp32, forward and backward.  The SSM and hybrid configs
-still raise on a device mesh with either option (ROADMAP A11).
+raise on a device mesh with either option (ROADMAP A16), and without one
+are admitted.
 """
 import ast
 import os
@@ -533,12 +534,16 @@ def test_plain_flash_on_sequence_pieces_is_the_whole(mask):
 @pytest.mark.parametrize("arch", worker.UNCOVERED)
 def test_ssm_and_hybrid_still_raise_on_a_device_mesh(arch, opts):
     """``device_mesh_for`` admits the sequence options on every attention
-    family and still refuses Mamba2 and Hymba on a device mesh, with or
-    without them (no process group is needed to refuse)."""
+    family; it refuses Mamba2 and Hymba on a device mesh with either
+    option, naming ROADMAP A16, and admits them with none (no process
+    group is needed to decide)."""
     mesh = tmesh.DistMesh((1,), ("data",), None, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tmodel.device_mesh_for(worker.sp_config(arch, opts,
-                                                get_smoke_config), mesh)
+    cfg = worker.sp_config(arch, opts, get_smoke_config)
+    if opts is None:
+        assert tmodel.device_mesh_for(cfg, mesh) is mesh
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+            tmodel.device_mesh_for(cfg, mesh)
     for attn in ARCHS:
         assert tmodel.device_mesh_for(worker.sp_config(
             attn, opts, get_smoke_config), mesh) is mesh

@@ -35,7 +35,7 @@ factors.  Tolerances:
   magnitude of the reference's one-device ones, of its sharded ones times
   the factors above, and of the port's unsharded ones (the same products,
   summed across shards in another order);
-* placements, checkpoints and the uncovered configurations: exact.
+* placements and checkpoints: exact.
 
 The launcher's two-process run on the CPU ends within 1e-4 relative of its
 one-process run's final loss (bf16, as the launcher trains), and the same
@@ -139,32 +139,8 @@ print("OK")
 
 
 def _inputs(path: str) -> dict:
-    """Seeded numpy inputs: the smoke config's parameters (norm scales and
-    biases random too), a (4, 32) batch with three labels masked, and the
-    loss cases (a batch of 4, and of 3: the fallback on data = 2)."""
-    cfg = get_smoke_config("qwen2_7b")
-    rng = np.random.default_rng(7)
-    d = {}
-    for k, t in tmodel.abstract_params(cfg).items():
-        scale = 0.3 if k in tmodel.NORM_KEYS or k in ("bq", "bk", "bv") \
-            else 0.02
-        d["p/" + k] = (rng.standard_normal(tuple(t.shape)) * scale
-                       ).astype(np.float32)
-    tok = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
-    lab = np.roll(tok, -1, 1)
-    lab[0, :3] = -1
-    d["tokens"], d["labels"] = tok, lab
-    for case, B in (("even", 4), ("odd", 3)):
-        d[f"loss_{case}/x"] = rng.standard_normal((B, 40, 64)
-                                                  ).astype(np.float32)
-        d[f"loss_{case}/head"] = (rng.standard_normal((64, 512)) * 0.1
-                                  ).astype(np.float32)
-        lab = rng.integers(0, 500, (B, 40)).astype(np.int32)
-        lab[0, :5] = -1
-        d[f"loss_{case}/labels"] = lab
-    d["valid_vocab"] = np.array(500)
-    np.savez(path, **d)
-    return d
+    """Seeded numpy inputs (``torch_mesh_worker.train_inputs``)."""
+    return worker.train_inputs(path)
 
 
 @pytest.fixture(scope="module")
@@ -447,15 +423,6 @@ def test_checkpoint_written_on_2x2_restores_in_the_reference(runs):
             np.testing.assert_array_equal(
                 np.asarray(restored["opt"][mom][name]),
                 port[f"2x2/{mom}/{name}"])
-
-
-# ----------------------------------------------- what the slice leaves out
-@pytest.mark.parametrize("which", worker.UNCOVERED)
-def test_uncovered_configs_raise_on_a_device_mesh(runs, which):
-    _, _, port, _ = runs
-    msg = str(port[f"uncovered/{which}"])
-    assert "not ported, in serving or training" in msg, msg
-    assert "ROADMAP A11" in msg, msg
 
 
 def test_one_device_and_abstract_meshes_leave_tensors_alone():

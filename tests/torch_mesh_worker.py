@@ -9,9 +9,10 @@ module to find its function).  :func:`spawn` starts ``world`` processes that
 join a group through a file under a temporary directory (no TCP port, so
 test files may run side by side) and run ``fn(rank, *args)``;
 :func:`port_runs` (training), :func:`serve_runs` (serving),
-:func:`family_runs` (the MoE and the encoder-decoder, both) and
-:func:`sp_runs` (``ulysses_attn`` and ``seq_sharded``) are the programs the
-tests hold against the reference.
+:func:`family_runs` (the MoE and the encoder-decoder, both),
+:func:`sp_runs` (``ulysses_attn`` and ``seq_sharded``) and
+:func:`ssm_runs`/:func:`ssm_one` (the SSM and hybrid families) are the
+programs the tests hold against the reference.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ import torch.multiprocessing as mp
 MESHES = ((2, 2), (1, 4))
 #: the mesh a checkpoint written on (2, 2) restores on
 ELASTIC = (4, 1)
-#: the configurations that raise on a device mesh, in serving and training
-#: (the SSM and hybrid families)
+#: the SSM and hybrid configurations, which raise on a device mesh with a
+#: sequence option (``ulysses_attn``, ``seq_sharded``)
 UNCOVERED = ("mamba2_2_7b", "hymba_1_5b")
 LOSS_CHUNK = 16
 #: the smoke configurations served on a mesh: GQA whose 2 KV heads do not
@@ -122,12 +123,43 @@ def _record_constraints(calls: list):
     return undo
 
 
+def train_inputs(path: str) -> dict:
+    """Seeded numpy inputs: the smoke config's parameters (norm scales and
+    biases random too), a (4, 32) batch with three labels masked, and the
+    loss cases (a batch of 4, and of 3: the fallback on data = 2)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as tmodel
+    cfg = get_smoke_config("qwen2_7b")
+    rng = np.random.default_rng(7)
+    d = {}
+    for k, t in tmodel.abstract_params(cfg).items():
+        scale = 0.3 if k in tmodel.NORM_KEYS or k in ("bq", "bk", "bv") \
+            else 0.02
+        d["p/" + k] = (rng.standard_normal(tuple(t.shape)) * scale
+                       ).astype(np.float32)
+    tok = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    lab = np.roll(tok, -1, 1)
+    lab[0, :3] = -1
+    d["tokens"], d["labels"] = tok, lab
+    for case, B in (("even", 4), ("odd", 3)):
+        d[f"loss_{case}/x"] = rng.standard_normal((B, 40, 64)
+                                                  ).astype(np.float32)
+        d[f"loss_{case}/head"] = (rng.standard_normal((64, 512)) * 0.1
+                                  ).astype(np.float32)
+        lab = rng.integers(0, 500, (B, 40)).astype(np.int32)
+        lab[0, :5] = -1
+        d[f"loss_{case}/labels"] = lab
+    d["valid_vocab"] = np.array(500)
+    np.savez(path, **d)
+    return d
+
+
 def port_runs(rank: int, src: str, dst: str, ckpt: str) -> None:
     """On each mesh of :data:`MESHES`: one train step of the Qwen2-7B smoke
     config at fp32 from ``src``'s parameters and batch, the fused loss's
     two cases, the parameters' and constraints' placements; a checkpoint
-    of the (2, 2) state under ``ckpt`` restored on :data:`ELASTIC`; the
-    uncovered configurations' errors.  Rank 0 writes ``dst`` (npz)."""
+    of the (2, 2) state under ``ckpt`` restored on :data:`ELASTIC`.
+    Rank 0 writes ``dst`` (npz)."""
     from repro_torch.checkpoint import store as ckpt_store
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_device_mesh
@@ -203,13 +235,6 @@ def port_runs(rank: int, src: str, dst: str, ckpt: str) -> None:
             out[f"{e}/{what}/{k}"] = v
     for name, p in params.named_parameters():
         out[f"{e}/placement/{name}"] = np.array(_placements(p))
-
-    for which in UNCOVERED:
-        try:
-            tmodel.init_params(get_smoke_config(which), mesh=mesh,
-                               dtype=torch.float32)
-        except NotImplementedError as err:
-            out[f"uncovered/{which}"] = np.array(str(err))
     if rank == 0:
         np.savez(dst, **out)
 
@@ -784,3 +809,346 @@ def sp_runs(rank: int, shape: tuple, src: str, dst: str) -> None:
         set_rules(DEFAULT_RULES)
     if rank == 0:
         np.savez(dst, **out)
+
+
+# ------------------------------------------------- the SSM and hybrid blocks
+#: the SSM and hybrid cases on a mesh: the smoke configs of Mamba2 (whose
+#: ``in_proj`` columns and conv channels straddle z | xBC | dt and x | B | C
+#: on ``model`` of 4) and Hymba (GQA 4 / 2: ``head_dim`` takes ``model`` of
+#: 4 for k and v), and Hymba at d_model 72, whose SSM widths repeat the
+#: published Hymba's divisibility on ``model`` of 4 (d_proj 322 and 18 SSM
+#: heads whole, conv_dim 160 split, d_inner 144 split mid-head)
+SSM_CASES = {"mamba2": MESHES, "hymba": MESHES, "hymba_w72": MESHES}
+#: the case whose (2, 2) checkpoint restores on :data:`ELASTIC` and off
+#: any mesh
+SSM_CKPT = "mamba2"
+#: the SSM cases' tolerances, each of an array's largest magnitude: the
+#: logits, the ``conv``/``ssm`` caches and the gradients
+LOGIT_FRAC, CACHE_FRAC, GRAD_FRAC = 1e-4, 1e-5, 1e-5
+#: which outputs of :func:`ssm_runs` each of them holds
+SSM_FRAC = {"prefill_logits": LOGIT_FRAC, "decode_logits": LOGIT_FRAC,
+            "prefill_cache": CACHE_FRAC, "decode_cache": CACHE_FRAC,
+            "g": GRAD_FRAC}
+
+
+def ssm_config(case: str, get_smoke_config):
+    """A :data:`SSM_CASES` case's config from ``get_smoke_config`` (the
+    port's or the reference's)."""
+    import dataclasses
+    if case == "mamba2":
+        return get_smoke_config("mamba2_2_7b")
+    cfg = get_smoke_config("hymba_1_5b")
+    return dataclasses.replace(cfg, d_model=72) if case == "hymba_w72" \
+        else cfg
+
+
+def ssm_inputs(path: str) -> dict:
+    """Seeded numpy inputs for every :data:`SSM_CASES` case, written to
+    ``path`` (npz) and returned: its parameters (norm scales, the conv's
+    weights and bias, dt bias, A_log and D at scale 0.3, the matrices at
+    0.02), prompts, the decode steps' tokens and a train batch (labels
+    rolled, three masked)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as tmodel
+    B, S, steps = SERVE_BATCH, SERVE_SEQ, SERVE_STEPS
+    rng = np.random.default_rng(32)
+    d = {}
+    for case in SSM_CASES:
+        cfg = ssm_config(case, get_smoke_config)
+        for k, t in tmodel.abstract_params(cfg).items():
+            scale = 0.3 if k in tmodel.NORM_KEYS or k in \
+                tmodel.SSM_FP32_KEYS else 0.02
+            d[f"{case}/p/{k}"] = (rng.standard_normal(tuple(t.shape)) * scale
+                                  ).astype(np.float32)
+        d[f"{case}/tokens"] = rng.integers(0, cfg.vocab_size, (B, S)
+                                           ).astype(np.int32)
+        d[f"{case}/decode"] = rng.integers(0, cfg.vocab_size,
+                                           (steps - 1, B, 1)).astype(np.int32)
+        tok = rng.integers(0, cfg.vocab_size, (FAMILY_TRAIN_BATCH,
+                                               FAMILY_TRAIN_SEQ)
+                           ).astype(np.int32)
+        lab = np.roll(tok, -1, 1)
+        lab[0, :3] = -1
+        d[f"{case}/train/tokens"], d[f"{case}/train/labels"] = tok, lab
+    np.savez(path, **d)
+    return d
+
+
+def _whole(t) -> np.ndarray:
+    """A (DTensor) tensor gathered whole, as a numpy copy."""
+    from repro_torch.models.model import full_tensor
+    return full_tensor(t).detach().float().numpy().copy()
+
+
+def _record_states(seen: list):
+    """Wrap ``models.ssm.mamba2_mix`` (as ``models.model`` calls it) to
+    record the local shapes and placements of the states each call
+    returns; returns the undo."""
+    from repro_torch.models import ssm
+    saved = ssm.mamba2_mix
+
+    def rec(p, x, cfg, **kw):
+        y, new = saved(p, x, cfg, **kw)
+        seen.append(tuple((tuple(t.to_local().shape), _placements(t))
+                          for t in (new["conv"], new["ssm"])))
+        return y, new
+    ssm.mamba2_mix = rec
+
+    def undo():
+        ssm.mamba2_mix = saved
+    return undo
+
+
+def _every_rank(seen: list) -> np.ndarray:
+    """Every process's records, in rank order."""
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, list(seen))
+    return np.array(repr(got))
+
+
+def _ssm_serve(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
+               record: bool) -> None:
+    """The serving run of one case at fp32 under the ``serve_tp`` rules,
+    on ``mesh`` (or off any mesh for None): the prefill's logits and
+    caches, SERVE_STEPS - 1 decode steps' logits and caches, the greedy
+    ids; with ``record`` also the placements and local bytes, every
+    process's flash calls and returned states, and the redistributions of
+    the prefill and the decode steps."""
+    from repro_torch.launch.dryrun import serve_tp_rules
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel.sharding import set_rules
+    from repro_torch.serve import step as sstep
+    set_rules(serve_tp_rules())
+    B, S, steps = SERVE_BATCH, SERVE_SEQ, SERVE_STEPS
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
+    params = tmodel.params_from_numpy(cfg, flat, dtype=torch.float32, **kw)
+    names = [n for n in tmodel.CACHE_KEYS if n in tmodel.cache_logical(cfg)]
+    if record:
+        for name, p in params.named_parameters():
+            out[f"{case}/serve/placement/{name}"] = np.array(_placements(p))
+        out[f"{case}/local_bytes/params"] = np.array(
+            _local_bytes(params.parameters()))
+        empty = tmodel.init_cache(cfg, B, S + steps, mesh=mesh)
+        for nm in names:
+            out[f"{case}/init_cache_placement/{nm}"] = np.array(
+                _placements(empty[nm]))
+        out[f"{case}/local_bytes/cache"] = np.array(
+            _local_bytes(empty[nm] for nm in names))
+        del empty
+    tokens = torch.from_numpy(data[f"{case}/tokens"])
+    prefill = sstep.make_prefill_step(cfg, max_len=S + steps)
+    decode = sstep.make_decode_step(cfg)
+    flash, states, redist = [], [], []
+    undo = ([_record_flash(flash), _record_states(states),
+             _record_redistributions(redist)] if record else [])
+    try:
+        logits, cache = prefill(params, {"tokens": tokens})
+        mine = len(redist)          # the records' own gathers are not kept
+        out[f"{case}/prefill_logits"] = _whole(logits)
+        for nm in names:
+            out[f"{case}/prefill_cache/{nm}"] = _whole(cache[nm])
+            if record:
+                out[f"{case}/cache_placement/{nm}"] = np.array(
+                    _placements(cache[nm]))
+                out[f"{case}/cache_local_shape/{nm}"] = np.array(
+                    cache[nm].to_local().shape[1:])
+        del redist[mine:]
+        dec = []
+        for i in range(steps - 1):
+            logits, cache = decode(params, {
+                "tokens": torch.from_numpy(data[f"{case}/decode"][i]),
+                "cache": cache})
+            mine = len(redist)
+            dec.append(_whole(logits))
+            del redist[mine:]
+    finally:
+        for u in undo:
+            u()
+    out[f"{case}/decode_logits"] = np.stack(dec)
+    out[f"{case}/pos"] = np.array(cache["pos"])
+    for nm in names:
+        out[f"{case}/decode_cache/{nm}"] = _whole(cache[nm])
+    if record:
+        out[f"{case}/flash_calls"] = _every_rank(flash)
+        out[f"{case}/states"] = _every_rank(states)
+        out[f"{case}/redistributed"] = _every_rank(sorted(set(redist)))
+    out[f"{case}/greedy"] = sstep.greedy_generate(params, cfg, tokens,
+                                                  steps).numpy()
+
+
+def _ssm_train(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
+               record: bool):
+    """The training run of one case at fp32 under the default rules, on
+    ``mesh`` (or off any mesh for None): the loss and every gradient of
+    two runs of the loss and backward (and whether the two are
+    bit-identical), then one train step (loss, ``grad_norm``, parameters
+    and moments gathered whole); with ``record`` the placements of the
+    parameters and moments.  Returns (params, opt) after the step."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import step as tstep
+    set_rules(DEFAULT_RULES)
+    ocfg = OptimConfig(warmup_steps=1, decay_steps=10)
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
+    params = tmodel.params_from_numpy(cfg, flat, dtype=torch.float32, **kw)
+    opt = init_opt_state(params, ocfg)
+    if record:
+        for name, p in params.named_parameters():
+            out[f"{case}/train/placement/{name}"] = np.array(_placements(p))
+            out[f"{case}/train/moment_placement/{name}"] = np.array(
+                _placements(opt["m"][name]))
+    batch = {k: torch.from_numpy(data[f"{case}/train/{k}"])
+             for k in ("tokens", "labels")}
+    if mesh is not None:
+        batch = tloop.distribute_batch(batch, mesh)
+    grads = []
+    for _ in range(2):
+        params.requires_grad_(True)
+        loss, _ = tmodel.lm_loss(params, cfg, batch)
+        loss.backward()
+        grads.append({n: getattr(p.grad, "to_local", lambda: p.grad)()
+                      .clone() for n, p in params.named_parameters()})
+        out[f"{case}/grad_loss"] = _whole(loss)
+        for k, v in _full_stacked(cfg, {
+                n: p.grad for n, p in params.named_parameters()}).items():
+            out[f"{case}/g/{k}"] = v
+        params.zero_grad(set_to_none=True)
+        params.requires_grad_(False)
+    out[f"{case}/grads_bit_identical"] = np.array(all(
+        torch.equal(a.view(torch.int32), grads[1][n].view(torch.int32))
+        for n, a in grads[0].items()))
+    del grads
+    step = tstep.make_train_step(cfg, tstep.TrainConfig(ocfg))
+    params, opt, metrics = step(params, opt, batch)
+    out[f"{case}/loss"] = _whole(metrics["loss"])
+    out[f"{case}/grad_norm"] = _whole(metrics["grad_norm"])
+    named = {n: p.detach() for n, p in params.named_parameters()}
+    for what, tree in (("p", named), ("m", opt["m"]), ("v", opt["v"])):
+        for k, v in _full_stacked(cfg, tree).items():
+            out[f"{case}/{what}/{k}"] = v
+    return params, opt
+
+
+def _ssm_flat(data: dict, case: str) -> dict:
+    return {k[len(case) + 3:]: v for k, v in data.items()
+            if k.startswith(f"{case}/p/")}
+
+
+def ssm_runs(rank: int, shape: tuple, src: str, dst: str, ckpt: str
+             ) -> None:
+    """On the (data, model) mesh ``shape``, each :data:`SSM_CASES` case at
+    fp32 from ``src``'s parameters: the serving run under ``serve_tp`` and
+    the training run under the default rules (:func:`_ssm_serve`,
+    :func:`_ssm_train`, recorded), and the loss and gradients of one
+    sequence (a batch of 1, which no data axis splits).  On (2, 2)
+    :data:`SSM_CKPT`'s trained state is checkpointed under ``ckpt`` and
+    restored on :data:`ELASTIC` and off any mesh.  Rank 0 writes ``dst``
+    (npz)."""
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    from repro_torch.train import loop as tloop
+    tmodel.COMPUTE_DTYPE = torch.float32
+    data = dict(np.load(src))
+    mesh = make_device_mesh(shape, ("data", "model"), "cpu")
+    ocfg = OptimConfig(warmup_steps=1, decay_steps=10)
+    out = {}
+    try:
+        for case, meshes in SSM_CASES.items():
+            if shape not in meshes:
+                continue
+            cfg = ssm_config(case, get_smoke_config)
+            flat = _ssm_flat(data, case)
+            _ssm_serve(out, case, cfg, flat, data, mesh, True)
+            params, opt = _ssm_train(out, case, cfg, flat, data, mesh, True)
+            if case == SSM_CKPT and shape == (2, 2):
+                ckpt_store.save_checkpoint(
+                    ckpt, 1, tloop.checkpoint_state(params, opt))
+                for where in (ELASTIC, None):
+                    kw = ({"mesh": make_device_mesh(where, ("data", "model"),
+                                                    "cpu")}
+                          if where else {"device": "cpu"})
+                    other = tmodel.init_params(cfg, seed=1,
+                                               dtype=torch.float32, **kw)
+                    other_opt = init_opt_state(other, ocfg)
+                    restored, step_ = ckpt_store.restore_checkpoint(
+                        ckpt, tloop.checkpoint_state(other, other_opt))
+                    tloop.load_checkpoint_state(other, other_opt, restored)
+                    e = f"{case}/{tag(where) if where else 'off'}"
+                    out[f"{e}/step"] = np.array(step_)
+                    named = {n: p.detach()
+                             for n, p in other.named_parameters()}
+                    for what, tree in (("p", named), ("m", other_opt["m"]),
+                                       ("v", other_opt["v"])):
+                        for k, v in _full_stacked(cfg, tree).items():
+                            out[f"{e}/{what}/{k}"] = v
+                    for name, p in other.named_parameters():
+                        if where:
+                            out[f"{e}/placement/{name}"] = np.array(
+                                _placements(p))
+                    del other, other_opt
+            del params, opt
+            # one sequence: a batch of 1 stays whole on the data axis
+            set_rules(DEFAULT_RULES)
+            params = tmodel.params_from_numpy(cfg, flat, mesh=mesh,
+                                              dtype=torch.float32)
+            batch = tloop.distribute_batch(
+                {k: torch.from_numpy(data[f"{case}/train/{k}"][:1])
+                 for k in ("tokens", "labels")}, mesh)
+            params.requires_grad_(True)
+            loss, _ = tmodel.lm_loss(params, cfg, batch)
+            loss.backward()
+            out[f"{case}/one/loss"] = _whole(loss)
+            for k, v in _full_stacked(cfg, {
+                    n: p.grad for n, p in params.named_parameters()}).items():
+                out[f"{case}/one/g/{k}"] = v
+            del params
+    finally:
+        set_rules(DEFAULT_RULES)
+    if rank == 0:
+        np.savez(dst, **out)
+
+
+def ssm_one(rank: int, src: str, dst: str) -> None:
+    """In one process: each :data:`SSM_CASES` case's serving and training
+    runs (:func:`_ssm_serve`, :func:`_ssm_train`) on a (1, 1) device mesh
+    (keys ``mesh/...``) and off any mesh (``off/...``), for the
+    bit-for-bit comparison, and the one-sequence loss and gradients off
+    any mesh (``off/<case>/one/...``).  Writes ``dst`` (npz)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    tmodel.COMPUTE_DTYPE = torch.float32
+    data = dict(np.load(src))
+    mesh = make_device_mesh((1, 1), ("data", "model"), "cpu")
+    out = {}
+    try:
+        for case in SSM_CASES:
+            cfg = ssm_config(case, get_smoke_config)
+            flat = _ssm_flat(data, case)
+            for where, m in (("mesh", mesh), ("off", None)):
+                got = {}
+                _ssm_serve(got, case, cfg, flat, data, m, False)
+                _ssm_train(got, case, cfg, flat, data, m, False)
+                out.update({f"{where}/{k}": v for k, v in got.items()})
+            set_rules(DEFAULT_RULES)
+            params = tmodel.params_from_numpy(cfg, flat, device="cpu",
+                                              dtype=torch.float32)
+            params.requires_grad_(True)
+            loss, _ = tmodel.lm_loss(params, cfg, {
+                k: torch.from_numpy(data[f"{case}/train/{k}"][:1])
+                for k in ("tokens", "labels")})
+            loss.backward()
+            out[f"off/{case}/one/loss"] = _whole(loss)
+            for k, v in _full_stacked(cfg, {
+                    n: p.grad for n, p in params.named_parameters()}).items():
+                out[f"off/{case}/one/g/{k}"] = v
+    finally:
+        set_rules(DEFAULT_RULES)
+    np.savez(dst, **out)
