@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--mesh-only [--mesh-phases 19,20,21,22]]
+    python3 chip_smoke.py [--seed 0] [--mesh-only [--mesh-phases 19,...,24]]
 
 Phases (any failure exits non-zero and prints no result; ``--mesh-only``
 runs phase 1, then phase 19 beside an unsharded step of 13a's
 configuration, phase 20 beside an unsharded run of phase 7's cell,
 phase 21 beside stand-ins for 16a, 17a, 17b and 17c
-(``family_references``) and phase 22 beside the same step of 13a's
-configuration, for a run on several cards; ``--mesh-phases`` runs only
-the ones it names):
+(``family_references``), phase 22 beside the same step of 13a's
+configuration and phases 23 and 24 beside their own unsharded references
+(``ssm_references``), for a run on several cards; ``--mesh-phases`` runs
+only the ones it names):
 
 1. Device and build: the card's name and power limit, the torch/CUDA
    versions, and the build of every kernel under ``src/repro_torch/csrc``
@@ -607,7 +608,8 @@ the ones it names):
    2048, 4, 128), standard normal from ``--seed``, dout at unit RMS, at
    q_offset 0 and 1024), each against its plain version, beside SDPA
    under the same boolean mask and the bound (allowed pairs x 4 hd flops,
-   2.5 x that backward, over 989e12 flop/s); the backward's dK and dV
+   2.5 x that backward, over 989e12 flop/s, or the bytes, k and v read
+   only at the keys the mask allows, if more); the backward's dK and dV
    past the shard's last query must be exactly 0.  Their ``launches``
    are rank 0's in 22a's Ulysses job and 22b's first job.  The phase's
    seconds are printed.
@@ -647,7 +649,36 @@ the ones it names):
    25 and 5 divide no ``model`` axis; layer 1's window of 1024) beside
    their plain versions, SDPA under the window's boolean mask and the
    bound; their ``ssm_mesh_launches`` are rank 0's in b's last job and
-   d's job.  The phase's seconds are printed.
+   d's job.  Phase 23 prints, beside each job, rank 0's flash time in one
+   Hymba prefill and the collectives (``CommDebugMode``) of one prefill
+   and of one train step.
+24. The sequence options on the SSM and hybrid families, in the same
+   launch of ranks as phase 23 and against its unsharded references
+   (``family_job`` with phase 22's option letters, ``hs:DxM:layers:u``):
+   a: Hymba-1.5B served with ``ulysses_attn`` (each rank runs its slice of
+   the queries, at q_offset = its rank x the local Sq, against every key,
+   under the window on the local layers; decode keeps the plain cached
+   attention); b: 17d's cell (Mamba2) and c: 17e's (Hymba) trained with
+   ``seq_sharded`` (the carry split by sequence over ``model``, gathered
+   whole before each branch, the Mamba2 mixer's too, and each branch's
+   partial sums reduce-scattered back); on one card at
+   SSM_ONE_CARD_LAYERS on (1, 1), Hymba also trained with both options,
+   each bit for bit the option-free unsharded run (logits, ids, caches,
+   loss, layer 0's gradients in bf16 and fp32); with 4 cards at the
+   published depths a on (1, n) and b, c on (n/2, 2), held by phase 23's
+   checks.  Each job prints its figures beside phase 23's job of the same
+   kind and mesh: rank 0's flash ms in one prefill, prefill and decode
+   ms, step ms, each rank's peak, and the collectives of one prefill or
+   one step.  Rows 5hu and 5bhu, after the ranks (not under
+   ``--mesh-only``): the forward kernel at a (1, 4) rank's Ulysses shard
+   of Hymba's prefill (16c's layer 1, a local one, captured in the
+   reference's run: q cut to 512 positions at q_offset 0 and 1536 against
+   its k/v (4, 2048, 5, 64), window 1024) and the backward kernel at a
+   (2, 2) rank's shard of 24c with both options (q (1, 1024, 25, 64), k/v
+   (1, 2048, 5, 64), window 1024, standard normal from ``--seed``, dout at
+   unit RMS, at q_offset 0 and 1024), as rows 5u and 5bu; their
+   ``launches`` are rank 0's in 24a's job and in 24c's last.  The phases'
+   seconds are printed.
 
 Phase 2 also holds the stacked ``bulk_program`` launch against its plain
 version at ``tests/torch_checks.py``'s ``STACKED_CASES`` (S = 1, 3, 8,
@@ -5880,12 +5911,12 @@ def host_top(torch, fn, n: int = 6) -> list:
 
 
 def serve_rank(args) -> int:
-    """One rank of phase 20, 21, 22 or 23 (``--serve-rank``): joins the
-    NCCL group of ``--serve-world`` ranks, one a card, sets the
+    """One rank of phase 20, 21, 22, 23 or 24 (``--serve-rank``): joins
+    the NCCL group of ``--serve-world`` ranks, one a card, sets the
     ``serve_tp`` rules and runs each of ``--serve-jobs`` in turn
-    (:func:`serve_job`, :func:`family_job` for phase 21's and 23's kinds,
-    :func:`sp_job` for phase 22's); every rank writes its records to
-    ``--serve-work``/serve-rank<r>.json after each job."""
+    (:func:`serve_job`, :func:`family_job` for phase 21's, 23's and 24's
+    kinds, :func:`sp_job` for phase 22's); every rank writes its records
+    to ``--serve-work``/serve-rank<r>.json after each job."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -6313,10 +6344,12 @@ def family_references(torch, dev, seed: int, zero_counts, counted) -> dict:
 
 
 def ssm_references(torch, dev, seed: int, zero_counts, counted) -> dict:
-    """Phase 23's references, unsharded on this card: 16b's and 16c's
-    serving cells (``family_serving``, :func:`ssm_serve_ref`), and 17d's
-    and 17e's first batch's loss and gradients (``train_family_ref``) and
-    TRAIN_TIMED timed steps after a first, at the published depths
+    """Phases 23's and 24's references, unsharded on this card: 16b's and
+    16c's serving cells (``family_serving``, :func:`ssm_serve_ref`; 16c's
+    layer 1, a local one, captured as (q, k, v, window, out) on the host
+    under ``hs_captured``, for rows 5hu), and 17d's and 17e's first
+    batch's loss and gradients (``train_family_ref``) and TRAIN_TIMED
+    timed steps after a first, at the published depths
     (:func:`ssm_train_layers`) with 4 cards or more, else at
     SSM_ONE_CARD_LAYERS."""
     cut = None if torch.cuda.device_count() >= 4 else SSM_ONE_CARD_LAYERS
@@ -6330,8 +6363,13 @@ def ssm_references(torch, dev, seed: int, zero_counts, counted) -> dict:
                               ("hs", HYBRID_ARCH,
                                "23b hybrid lm reference")):
         run = family_serving(torch, dev, seed, zero_counts, counted, arch,
-                             lambda cfg: (), label, layers=cut)
+                             lambda cfg: (1,) if cfg.block == "hybrid"
+                             else (), label, layers=cut)
         refs[kind] = ssm_serve_ref(torch, tmodel, run)
+        if kind == "hs":            # layer 1 (local), for rows 5hu
+            refs["hs_captured"] = tuple(
+                t.cpu() if hasattr(t, "cpu") else t
+                for t in run["lm"]["captured"][1])
         del run
         gc.collect()
         torch.cuda.empty_cache()
@@ -6390,14 +6428,18 @@ def flips_of(torch, got: list, want: list) -> list:
 
 
 def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
-                     ref: dict, label: str, layers: int = 0) -> dict:
+                     ref: dict, label: str, layers: int = 0,
+                     opts: dict | None = None) -> dict:
     """Phase 21a (``ms``, Qwen2-MoE-A2.7B), 21b (``ws``, Whisper-small),
-    23a (``ss``, Mamba2-2.7B) or 23b (``hs``, Hymba-1.5B) on this rank
+    23a (``ss``, Mamba2-2.7B) or 23b (``hs``, Hymba-1.5B), or 24a (``hs``
+    with ``opts``, the sequence options' config fields) on this rank
     under ``serve_tp``: the allocator's bytes against the dry run's, the
     counted greedy run, the routing's flips (MoE), prefill and decode
     timed and profiled, the logits and ids (and the SSM's conv and state
     caches after the prefill, :func:`held_caches`) held against 16a's,
-    17a's, 16b's or 16c's (bit for bit on one card)."""
+    17a's, 16b's or 16c's (bit for bit on one card); for phases 23 and 24
+    also the flash kernel's time in one prefill (one launch an attention
+    layer) and that prefill's collectives."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention
     from repro_torch.launch import dryrun
@@ -6405,7 +6447,7 @@ def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
     from repro_torch.models import model as tmodel
     from repro_torch.models import moe as tmoe
     from repro_torch.serve import step as tstep
-    cfg = get_config(FAMILY_ARCH[kind])
+    cfg = dataclasses.replace(get_config(FAMILY_ARCH[kind]), **(opts or {}))
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     prompts = ref["prompts"].to(dev)
@@ -6485,11 +6527,23 @@ def family_serve_job(torch, dev, kind: str, shape: tuple, mesh, seed: int,
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["allocated_bytes"] = torch.cuda.memory_allocated(dev)
     step = {"tokens": toks[-1][:, None], "cache": cache}
+    if kind in EXACT_ON_ONE:
+        out["flash_ms"], out["flash_launches"] = flash_prefill_ms(
+            torch, attention, lambda: prefill(params, inputs))
+        if out["flash_launches"] != n_attn:
+            raise SystemExit(f"{label}: {out['flash_launches']} flash "
+                             f"launches in one prefill, want {n_attn}")
     out["profile"] = {
         "prefill": profile(f"{label}, one prefill", *device_profile(
             torch, lambda: prefill(params, inputs))),
         "decode": profile(f"{label}, one decode step", *device_profile(
             torch, lambda: decode(params, step)))}
+    if kind in EXACT_ON_ONE:
+        # the last pass over these modules: CommDebugMode (torch 2.11) can
+        # leave its forward hooks on modules it saw, which fail on a later
+        # pass (phase 22 counts last too)
+        out["prefill_comm"] = comm_counts(torch,
+                                          lambda: prefill(params, inputs))
     out["logits"] = held_logits(torch, last, ref["logits"].to(dev), label)
     decided = torch.tensor(out["logits"]["decided"], device=dev)
     want_gen = ref["gen"].to(dev)
@@ -6595,12 +6649,16 @@ def family_train_checks(torch, tmodel, tmoe, params, cfg, batch: dict,
 
 
 def family_train_job(torch, dev, kind: str, shape: tuple, mesh,
-                     layers: int, seed: int, ref: dict, label: str) -> dict:
+                     layers: int, seed: int, ref: dict, label: str,
+                     opts: dict | None = None) -> dict:
     """Phase 21c (``mt``, Qwen2-MoE-A2.7B at ``layers``) or d (``wt``,
-    Whisper-small) on this rank under the default rules, remat full, fp32
-    state: the per-card state reckoned by ``shard_bytes``; at the phase-17
-    cell's depth :func:`family_train_checks`; one counted step;
-    TRAIN_TIMED timed steps and one profiled."""
+    Whisper-small), 23c/d (``st``, ``ht``) or 24b/c (those with ``opts``,
+    the sequence options' config fields) on this rank under the default
+    rules, remat full, fp32 state: the per-card state reckoned by
+    ``shard_bytes``; at the phase-17 cell's depth
+    :func:`family_train_checks`; one counted step; TRAIN_TIMED timed steps
+    and one profiled; for phases 23 and 24 the collectives of one more
+    step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention
     from repro_torch.launch.mesh import AbstractMesh
@@ -6613,7 +6671,8 @@ def family_train_job(torch, dev, kind: str, shape: tuple, mesh,
     set_rules(DEFAULT_RULES)
     full = get_config(FAMILY_ARCH[kind])
     cfg = dataclasses.replace(full, remat="full",
-                              num_layers=layers or full.num_layers)
+                              num_layers=layers or full.num_layers,
+                              **(opts or {}))
     out = {"layers": cfg.num_layers, "reckoned_state_bytes":
            train_state_bytes(cfg, AbstractMesh(shape, mesh.axis_names))}
     torch.cuda.synchronize()
@@ -6664,6 +6723,9 @@ def family_train_job(torch, dev, kind: str, shape: tuple, mesh,
                allocated_bytes=torch.cuda.memory_allocated(dev))
     out["profile"] = profile(f"{label}, one train step", *device_profile(
         torch, lambda: step(params, opt, batch)))
+    if kind in EXACT_ON_ONE:              # the last pass, as in serving
+        out["step_comm"] = comm_counts(torch, lambda: step(params, opt,
+                                                           batch))
     if not all(np.isfinite(losses)) or (
             cfg.num_layers != ref["layers"] and not losses[-1] < losses[0]):
         raise SystemExit(f"{label}: losses {losses} not finite"
@@ -6674,32 +6736,33 @@ def family_train_job(torch, dev, kind: str, shape: tuple, mesh,
 
 
 def family_job(torch, dev, job: str, seed: int, refs: dict) -> dict:
-    """One phase-21 or phase-23 job on this rank: ``kind:DxM[:layers]``
-    (ms, ws, ss, hs: serving; mt, wt, st, ht: training) on the (D, M)
+    """One phase-21, 23 or 24 job on this rank: ``kind:DxM[:layers[:flags]]``
+    (ms, ws, ss, hs: serving; mt, wt, st, ht: training; ``layers`` empty
+    for the published depth; ``flags``, phase 24's sequence options, as
+    phase 22's: u ``ulysses_attn``, s ``seq_sharded``) on the (D, M)
     device mesh."""
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.parallel.sharding import get_rules, set_rules
-    kind, shape_s, *rest = job.split(":")
+    kind, shape_s, layers, flags = (job.split(":") + ["", ""])[:4]
     shape = tuple(int(x) for x in shape_s.split("x"))
     mesh = make_device_mesh(shape, ("data", "model"), dev)
-    label = f"{FAMILY_JOBS[kind]} {job}"
+    label = f"{job_part(job)} {job}"
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     rules = get_rules()
+    layers, opts = int(layers or 0), sp_options(flags)
     try:
         if kind in ("ms", "ws", "ss", "hs"):
             out = family_serve_job(torch, dev, kind, shape, mesh, seed,
-                                   refs[kind], label,
-                                   int(rest[0]) if rest else 0)
+                                   refs[kind], label, layers, opts)
         else:
-            out = family_train_job(torch, dev, kind, shape, mesh,
-                                   int(rest[0]) if rest else 0, seed,
-                                   refs[kind], label)
+            out = family_train_job(torch, dev, kind, shape, mesh, layers,
+                                   seed, refs[kind], label, opts)
     finally:
         set_rules(rules)
     out.update(job=job, mesh=mesh.name, card=torch.cuda.get_device_name(dev),
-               job_s=time.perf_counter() - t0)
+               job_s=time.perf_counter() - t0, options=sorted(opts))
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -6708,10 +6771,31 @@ def family_job(torch, dev, job: str, seed: int, refs: dict) -> dict:
 #: the job kinds of phases 21 and 23, by their part of the phase
 FAMILY_JOBS = {"ms": "21a", "ws": "21b", "mt": "21c", "wt": "21d",
                "ss": "23a", "hs": "23b", "st": "23c", "ht": "23d"}
+#: phase 24's job kinds (phase 23's with the sequence options), by their
+#: part of the phase
+SSM_SP_JOBS = {"hs": "24a", "st": "24b", "ht": "24c"}
+#: rows 5hu and 5bhu: Hymba's Ulysses shards of one rank (query positions,
+#: and the offsets of rank 0 and of the last) of 24a on (1, 4) and of 24c
+#: with both options on (2, 2)
+HYBRID_SP_ROWS = {"5hu": (512, (0, 1536)), "5bhu": (1024, (0, 1024))}
+
+
+def job_part(job: str) -> str:
+    """A phase-21, 23 or 24 job's part of its phase: phase 24's when the
+    job names sequence options, else its kind's."""
+    kind, *rest = job.split(":")
+    return SSM_SP_JOBS[kind] if len(rest) > 2 and rest[2] else \
+        FAMILY_JOBS[kind]
 
 
 def family_jobs(phase: int, n: int) -> list:
-    """Phase 21's or 23's jobs on ``n`` cards."""
+    """Phase 21's, 23's or 24's jobs on ``n`` cards."""
+    if phase == 24:
+        if n >= 4:
+            return [f"hs:1x{n}::u", f"st:{n // 2}x2::s", f"ht:{n // 2}x2::s"]
+        cut = SSM_ONE_CARD_LAYERS
+        return [f"hs:1x{n}:{cut}:u", f"st:{n}x1:{cut}:s",
+                f"ht:{n}x1:{cut}:s", f"ht:{n}x1:{cut}:us"]
     if phase == 23:
         if n >= 4:
             return [f"ss:1x{n}", f"hs:1x{n}", f"hs:{n // 2}x2",
@@ -6732,14 +6816,19 @@ def family_jobs(phase: int, n: int) -> list:
 
 
 def families_across_cards(torch, seed: int, refs: dict, records: list,
-                          t_phase: float, phase: int = 21) -> dict:
-    """Phase 21 or 23 (see the module docstring): the MoE and the
-    encoder-decoder, or the SSM and hybrid families, served and trained
-    on device meshes, one NCCL rank a card (``--serve-rank`` with the
-    phase's jobs, :func:`family_jobs`)."""
+                          t_phase: float, phase=21, kernel=None) -> dict:
+    """Phase 21, 23 or 24, or 23 and 24 (``phase`` a tuple) in one launch
+    (see the module docstring): the MoE and the encoder-decoder, or the
+    SSM and hybrid families without and with the sequence options, served
+    and trained on device meshes, one NCCL rank a card (``--serve-rank``
+    with the phases' jobs, :func:`family_jobs`); phase 24's jobs printed
+    beside phase 23's of the same kind and mesh.  With phase 24 and
+    ``kernel`` (the records' maker) rows 5hu and 5bhu after the ranks."""
+    phases = phase if isinstance(phase, tuple) else (phase,)
     n = torch.cuda.device_count()
-    jobs = family_jobs(phase, n)
-    what = "families" if phase == 21 else "ssm"
+    jobs = [j for p in phases for j in family_jobs(p, n)]
+    what = "families" if phases == (21,) else "ssm"
+    captured = refs.pop("hs_captured", None)
     print(f"{what} mesh: {n} card(s), one NCCL rank a card; jobs {jobs}")
     work = tempfile.mkdtemp(prefix=f"chip_smoke_{what}-")
     atexit.register(shutil.rmtree, work, True)
@@ -6749,7 +6838,7 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
     try:
         wait_processes(start_processes([_serve_cmd(r, n, port, work, jobs,
                                                    seed) for r in range(n)]),
-                       str(phase), timeout=1500)
+                       "/".join(map(str, phases)), timeout=1500)
     except SystemExit:
         rank0 = os.path.join(work, "serve-rank0.json")
         if os.path.exists(rank0):           # the jobs rank 0 finished
@@ -6761,20 +6850,41 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
     for r in range(n):
         with open(os.path.join(work, f"serve-rank{r}.json")) as f:
             ranks.append(json.load(f))
+
+    def plain_twin(i: int) -> dict | None:
+        """Rank 0's record of the option-free job of job i's kind and
+        mesh (phase 23's), if this launch ran one."""
+        kind, shape_s = jobs[i].split(":")[:2]
+        for j, other in enumerate(jobs):
+            parts = (other.split(":") + ["", ""])[:4]
+            if parts[:2] == [kind, shape_s] and not parts[3]:
+                return ranks[0][j]
+        return None
     for i, job in enumerate(jobs):
         a = ranks[0][i]
         kind = job.split(":")[0]
         ref = refs[kind]
+        twin = plain_twin(i) if a.get("options") else None
         per_rank = (f"per rank peak {[rk[i]['peak_bytes'] for rk in ranks]},"
                     f" allocated {[rk[i]['allocated_bytes'] for rk in ranks]}")
+        options = (f", options {a['options']}" if a.get("options") else "")
         if kind in ("ms", "ws", "ss", "hs"):
-            print(f"{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
-                  f"({a['card']}): {a['launches']} flash launches in one "
-                  f"greedy run on each rank "
+            beside = (f"; without the options (phase 23's job) prefill "
+                      f"{twin['prefill_ms']} ms, decode {twin['decode_ms']}"
+                      f" ms/step, rank 0's flash {twin['flash_ms']} ms, peak"
+                      f" {twin['peak_bytes']} bytes" if twin else "")
+            flash = (f"rank 0's flash kernel in one prefill {a['flash_ms']} "
+                     f"ms over {a['flash_launches']} launches; one "
+                     f"prefill's collectives (CommDebugMode) "
+                     f"{a['prefill_comm']}; " if "flash_ms" in a else "")
+            print(f"{job_part(job)} {job} on the {a['mesh']} mesh "
+                  f"({a['card']}){options}: {a['launches']} flash launches "
+                  f"in one greedy run on each rank "
                   f"{[rk[i]['launches'] for rk in ranks]}, no plain "
                   f"attention; prefill {a['prefill_ms']} ms, decode "
                   f"{a['decode_ms']} ms/step against the unsharded run's "
-                  f"{ref['prefill_ms']} ms and {ref['decode_ms']} ms/step; "
+                  f"{ref['prefill_ms']} ms and {ref['decode_ms']} ms/step"
+                  f"{beside}; {flash}"
                   f"logits {a['logits']} (tolerance {LOGIT_TOL['bfloat16']} "
                   f"of max), first token equal on {a['first_token_agree']}/"
                   f"{len(a['logits']['decided'])} rows, "
@@ -6809,12 +6919,19 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
                     "no phase-17 reference at this depth; ")
             drops = (f"drops (fp32) by capacity factor {a['drops']}; "
                      if "drops" in a else "")
-            print(f"{FAMILY_JOBS[kind]} {job} on the {a['mesh']} mesh "
-                  f"({a['card']}), {a['layers']} layers: {held}{drops}"
-                  f"launches a step {a['launches']}, no plain attention; "
-                  f"losses {a['losses']}; step {a['step_ms']} ms (median "
-                  f"of {TRAIN_TIMED}; {a['step_ms_all']}) against the "
-                  f"unsharded run's {ref['step_ms']} ms; state reckoned "
+            beside = (f" and without the options (phase 23's job) "
+                      f"{twin['step_ms']} ms, peak {twin['peak_bytes']} "
+                      f"bytes, one step's collectives {twin['step_comm']}"
+                      if twin else "")
+            comm = (f"one step's collectives (CommDebugMode) "
+                    f"{a['step_comm']}; " if "step_comm" in a else "")
+            print(f"{job_part(job)} {job} on the {a['mesh']} mesh "
+                  f"({a['card']}), {a['layers']} layers{options}: {held}"
+                  f"{drops}launches a step {a['launches']}, no plain "
+                  f"attention; losses {a['losses']}; step {a['step_ms']} ms "
+                  f"(median of {TRAIN_TIMED}; {a['step_ms_all']}) against "
+                  f"the unsharded run's {ref['step_ms']} ms{beside}; {comm}"
+                  f"state reckoned "
                   f"{a['reckoned_state_bytes']} bytes a card (shard_bytes, "
                   f"fp32 parameters, gradients and moments), peak "
                   f"{a['peak_bytes']} bytes on rank 0 against the unsharded "
@@ -6822,7 +6939,14 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
                   f"share over a step {a['profile']['busy_ms']} ms / "
                   f"{a['profile']['idle_share']}; job {a['job_s']} s "
                   f"[{CARD['smi']}]")
-    if phase == 21:
+
+    def last_job(prefix: str, flags: str = "") -> int | None:
+        """The index of the last job of ``prefix`` with exactly
+        ``flags``."""
+        hits = [i for i, j in enumerate(jobs) if j.startswith(prefix)
+                and (j.split(":") + ["", ""])[3] == flags]
+        return hits[-1] if hits else None
+    if 21 in phases:
         serve0 = ranks[0][0]["launches"]
         train0 = ranks[0][jobs.index(f"mt:{n}x1:{MOE_TRAIN_LAYERS}")][
             "launches"]
@@ -6831,22 +6955,37 @@ def families_across_cards(torch, seed: int, refs: dict, records: list,
                 r["family_mesh_launches"] = serve0
             if r["name"].startswith("flash_attention_bwd moe"):
                 r["family_mesh_launches"] = train0["flash_attention_bwd"]
-    else:
+    if 23 in phases:
         # rows 5hr and 5bhr: a rank's launches in Hymba's last serving job
         # and in its training job
-        serve0 = ranks[0][max(i for i, j in enumerate(jobs)
-                              if j.startswith("hs:"))]["launches"]
-        train0 = ranks[0][jobs.index(next(j for j in jobs if j.startswith(
-            "ht:")))]["launches"]
+        serve0 = ranks[0][last_job("hs:")]["launches"]
+        train0 = ranks[0][last_job("ht:")]["launches"]
         for r in records:
             if r["name"] == f"flash_attention_fwd {HYBRID_RANK}":
                 r["ssm_mesh_launches"] = serve0
             if r["name"] == f"flash_attention_bwd {HYBRID_RANK}":
                 r["ssm_mesh_launches"] = train0["flash_attention_bwd"]
+    counts = None
+    if 24 in phases:
+        # rows 5hu and 5bhu: rank 0's launches in 24a's job and in 24c's
+        # last (on one card: both options)
+        both = last_job("ht:", "us")
+        counts = {"5hu": ranks[0][last_job("hs:", "u")]["launches"],
+                  "5bhu": ranks[0][last_job("ht:", "s") if both is None
+                                   else both]["launches"][
+                      "flash_attention_bwd"]}
+        if kernel is not None:
+            fq, fk, fv, window, fo = captured
+            ulysses_rows(torch, torch.device("cuda"), seed, kernel,
+                         (fq, fk, fv, fo), counts, names=("5hu", "5bhu"),
+                         rows=HYBRID_SP_ROWS, tag="hybrid ulysses",
+                         window=window, bwd_heads=(64, 5, 5, 1))
+    del captured
     out = {"cards": n, "jobs": jobs, "ranks": ranks, "wall_s": wall,
-           "phase_s": time.perf_counter() - t_phase}
+           "row_launches": counts, "phase_s": time.perf_counter() - t_phase}
     print(json.dumps({f"{what}_mesh_path": out}))
-    print(f"phase {phase} took {out['phase_s']} s ({wall} s of ranks)")
+    print(f"phase {' and '.join(map(str, phases))} took {out['phase_s']} s "
+          f"({wall} s of ranks)")
     return out
 
 
@@ -6922,67 +7061,78 @@ def sp_serve_reference(torch, dev, seed: int, zero_counts, counted) -> dict:
     return out
 
 
-def ulysses_rows(torch, dev, seed: int, kernel, captured, counts: dict
-                 ) -> None:
-    """Rows 5u and 5bu: the forward kernel at a (1, 4) rank's Ulysses shard
-    of 22a (layer 0's captured q cut to SP_ROWS' positions at each offset,
-    against the captured k, v whole) and the backward kernel at a (2, 2)
-    rank's shard of 22b (standard-normal inputs from ``seed``, dout at unit
-    RMS), each beside its plain version, SDPA under the same boolean mask
+def ulysses_rows(torch, dev, seed: int, kernel, captured, counts: dict,
+                 names=("5u", "5bu"), rows=SP_ROWS, tag: str = "ulysses",
+                 window=None, bwd_heads=(128, 7, 4, 2)) -> None:
+    """Rows 5u and 5bu (or, with ``names``, ``rows``, ``tag``, ``window``
+    and ``bwd_heads``, 5hu and 5bhu): the forward kernel at a (1, 4) rank's
+    Ulysses shard of 22a (layer 0's captured (q, k, v, out), q cut to
+    ``rows``' positions at each offset, against the captured k, v whole)
+    and the backward kernel at a (2, 2) rank's shard of 22b
+    (standard-normal inputs from ``seed`` at ``bwd_heads``' head_dim, query
+    heads a KV head, KV heads and batch; dout at unit RMS), each under
+    ``window`` beside its plain version, SDPA under the same boolean mask
     (k and v broadcast to the query heads) and its bound: the allowed
-    pairs x 4 hd flops (2.5 x that backward) over 989e12 flop/s.  The
-    backward's dK and dV must be exactly zero at every key past the shard's
-    last query.  ``counts``: each row's launches on phase 22's path (rank
+    pairs x 4 hd flops (2.5 x that backward) over 989e12 flop/s, or the
+    bytes, where k and v count only the keys the shard's mask allows (the
+    backward still writes dK and dV whole), if more.  The backward's dK and
+    dV must be exactly zero at every key past the shard's last query.  ``counts``: each row's launches on its phase's path (rank
     0's)."""
     from repro_torch.kernels import attention
     from torch_checks import attn_tol, bwd_tol, flash_bwd_inputs, unit_rms
     fq, fk, fv, fo = (t.to(dev) for t in captured)
-    sq_, offsets = SP_ROWS["5u"]
+    sq_, offsets = rows[names[0]]
     k, v = fk.contiguous(), fv.contiguous()
+    win = f", window {window}" if window else ""
     for off in offsets:
         q = fq[:, off:off + sq_].contiguous()
         B_, Sq, H_, hd_ = q.shape
         keep = attention.allowed(Sq, k.shape[1], causal=True, q_offset=off,
-                                 device=dev)
+                                 window=window, device=dev)
         library, info = sdpa_beside(torch, q, k, v, keep)
-        kernel(f"flash_attention_fwd ulysses q_offset {off}", "attention.cu",
+        kv_used = k.numel() // k.shape[1] * int(keep.any(0).sum())
+        kernel(f"flash_attention_fwd {tag} q_offset {off}", "attention.cu",
                "src/repro/kernels/attention.py:67",
-               f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, q_offset "
-               f"{off}, bf16",
-               lambda: attention.flash_attention_fwd(q, k, v, causal=True,
-                                                     q_offset=off),
+               f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal{win}, "
+               f"q_offset {off}, bf16",
+               lambda: attention.flash_attention_fwd(
+                   q, k, v, causal=True, window=window, q_offset=off),
                lambda: attention.flash_attention_fwd_plain(
-                   q, k, v, causal=True, q_offset=off),
-               2 * (2 * q.numel() + k.numel() + v.numel()),
+                   q, k, v, causal=True, window=window, q_offset=off),
+               2 * (2 * q.numel() + 2 * kv_used),
                4 * hd_ * int(keep.sum()) * B_ * H_, 10,
-               count=counts["5u"],
+               count=counts[names[0]],
                tol=attn_tol(fo[:, off:off + sq_], torch.bfloat16),
                peak_ops=PEAK_BF16, library=library)
-        print(f"row 5u q_offset {off}: SDPA {info}")
+        print(f"row {names[0]} q_offset {off}: SDPA {info}")
         del q, keep, library
     del fq, fk, fv, fo, k, v
 
-    sq_, offsets = SP_ROWS["5bu"]
+    sq_, offsets = rows[names[1]]
+    hd, g, kv, batch = bwd_heads
     rng = np.random.default_rng(seed)
-    q, k, v, dout = flash_bwd_inputs(rng, sq_, 128, 7, torch.bfloat16, dev,
-                                     batch=2, kv=4, skv=2 * sq_)
+    q, k, v, dout = flash_bwd_inputs(rng, sq_, hd, g, torch.bfloat16, dev,
+                                     batch=batch, kv=kv, skv=2 * sq_)
     udout = unit_rms(dout)
     for off in offsets:
         out, lse = attention.flash_attention_fwd(q, k, v, causal=True,
-                                                 q_offset=off,
+                                                 window=window, q_offset=off,
                                                  return_lse=True)
         got = attention.flash_attention_bwd(q, k, v, out, lse, udout,
-                                            causal=True, q_offset=off)
+                                            causal=True, window=window,
+                                            q_offset=off)
         torch.cuda.synchronize()
         past = off + sq_                # keys past the shard's last query
         if got[1][:, past:].any() or got[2][:, past:].any():
-            raise SystemExit(f"row 5bu q_offset {off}: dK or dV is not zero "
-                             f"past the last query ({past})")
+            raise SystemExit(f"row {names[1]} q_offset {off}: dK or dV is "
+                             f"not zero past the last query ({past})")
         B_, Sq, H_, hd_ = q.shape
         keep = attention.allowed(Sq, k.shape[1], causal=True, q_offset=off,
-                                 device=dev)
+                                 window=window, device=dev)
         want = attention.flash_attention_bwd_plain(q, k, v, out, lse, udout,
-                                                   causal=True, q_offset=off)
+                                                   causal=True, window=window,
+                                                   q_offset=off)
+        kv_used = k.numel() // k.shape[1] * int(keep.any(0).sum())
         g = H_ // k.shape[2]
         sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k.repeat_interleave(g, dim=2),
@@ -6997,19 +7147,22 @@ def ulysses_rows(torch, dev, seed: int, kernel, captured, counts: dict
             library()
         except RuntimeError as exc:
             library = None
-            print(f"row 5bu: SDPA's backward refused the inputs: {exc}"[:300])
-        kernel(f"flash_attention_bwd ulysses q_offset {off}", "attention.cu",
+            print(f"row {names[1]}: SDPA's backward refused the inputs: "
+                  f"{exc}"[:300])
+        kernel(f"flash_attention_bwd {tag} q_offset {off}", "attention.cu",
                "src/repro/models/flash.py:262",
-               f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, q_offset "
-               f"{off}, bf16, dK and dV past key {past} exactly 0",
-               lambda: attention.flash_attention_bwd(q, k, v, out, lse,
-                                                     udout, causal=True,
-                                                     q_offset=off),
+               f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal{win}, "
+               f"q_offset {off}, bf16, dK and dV past key {past} exactly 0",
+               lambda: attention.flash_attention_bwd(
+                   q, k, v, out, lse, udout, causal=True, window=window,
+                   q_offset=off),
                lambda: attention.flash_attention_bwd_plain(
-                   q, k, v, out, lse, udout, causal=True, q_offset=off),
-               2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                   q, k, v, out, lse, udout, causal=True, window=window,
+                   q_offset=off),
+               2 * (4 * q.numel() + 2 * kv_used + 2 * k.numel())
+               + 4 * lse.numel(),
                2.5 * 4 * hd_ * int(keep.sum()) * B_ * H_, 10,
-               count=counts["5bu"],
+               count=counts[names[1]],
                tol=[bwd_tol(x, torch.bfloat16) for x in want],
                peak_ops=PEAK_BF16, library=library)
         del out, lse, got, want, keep, library, sq, sk, sv
@@ -7389,10 +7542,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-only", action="store_true",
-                    help="phase 1, then phases 19-23 beside their "
+                    help="phase 1, then phases 19-24 beside their "
                     "unsharded references (for a run on several cards)")
-    ap.add_argument("--mesh-phases", default="19,20,21,22,23",
-                    help="with --mesh-only: which of phases 19-23 to run "
+    ap.add_argument("--mesh-phases", default="19,20,21,22,23,24",
+                    help="with --mesh-only: which of phases 19-24 to run "
                     "(comma-separated)")
     args = ap.parse_args()
 
@@ -7480,8 +7633,8 @@ def main() -> int:
 
     if args.mesh_only:
         phases = {int(p) for p in args.mesh_phases.split(",")}
-        if not phases or not phases <= {19, 20, 21, 22, 23}:
-            raise SystemExit(f"--mesh-phases: want some of 19-23, got "
+        if not phases or not phases <= {19, 20, 21, 22, 23, 24}:
+            raise SystemExit(f"--mesh-phases: want some of 19-24, got "
                              f"{args.mesh_phases}")
         train_rec = (mesh_reference(torch, dev, args.seed)
                      if phases & {19, 22} else None)
@@ -7508,10 +7661,11 @@ def main() -> int:
                               None, train_rec["mesh_reference"], [])
             gc.collect()
             torch.cuda.empty_cache()
-        if 23 in phases:
+        if phases & {23, 24}:
             t23 = time.perf_counter()
             families_across_cards(torch, args.seed, ssm_references(
-                torch, dev, args.seed, zero_counts, counted), [], t23, 23)
+                torch, dev, args.seed, zero_counts, counted), [], t23,
+                tuple(sorted(phases & {23, 24})))
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8308,12 +8462,14 @@ def main() -> int:
     sequence_parallel(torch, dev, args.seed, zero_counts, counted, kernel,
                       train_rec["mesh_reference"], records)
 
-    # ---- 23. the SSM and hybrid families across cards -------------------
+    # ---- 23, 24. the SSM and hybrid families across cards, without and
+    # with the sequence options (one launch of ranks) ----------------------
     gc.collect()
     torch.cuda.empty_cache()
     t23 = time.perf_counter()
     families_across_cards(torch, args.seed, ssm_references(
-        torch, dev, args.seed, zero_counts, counted), records, t23, 23)
+        torch, dev, args.seed, zero_counts, counted), records, t23,
+        (23, 24), kernel)
 
     print(json.dumps({"kernels": records}))
     print(smi)

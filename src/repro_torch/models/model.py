@@ -86,16 +86,18 @@ key (``models.flash``), and the output goes back to the heads layout;
 prefill still writes each process's shard of the caches.  ``seq_sharded``
 (Megatron-SP; training only): a layer's input, and so every remat-saved
 carry, sits on ("batch", "seq_sp", None); the port gathers the normed
-input whole over ``model`` before each branch's products and
-reduce-scatters each branch's output back onto the carry's rows, where
-the reference leaves both to XLA.  With either option the SSM and hybrid
-blocks raise on a device mesh (ROADMAP A16).
+input whole over ``model`` before each branch's products (the Mamba2
+mixer's too, so its causal conv and chunk scan see the whole sequence)
+and reduce-scatters each branch's output back onto the carry's rows, where
+the reference leaves both to XLA.
 
-The SSM (Mamba2) and hybrid (Hymba) blocks train and serve there without
-the options: the Mamba2 mixer runs its mesh route (``models.ssm``: each
-process's columns of ``in_proj``, channels of the conv and of its cache,
-SSM heads and state, and rows of ``out_proj``, with explicit collectives),
-and Hymba averages the two branches on the mixer output's placement.  Where
+The SSM (Mamba2) and hybrid (Hymba) blocks train and serve there, with
+the options or without: the Mamba2 mixer runs its mesh route
+(``models.ssm``: each process's columns of ``in_proj``, channels of the
+conv and of its cache, SSM heads and state, and rows of ``out_proj``, with
+explicit collectives), Hymba's attention branch takes Ulysses as the
+dense family's does (decode keeps the plain cached attention), and Hymba
+averages the two branches on the carry's placement.  Where
 a projection's heads do not divide ``model`` (Hymba's 25 query and 5 KV
 heads) the reference's rule splits ``head_dim``; :func:`heads_in` and
 :func:`heads_out` then multiply each process's local slices, never
@@ -394,9 +396,9 @@ class DecoderLayer(nn.Module):
     def _ssm(self, x, mode, cache):
         """The Mamba2 mixer; its conv and state caches written in place
         (prefill fills them, decode steps them; training writes none).  On
-        a device mesh the mixer returns each process's shard of the new
-        states at the caches' placements, and each process writes its own
-        shard."""
+        a device mesh the mixer returns its output as partial sums and each
+        process's shard of the new states at the caches' placements, and
+        each process writes its own shard."""
         p = {n[len("ssm_"):]: t for n, t in self.named_parameters()
              if n.startswith("ssm_")}
         state = ({"conv": cache["conv"].to(x.dtype), "ssm": cache["ssm"]}
@@ -442,11 +444,15 @@ class DecoderLayer(nn.Module):
             mix = rows(self._attention(whole(h), angles, mode, cache, pos,
                                        window).view(x.shape))
         if cfg.block in ("ssm", "hybrid"):
-            ssm_out = self._ssm(h, mode, cache)
-            # both branches on the mixer output's rows, whole over the
-            # other axes (the attention's product may be a partial sum)
-            mix = ssm_out if mix is None else constrain(
-                mix, ("batch", None, "embed")) + ssm_out
+            # the mixer reads the carry gathered whole, as the attention
+            # does, and its partial sums are reduced onto the carry's rows
+            # (a reduce-scatter under seq_sharded, else an all-reduce); the
+            # two branches are averaged there (the attention's product may
+            # be a partial sum)
+            on_rows = SEQ_SP if sp else ("batch", None, "embed")
+            ssm_out = constrain(self._ssm(whole(h), mode, cache), on_rows)
+            mix = ssm_out if mix is None else constrain(mix, on_rows) \
+                + ssm_out
         if cfg.block == "hybrid":
             mix = mix * 0.5                   # average the parallel heads
         if cfg.enc_dec:
@@ -631,21 +637,10 @@ class Model(nn.Module):
 def device_mesh_for(cfg: ModelConfig, mesh) -> DistMesh | None:
     """``mesh`` if it is a device mesh (a ``DistMesh``), else None (no
     mesh, or an abstract one: nothing to place).  Every block trains and
-    serves on a device mesh: attention (the dense family, the MoE and the
-    encoder-decoder, with ``ulysses_attn`` and ``seq_sharded`` or
-    without), the SSM (Mamba2) and the hybrid (Hymba).  Raises
-    ``NotImplementedError`` for the SSM and hybrid blocks with either
-    sequence option (ROADMAP A16: the reference constrains the SSM
-    branch's carry too), and nothing is replicated in their place."""
-    if not isinstance(mesh, DistMesh):
-        return None
-    if cfg.block != "attn" and (cfg.ulysses_attn or cfg.seq_sharded):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.block} block with ulysses_attn or "
-            f"seq_sharded on the {mesh.name} device mesh is not ported, in "
-            f"serving or training (ROADMAP A16: the sequence options on the "
-            f"SSM and hybrid blocks)")
-    return mesh
+    serves on a device mesh, with ``ulysses_attn`` and ``seq_sharded`` or
+    without: attention (the dense family, the MoE and the
+    encoder-decoder), the SSM (Mamba2) and the hybrid (Hymba)."""
+    return mesh if isinstance(mesh, DistMesh) else None
 
 
 def _place(name: str, t: torch.Tensor, mesh: DistMesh | None,

@@ -332,14 +332,18 @@ def _mix_on_mesh(p: dict, x, cfg, *, mode: str, state: dict | None):
     * keeps its channels of ``d_inner`` (``out_proj``'s rows), gates them
       by ``z``, and takes the norm's mean over the whole ``d_inner`` as its
       sum of squares all-reduced over ``model`` where they are split;
-    * multiplies by its rows of ``out_proj``: partial sums, all-reduced.
+    * multiplies by its rows of ``out_proj``: partial sums, left for the
+      caller to reduce onto the carry's placement (an all-reduce, or a
+      reduce-scatter onto Megatron-SP's carry, which splits the sequence).
 
     The body is :func:`_mix`, the one-device mixer's, on these slices.
     The output and the gradients are partial sums over the axis that splits
     ``d_inner`` (``in_grad_placements``; the gathers' backward sums them)
     and over those that split the batch; on any other axis every process
-    computes alike, and they are whole there.  Returns (y at x's rows,
-    whole over the other axes; the new conv and SSM states at
+    computes alike, and they are whole there.  x is read at the batch's
+    rows, whole over the other axes (a sequence split is gathered first).
+    Returns (y at x's rows, partial over the axis that splits ``d_inner``
+    and whole over the others; the new conv and SSM states at
     ``CONV_LOGICAL``/``STATE_LOGICAL``'s placements).  On a mesh of one
     device every slice is whole and no collective runs: the one-device
     computation, op for op."""
@@ -424,4 +428,4 @@ def _mix_on_mesh(p: dict, x, cfg, *, mode: str, state: dict | None):
                             *state_in),
         device_mesh=dm, redistribute_inputs=True)(
         x, *(p[n] for n in names), *states)
-    return out.redistribute(dm, by_rows), {"conv": conv_new, "ssm": h}
+    return out, {"conv": conv_new, "ssm": h}

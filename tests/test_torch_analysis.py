@@ -27,6 +27,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 from repro.analysis import locks as jlocks  # noqa: E402
 from repro.analysis import run as jrun  # noqa: E402

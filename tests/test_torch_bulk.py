@@ -34,6 +34,10 @@ from torch_checks import (BULK_DCAP, BULK_GATHER_WPT, BULK_HBITS,
                           bulk_staged_route, bulk_tile_words, record_cuts,
                           stacked_program_inputs)
 
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
+
 IDENT, INV = 0x7FFF, 0x8000
 
 

@@ -19,6 +19,10 @@ from repro_torch.engine import planner as tplanner
 from torch_witness import (torch_lock_witness,  # noqa: F401
                            torch_witness_isolation)
 
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
 import quickstart  # noqa: E402  (make_rows / brute / the column vocab)
 
@@ -359,6 +363,7 @@ def test_quickstart_twin_runs_on_the_cpu():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')); assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"        # as in this process
     out = subprocess.run([sys.executable, "-c", code, script], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]

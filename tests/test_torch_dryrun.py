@@ -39,6 +39,10 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 from torch.utils.flop_counter import FlopCounterMode
 
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
+
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax  # noqa: E402
@@ -376,7 +380,11 @@ def test_argument_bytes_match_reference_specs(arch, shape, mesh_name,
 
 _XLA_SCRIPT = textwrap.dedent("""
     import json, os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    # XLA unoptimised and without multi-threaded Eigen: the programs are
+    # tiny, and the suite runs several processes at once
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                               "--xla_backend_optimization_level=0 "
+                               "--xla_cpu_multi_thread_eigen=false")
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
     assert len(jax.devices()) == 4    # locks the count before the import

@@ -27,6 +27,10 @@ from repro_torch.engine import runtime as truntime
 from repro_torch.kernels import bitmap_ops as tbq
 from repro_torch.kernels import ref as tref
 
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
+
 PORT_BACKENDS = ("ref", "bulk", "cuda")
 
 

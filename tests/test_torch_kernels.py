@@ -25,6 +25,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from torch_checks import any_int32_cam_inputs
 
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
+
 
 def u32(t: torch.Tensor) -> np.ndarray:
     """The reference's uint32 view of the port's int32 words."""

@@ -5,7 +5,7 @@ and trained under its default rules on (data, model) device meshes.
 The port runs in 4 processes of one ``gloo`` group a mesh
 (``tests/torch_mesh_worker.py``, ``family_runs``: one spawn for (2, 2) and
 one for (1, 4), every case of that mesh in it); the reference runs in a
-subprocess with 4 forced host devices
+subprocess a case with 4 forced host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) on the same meshes
 and on one device.  Both take the same numpy inputs at fp32.  The cases
 (``torch_mesh_worker.FAMILY_CASES``): the smoke configs of Qwen2-MoE
@@ -45,6 +45,9 @@ import threading
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -83,7 +86,11 @@ def _cfg(case: str):
 
 _REFERENCE = """
 import contextlib, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# XLA unoptimised and without multi-threaded Eigen: the programs are
+# tiny, and the suite runs several processes at once
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_cpu_multi_thread_eigen=false")
 import numpy as np
 import jax, jax.numpy as jnp
 from repro import compat
@@ -105,7 +112,8 @@ ocfg = jadamw.OptimConfig(warmup_steps=1, decay_steps=10)
 names = {"tokens": ("batch", None), "labels": ("batch", None),
          "frames": ("batch", None, None)}
 out = {}
-for case, meshes in FAMILY_CASES.items():
+for case in sys.argv[3:]:
+    meshes = FAMILY_CASES[case]
     cfg = family_config(case, get_smoke_config)
     logical = jmodel.param_logical(cfg)
     key = case + "/p/"
@@ -219,18 +227,23 @@ def _inputs(path: str) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The reference's subprocess and the port's two spawns (one a mesh)
-    side by side: (inputs, reference results, the port's results by mesh
-    tag, the checkpoint directory written on (2, 2))."""
+    """The reference's subprocesses (one a case: compiling is most of
+    their time, and one alone would outlast the spawns) and the port's two
+    spawns (one a mesh) side by side: (inputs, reference results, the
+    port's results by mesh tag, the checkpoint directory written on
+    (2, 2))."""
     tmp = tmp_path_factory.mktemp("families")
-    src, ref = str(tmp / "in.npz"), str(tmp / "ref.npz")
+    src = str(tmp / "in.npz")
+    refs = {case: str(tmp / f"ref_{case}.npz")
+            for case in worker.FAMILY_CASES}
     ckpt = str(tmp / "ckpt")
     inputs = _inputs(src)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
         [SRC, TESTS] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
-    proc = subprocess.Popen([sys.executable, "-c", _REFERENCE, src, ref],
-                            env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE, src, dst,
+                               case], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for case, dst in refs.items()]
     errors = []
 
     def one(shape):
@@ -247,13 +260,15 @@ def runs(tmp_path_factory):
     finally:
         for th in threads:
             th.join(timeout=900)
-        out, err = proc.communicate(timeout=900)
+        outs = [proc.communicate(timeout=900) for proc in procs]
     assert not any(th.is_alive() for th in threads), "a spawn hung"
     assert not errors, errors
-    assert proc.returncode == 0 and "OK" in out, err[-3000:]
+    for proc, (out, err) in zip(procs, outs):
+        assert proc.returncode == 0 and "OK" in out, err[-3000:]
     port = {worker.tag(s): dict(np.load(str(tmp / f"{worker.tag(s)}.npz")))
             for s in worker.MESHES}
-    return inputs, dict(np.load(ref)), port, ckpt
+    ref = {k: v for dst in refs.values() for k, v in np.load(dst).items()}
+    return inputs, ref, port, ckpt
 
 
 @pytest.fixture(scope="module")

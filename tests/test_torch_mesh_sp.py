@@ -40,9 +40,9 @@ for the same configs without the options:
 
 On one process, the plain flash route on q split into 4 sequence pieces,
 each at its offset against k/v whole, concatenated (dk/dv summed), is the
-unsplit route in fp32, forward and backward.  The SSM and hybrid configs
-raise on a device mesh with either option (ROADMAP A16), and without one
-are admitted.
+unsplit route in fp32, forward and backward.  Every block, the SSM and
+hybrid ones too, is admitted on a device mesh with either option (those
+two run with the options in ``tests/test_torch_mesh_ssm.py``).
 """
 import ast
 import os
@@ -53,6 +53,9 @@ import threading
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 
@@ -79,7 +82,11 @@ OCFG = tadamw.OptimConfig(warmup_steps=1, decay_steps=10)
 
 _REFERENCE = """
 import contextlib, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# XLA unoptimised and without multi-threaded Eigen: the programs are
+# tiny, and the suite runs several processes at once
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_cpu_multi_thread_eigen=false")
 import numpy as np
 import jax, jax.numpy as jnp
 from repro import compat
@@ -531,22 +538,19 @@ def test_plain_flash_on_sequence_pieces_is_the_whole(mask):
 
 
 @pytest.mark.parametrize("opts", [None, *OPTIONS])
-@pytest.mark.parametrize("arch", worker.UNCOVERED)
-def test_ssm_and_hybrid_still_raise_on_a_device_mesh(arch, opts):
-    """``device_mesh_for`` admits the sequence options on every attention
-    family; it refuses Mamba2 and Hymba on a device mesh with either
-    option, naming ROADMAP A16, and admits them with none (no process
-    group is needed to decide)."""
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b"])
+def test_every_block_is_admitted_with_every_option(arch, opts):
+    """``device_mesh_for`` admits every block on a device mesh with either
+    sequence option, both or none: the SSM (Mamba2) and hybrid (Hymba)
+    blocks as every attention family (no process group is needed to
+    decide), and places nothing off one."""
     mesh = tmesh.DistMesh((1,), ("data",), None, torch.device("cpu"))
-    cfg = worker.sp_config(arch, opts, get_smoke_config)
-    if opts is None:
+    for name in (arch, *ARCHS):
+        cfg = worker.sp_config(name, opts, get_smoke_config)
         assert tmodel.device_mesh_for(cfg, mesh) is mesh
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            tmodel.device_mesh_for(cfg, mesh)
-    for attn in ARCHS:
-        assert tmodel.device_mesh_for(worker.sp_config(
-            attn, opts, get_smoke_config), mesh) is mesh
+        assert tmodel.device_mesh_for(cfg, tmesh.AbstractMesh(
+            (1, 4), NAMES)) is None
+        assert tmodel.device_mesh_for(cfg, None) is None
 
 
 def test_sequence_rules_are_the_references():

@@ -6,9 +6,10 @@ device meshes.
 The port runs in 4 processes of one ``gloo`` group a mesh
 (``tests/torch_mesh_worker.py``, ``ssm_runs``: one spawn for (2, 2) and one
 for (1, 4), every case in it) and in one process on a (1, 1) mesh beside
-the unsharded port (``ssm_one``); the reference runs in a subprocess with 4
-forced host devices (``XLA_FLAGS=--xla_force_host_platform_device_count=4``)
-on the same meshes and on one device.  Both take the same numpy inputs at
+the unsharded port (``ssm_one``); the reference runs in a subprocess a case
+with 4 forced host devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count=4``) on the same meshes
+and on one device.  Both take the same numpy inputs at
 fp32.  The cases (``torch_mesh_worker.SSM_CASES``): the smoke configs of
 Mamba2 (``in_proj``'s column shards straddle z | xBC | dt and the conv's
 channel shards x | B | C on ``model`` of 4) and Hymba (GQA 4 / 2, so
@@ -35,6 +36,23 @@ splits mid-head).  Tolerances, those of
   run's ``serve_arg_bytes``; the states each process's mixer returns at
   its own cache shard, and no cache redistributed; the flash wrapper's
   local shapes; the (2, 2) checkpoint restored on (4, 1) and off any mesh.
+
+Every case also runs with the reference's sequence options
+(``torch_mesh_worker.SSM_OPTIONS``: ``ulysses_attn``, ``seq_sharded`` and
+both), in the same subprocesses and spawns, at the same tolerances: one train
+step with each (the loss against the reference's on the same mesh with the
+same options, and against its one-device step; the gradients, whose
+sharded form the reference scales (ROADMAP C), and the updated parameters
+and moments against the one-device step and the unsharded port), and the
+serving run with ``ulysses_attn`` (``seq_sharded`` acts in training only)
+against the reference on the same mesh with it, on one device and the
+unsharded port.  Exact: on (1, 1) every option run is the unsharded port's
+bit for bit, and Mamba2, which has no attention, with ``ulysses_attn`` is
+the option-free run bit for bit on every mesh; under ``seq_sharded`` each
+layer's output sits on ("batch", "seq_sp", None); under ``ulysses_attn``
+Hymba's flash wrapper runs each process's slice of the queries at its
+offset against every key, and each process still writes only its own
+cache shard.
 """
 import ast
 import os
@@ -46,6 +64,9 @@ import threading
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -74,6 +95,9 @@ OCFG = tadamw.OptimConfig(warmup_steps=1, decay_steps=10)
 CASES = list(worker.SSM_CASES)
 PAIRS = [(case, worker.tag(m)) for case, meshes in worker.SSM_CASES.items()
          for m in meshes]
+OPTIONS = list(worker.SSM_OPTIONS)
+#: every case on every mesh with every option set
+OPAIRS = [(case, mesh, opts) for case, mesh in PAIRS for opts in OPTIONS]
 
 
 def _cfg(case: str):
@@ -85,8 +109,12 @@ def _jcfg(case: str):
 
 
 _REFERENCE = """
-import contextlib, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import contextlib, dataclasses, os, sys
+# XLA unoptimised and without multi-threaded Eigen: the programs are
+# tiny, and the suite runs several processes at once
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_cpu_multi_thread_eigen=false")
 import numpy as np
 import jax, jax.numpy as jnp
 from repro import compat
@@ -98,8 +126,8 @@ from repro.parallel import sharding as jsharding
 from repro.parallel.sharding import logical_spec
 from repro.serve import step as sstep
 from repro.train import step as jstep
-from torch_mesh_worker import (SSM_CASES, SERVE_SEQ, SERVE_STEPS,
-                               ssm_config)
+from torch_mesh_worker import (SP_OPTIONS, SSM_CASES, SSM_OPTIONS,
+                               SERVE_SEQ, SERVE_STEPS, ssm_config)
 assert len(jax.devices()) == 4, jax.devices()
 jmodel.COMPUTE_DTYPE = jnp.float32
 data = dict(np.load(sys.argv[1]))
@@ -107,14 +135,49 @@ S, STEPS = SERVE_SEQ, SERVE_STEPS
 ocfg = jadamw.OptimConfig(warmup_steps=1, decay_steps=10)
 names = {"tokens": ("batch", None), "labels": ("batch", None)}
 out = {}
-for case, meshes in SSM_CASES.items():
+
+
+def serve(cfg, p, put, key, greedy):
+    cache_names = [n for n in ("k", "v", "conv", "ssm")
+                   if n in jmodel.cache_logical(cfg)]
+    batch = {"tokens": put(jnp.asarray(data[case + "/tokens"]),
+                           names["tokens"])}
+    prefill = jax.jit(sstep.make_prefill_step(cfg, max_len=S + STEPS))
+    decode = jax.jit(sstep.make_decode_step(cfg))
+    logits, cache = prefill(p, batch)
+    out[f"{key}/prefill_logits"] = np.asarray(logits)
+    for nm in cache_names:
+        out[f"{key}/prefill_cache/{nm}"] = np.asarray(
+            cache[nm]).astype(np.float32)
+    if greedy:
+        c, lg, ids, all_lg = cache, logits, [], []
+        for i in range(STEPS):
+            all_lg.append(np.asarray(lg[:, -1]))
+            ids.append(jnp.argmax(lg[:, -1, :cfg.vocab_size], -1))
+            if i < STEPS - 1:
+                lg, c = decode(p, {"tokens": ids[-1][:, None], "cache": c})
+        out[f"{key}/greedy"] = np.asarray(jnp.stack(ids, 1))
+        out[f"{key}/greedy_logits"] = np.stack(all_lg)
+    dec = []
+    for i in range(STEPS - 1):
+        logits, cache = decode(p, {
+            "tokens": put(jnp.asarray(data[case + "/decode"][i]),
+                          names["tokens"]), "cache": cache})
+        dec.append(np.asarray(logits))
+    out[f"{key}/decode_logits"] = np.stack(dec)
+    out[f"{key}/pos"] = np.asarray(cache["pos"])
+    for nm in cache_names:
+        out[f"{key}/decode_cache/{nm}"] = np.asarray(
+            cache[nm]).astype(np.float32)
+
+
+for case in sys.argv[3:]:
+    meshes = SSM_CASES[case]
     cfg = ssm_config(case, get_smoke_config)
     logical = jmodel.param_logical(cfg)
     key = case + "/p/"
     params = {k[len(key):]: jnp.asarray(v) for k, v in data.items()
               if k.startswith(key)}
-    cache_names = [n for n in ("k", "v", "conv", "ssm")
-                   if n in jmodel.cache_logical(cfg)]
     train = {k: jnp.asarray(data[case + "/train/" + k])
              for k in ("tokens", "labels")}
     for shape in tuple(meshes) + (None,):
@@ -132,54 +195,31 @@ for case, meshes in SSM_CASES.items():
                     v, NamedSharding(mesh, logical_spec(v.shape, n)))
             with ctx:
                 p = {k: put(v, logical[k]) for k, v in params.items()}
-                if rules == "train":
-                    b = {k: put(v, names[k]) for k, v in train.items()}
-                    step = jax.jit(jstep.make_train_step(
-                        cfg, jstep.TrainConfig(ocfg)))
-                    p2, o2, m = step(p, jadamw.init_opt_state(p, ocfg), b)
-                    out[f"{tag}/{case}/loss"] = np.asarray(m["loss"])
-                    out[f"{tag}/{case}/grad_norm"] = np.asarray(
-                        m["grad_norm"])
-                    for k in p2:
-                        out[f"{tag}/{case}/p/{k}"] = np.asarray(p2[k])
-                        if shape is None:
-                            out[f"{tag}/{case}/m/{k}"] = np.asarray(
-                                o2["m"][k])
-                            out[f"{tag}/{case}/v/{k}"] = np.asarray(
-                                o2["v"][k])
+                if rules == "serve":
+                    serve(cfg, p, put, f"{tag}/{case}", shape is None)
+                    if shape:
+                        # seq_sharded acts in training only: serving takes
+                        # ulysses_attn alone
+                        serve(dataclasses.replace(cfg, ulysses_attn=True),
+                              p, put, f"{tag}/{case}/ulysses", False)
                     continue
-                batch = {"tokens": put(jnp.asarray(data[case + "/tokens"]),
-                                       names["tokens"])}
-                prefill = jax.jit(sstep.make_prefill_step(
-                    cfg, max_len=S + STEPS))
-                decode = jax.jit(sstep.make_decode_step(cfg))
-                logits, cache = prefill(p, batch)
-                out[f"{tag}/{case}/prefill_logits"] = np.asarray(logits)
-                for nm in cache_names:
-                    out[f"{tag}/{case}/prefill_cache/{nm}"] = np.asarray(
-                        cache[nm]).astype(np.float32)
-                if shape is None:
-                    c, lg, ids, all_lg = cache, logits, [], []
-                    for i in range(STEPS):
-                        all_lg.append(np.asarray(lg[:, -1]))
-                        ids.append(jnp.argmax(lg[:, -1, :cfg.vocab_size], -1))
-                        if i < STEPS - 1:
-                            lg, c = decode(p, {"tokens": ids[-1][:, None],
-                                               "cache": c})
-                    out[f"{tag}/{case}/greedy"] = np.asarray(
-                        jnp.stack(ids, 1))
-                    out[f"{tag}/{case}/greedy_logits"] = np.stack(all_lg)
-                dec = []
-                for i in range(STEPS - 1):
-                    logits, cache = decode(p, {
-                        "tokens": put(jnp.asarray(data[case + "/decode"][i]),
-                                      names["tokens"]), "cache": cache})
-                    dec.append(np.asarray(logits))
-                out[f"{tag}/{case}/decode_logits"] = np.stack(dec)
-                out[f"{tag}/{case}/pos"] = np.asarray(cache["pos"])
-                for nm in cache_names:
-                    out[f"{tag}/{case}/decode_cache/{nm}"] = np.asarray(
-                        cache[nm]).astype(np.float32)
+                b = {k: put(v, names[k]) for k, v in train.items()}
+                step = jax.jit(jstep.make_train_step(
+                    cfg, jstep.TrainConfig(ocfg)))
+                p2, o2, m = step(p, jadamw.init_opt_state(p, ocfg), b)
+                out[f"{tag}/{case}/loss"] = np.asarray(m["loss"])
+                out[f"{tag}/{case}/grad_norm"] = np.asarray(m["grad_norm"])
+                for k in p2:
+                    out[f"{tag}/{case}/p/{k}"] = np.asarray(p2[k])
+                    if shape is None:
+                        out[f"{tag}/{case}/m/{k}"] = np.asarray(o2["m"][k])
+                        out[f"{tag}/{case}/v/{k}"] = np.asarray(o2["v"][k])
+                # the options' losses (the sharded gradients are scaled:
+                # ROADMAP C)
+                for opts in SSM_OPTIONS if shape else ():
+                    ocfg_ = dataclasses.replace(cfg, **SP_OPTIONS[opts])
+                    out[f"{tag}/{case}/{opts}/loss"] = np.asarray(jax.jit(
+                        lambda p, b: jmodel.lm_loss(p, ocfg_, b)[0])(p, b))
 np.savez(sys.argv[2], **out)
 print("OK")
 """
@@ -192,19 +232,22 @@ def _inputs(path: str) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The reference's subprocess and the port's three spawns ((2, 2) and
-    (1, 4) of 4 processes, (1, 1) of one) side by side: (inputs, reference
-    results, the port's results by mesh tag with ``1x1`` the one-process
-    run)."""
+    """The reference's subprocesses (one a case: compiling is most of
+    their time, and one alone would outlast the spawns) and the port's
+    three spawns ((2, 2) and (1, 4) of 4 processes, (1, 1) of one) side by
+    side: (inputs, reference results, the port's results by mesh tag with
+    ``1x1`` the one-process run)."""
     tmp = tmp_path_factory.mktemp("ssm")
-    src, ref = str(tmp / "in.npz"), str(tmp / "ref.npz")
+    src = str(tmp / "in.npz")
+    refs = {case: str(tmp / f"ref_{case}.npz") for case in CASES}
     ckpt = str(tmp / "ckpt")
     inputs = _inputs(src)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
         [SRC, TESTS] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
-    proc = subprocess.Popen([sys.executable, "-c", _REFERENCE, src, ref],
-                            env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    procs = [subprocess.Popen([sys.executable, "-c", _REFERENCE, src, dst,
+                               case], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for case, dst in refs.items()]
     errors = []
 
     def one(shape):
@@ -224,13 +267,15 @@ def runs(tmp_path_factory):
     finally:
         for th in threads:
             th.join(timeout=900)
-        out, err = proc.communicate(timeout=900)
+        outs = [proc.communicate(timeout=900) for proc in procs]
     assert not any(th.is_alive() for th in threads), "a spawn hung"
     assert not errors, errors
-    assert proc.returncode == 0 and "OK" in out, err[-3000:]
+    for proc, (out, err) in zip(procs, outs):
+        assert proc.returncode == 0 and "OK" in out, err[-3000:]
     port = {worker.tag(s): dict(np.load(str(tmp / f"{worker.tag(s)}.npz")))
             for s in shapes}
-    return inputs, dict(np.load(ref)), port
+    ref = {k: v for dst in refs.values() for k, v in np.load(dst).items()}
+    return inputs, ref, port
 
 
 def _close(got, want, frac: float, what: str) -> None:
@@ -313,16 +358,20 @@ def test_greedy_tokens_match_on_decided_rows(runs, case, mesh):
 
 # ------------------------------------------------------------ training
 def _close_state(port: dict, ref: dict, case: str, mesh: str,
-                 moments: bool) -> None:
+                 moments: bool, key: str | None = None) -> None:
+    """The parameters after the step (and its moments) of ``case``, the
+    port's under ``key`` (default ``case``), against the reference's step
+    on ``mesh``."""
     lr = OCFG.peak_lr            # the first step's rate, warmup 1
+    key = key or case
     for k in sorted(tmodel.abstract_params(_cfg(case))):
-        np.testing.assert_allclose(port[f"{case}/p/{k}"],
+        np.testing.assert_allclose(port[f"{key}/p/{k}"],
                                    ref[f"{mesh}/{case}/p/{k}"], rtol=0,
                                    atol=2 * lr, err_msg=k)
         for mom in ("m", "v") if moments else ():
             w = ref[f"{mesh}/{case}/{mom}/{k}"]
             np.testing.assert_allclose(
-                port[f"{case}/{mom}/{k}"], w, rtol=0,
+                port[f"{key}/{mom}/{k}"], w, rtol=0,
                 atol=1e-3 * float(np.abs(w).max()), err_msg=f"{mom} {k}")
 
 
@@ -501,14 +550,18 @@ def test_each_process_writes_only_its_own_cache_shard(runs, case, mesh):
     cache shard (the local shape and placements of that process's slice of
     the cache), and no cache nor state is redistributed in the prefill or
     the decode steps: no process gathers a cache whole."""
-    _, _, port = runs
-    got = port[mesh]
+    _own_cache_shards(runs[2][mesh], case, mesh, case)
+
+
+def _own_cache_shards(got: dict, case: str, mesh: str, key: str) -> None:
+    """:func:`test_each_process_writes_only_its_own_cache_shard` on the
+    serving run recorded under ``key``."""
     cfg = _cfg(case)
     _, nh, conv_dim = tmodel._ssm_dims(cfg)
     sp = cfg.ssm
-    per_rank = ast.literal_eval(str(got[f"{case}/states"]))
+    per_rank = ast.literal_eval(str(got[f"{key}/states"]))
     assert len(per_rank) == 4
-    want_shapes = [tuple(int(v) for v in got[f"{case}/cache_local_shape/"
+    want_shapes = [tuple(int(v) for v in got[f"{key}/cache_local_shape/"
                                              f"{nm}"]) for nm in ("conv",
                                                                   "ssm")]
     dp, tp = (int(s) for s in mesh.split("x"))
@@ -522,7 +575,7 @@ def test_each_process_writes_only_its_own_cache_shard(runs, case, mesh):
     # the cache's placements without its layer axis
     pls = [re.sub(r"Shard\(dim=(\d)\)",
                   lambda m: f"Shard(dim={int(m.group(1)) - 1})",
-                  str(got[f"{case}/cache_placement/{nm}"]))
+                  str(got[f"{key}/cache_placement/{nm}"]))
            for nm in ("conv", "ssm")]
     for calls in per_rank:
         assert len(calls) == cfg.num_layers * STEPS
@@ -532,9 +585,9 @@ def test_each_process_writes_only_its_own_cache_shard(runs, case, mesh):
     state_shapes = {(B, sp.conv_width - 1, conv_dim),
                     (B, nh, sp.head_dim, sp.d_state)}
     for n in _cache_names(case):
-        state_shapes.add(tuple(int(v) for v in port[mesh][
-            f"{case}/prefill_cache/{n}"].shape))
-    for recs in ast.literal_eval(str(got[f"{case}/redistributed"])):
+        state_shapes.add(tuple(int(v) for v in got[
+            f"{key}/prefill_cache/{n}"].shape))
+    for recs in ast.literal_eval(str(got[f"{key}/redistributed"])):
         moved = [r for r in recs if r[0] in state_shapes]
         assert not moved, moved
 
@@ -638,3 +691,185 @@ def test_mixer_blocks_cover_the_published_shards():
     logical = jmodel.cache_logical(_jcfg("hymba"))
     assert tssm.CONV_LOGICAL == logical["conv"][1:]
     assert tssm.STATE_LOGICAL == logical["ssm"][1:]
+
+
+# ------------------------------------------------- the sequence options
+def _want_carry(mesh: str) -> str:
+    """The placements of ("batch", "seq_sp", None) on a (B, S, d) carry of
+    the train batch on ``mesh``."""
+    shape = tuple(int(s) for s in mesh.split("x"))
+    dims = (worker.FAMILY_TRAIN_BATCH, worker.FAMILY_TRAIN_SEQ, 1)
+    return _want_placements(_jspec(shape, dims, ("batch", "seq_sp", None),
+                                   False))
+
+
+@pytest.mark.parametrize("case,mesh,opts", OPAIRS)
+def test_option_train_step_matches_the_reference(runs, case, mesh, opts):
+    """One train step with the options: its loss within 1e-4 (relative)
+    of the reference's lm_loss on the same mesh with the same options, and
+    loss, ``grad_norm``, parameters (2 lr) and moments (1e-3 of each
+    tensor's largest magnitude) against the reference's one-device step
+    (its sharded gradients are scaled: ROADMAP C)."""
+    _, ref, port = runs
+    got = port[mesh]
+    key = f"{case}/{opts}"
+    assert _rel(got[f"{key}/loss"], ref[f"{mesh}/{key}/loss"]) <= 1e-4
+    assert _rel(got[f"{key}/loss"], ref[f"one/{case}/loss"]) <= 1e-4
+    assert _rel(got[f"{key}/grad_norm"],
+                ref[f"one/{case}/grad_norm"]) <= 1e-4
+    _close_state(got, ref, case, "one", moments=True, key=key)
+
+
+@pytest.mark.parametrize("case,mesh,opts", OPAIRS)
+def test_option_gradients_match_the_unsharded_port(runs, case, mesh, opts):
+    """The gradients the step with the options applied, every one, within
+    1e-5 of the unsharded port's largest magnitude, and its loss within
+    1e-5 relative."""
+    _, _, port = runs
+    got, one = port[mesh], port["1x1"]
+    key = f"{case}/{opts}"
+    assert _rel(got[f"{key}/loss"], one[f"off/{case}/grad_loss"]) <= 1e-5
+    for k in tmodel.abstract_params(_cfg(case)):
+        _close(got[f"{key}/g/{k}"], one[f"off/{case}/g/{k}"], GRAD_FRAC,
+               f"{opts} {k}")
+
+
+def _serve_keys(case: str) -> list:
+    """A serving run's logits and caches."""
+    return ["prefill_logits", "decode_logits"] + [
+        f"{when}/{nm}" for when in ("prefill_cache", "decode_cache")
+        for nm in _cache_names(case)]
+
+
+@pytest.mark.parametrize("case,mesh", PAIRS)
+def test_ulysses_serving_matches_the_reference(runs, case, mesh):
+    """The serving run with ``ulysses_attn``: the prefill's last-position
+    logits and each decode step's within 1e-4 of their largest magnitude,
+    the caches within 1e-5, against the reference with the option on the
+    same mesh, on one device, and the unsharded port."""
+    _, ref, port = runs
+    got = port[mesh]
+    assert int(got[f"{case}/ulysses/pos"]) == S + STEPS - 1
+    for want, name in ((ref, f"{mesh}/{case}/ulysses"), (ref, f"one/{case}"),
+                       (port["1x1"], f"off/{case}")):
+        for k in _serve_keys(case):
+            _close(got[f"{case}/ulysses/{k}"], want[f"{name}/{k}"],
+                   LOGIT_FRAC if "logits" in k else CACHE_FRAC,
+                   f"{case} ulysses {k} vs {name}")
+
+
+@pytest.mark.parametrize("case,mesh", PAIRS)
+def test_ulysses_greedy_tokens_match_on_decided_rows(runs, case, mesh):
+    _, ref, port = runs
+    cfg = _cfg(case)
+    got = port[mesh][f"{case}/ulysses/greedy"]
+    assert got.shape == (B, STEPS)
+    n = _decided_prefix(ref[f"one/{case}/greedy_logits"][..., :cfg.vocab_size])
+    assert n.sum() > 0
+    for want in (ref[f"one/{case}/greedy"], port["1x1"][f"off/{case}/greedy"]):
+        for row in range(B):
+            np.testing.assert_array_equal(got[row, :n[row]],
+                                          want[row, :n[row]])
+
+
+@pytest.mark.parametrize("case,opts", [(c, o) for c in CASES
+                                       for o in OPTIONS])
+def test_options_on_one_device_mesh_are_the_unsharded_port_bit_for_bit(
+        runs, case, opts):
+    """On a (1, 1) mesh the step with the options (loss, ``grad_norm``,
+    every gradient, parameter and moment) and, with ``ulysses_attn``, the
+    serving run (logits, caches, greedy ids) equal the unsharded port's
+    option-free runs bit for bit."""
+    _, _, port = runs
+    one = port["1x1"]
+    key = f"opt/{case}/{opts}/"
+    keys = [k[len(key):] for k in one if k.startswith(key)
+            and not k.endswith(("/flash", "/carry"))]
+    # loss, grad_norm and the four trees g, p, m, v (and the serving run's)
+    assert len(keys) >= 2 + 4 * len(tmodel.abstract_params(_cfg(case)))
+    for k in keys:
+        np.testing.assert_array_equal(one[key + k], one[f"off/{case}/{k}"],
+                                      err_msg=k)
+    if opts == "ulysses":
+        for k in [*_serve_keys(case), "pos", "greedy"]:
+            np.testing.assert_array_equal(one[f"{key}{k}"],
+                                          one[f"off/{case}/{k}"], err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", ["1x1", *(
+    worker.tag(m) for m in worker.SSM_CASES["mamba2"])])
+def test_mamba2_with_ulysses_is_the_option_free_run_bit_for_bit(runs, mesh):
+    """Mamba2 has no attention: with ``ulysses_attn`` its train step
+    (loss, ``grad_norm``, gradients, parameters, moments) and its serving
+    run (logits, caches, greedy ids) are the option-free run's bit for bit,
+    on every mesh."""
+    _, _, port = runs
+    got = port[mesh]
+    pre, opt = ("mesh/", "opt/") if mesh == "1x1" else ("", "")
+    key = f"{opt}mamba2/ulysses/"
+    keys = [k[len(key):] for k in got if k.startswith(key)
+            and not k.endswith(("/flash", "/carry"))]
+    assert len(keys) > 50
+    for k in keys:
+        np.testing.assert_array_equal(got[key + k], got[f"{pre}mamba2/{k}"],
+                                      err_msg=k)
+    assert ast.literal_eval(str(got[f"{key}flash"])) == [
+        [] for _ in range(1 if mesh == "1x1" else 4)]
+
+
+@pytest.mark.parametrize("case,mesh,opts", OPAIRS)
+def test_seq_sharded_carry_sits_on_the_sequence(runs, case, mesh, opts):
+    """Each layer's output: on ("batch", "seq_sp", None) under
+    ``seq_sharded`` (the sequence split over ``model``), never so
+    without it."""
+    _, _, port = runs
+    carry = ast.literal_eval(str(port[mesh][f"{case}/{opts}/carry"]))
+    want = _want_carry(mesh)
+    if opts == "ulysses":
+        assert want not in carry
+    else:
+        assert carry == [want]
+
+
+@pytest.mark.parametrize("case,mesh", PAIRS)
+@pytest.mark.parametrize("mode", ["train", "serve"])
+def test_ulysses_runs_the_flash_wrapper_on_sequence_shards(runs, case, mesh,
+                                                           mode):
+    """Under ``ulysses_attn`` Hymba's flash wrapper runs on each process's
+    slice of the queries (the batch over ``data``, the sequence over
+    ``model``, every head) against every key (k and v whole over
+    ``model``), at ``q_offset`` = its index over ``model`` x the local Sq;
+    in training as many backward as forward-without-recompute calls, and
+    in serving one call a layer; Mamba2 makes none."""
+    _, _, port = runs
+    cfg = _cfg(case)
+    dp, tp = (int(s) for s in mesh.split("x"))
+    key = f"{case}/ulysses/{'flash' if mode == 'train' else 'flash_calls'}"
+    per_rank = ast.literal_eval(str(port[mesh][key]))
+    assert len(per_rank) == 4
+    if cfg.block == "ssm":
+        assert per_rank == [[]] * 4
+        return
+    b, seq = ((worker.FAMILY_TRAIN_BATCH, worker.FAMILY_TRAIN_SEQ)
+              if mode == "train" else (B, S))
+    for rank, calls in enumerate(per_rank):
+        offset = (rank % tp) * (seq // tp)
+        kinds = {c[0] for c in calls}
+        assert kinds == ({"fwd", "bwd"} if mode == "train" else {"fwd"})
+        for kind, typ, q, k, q_off, causal in calls:
+            assert (q, k, q_off, causal) == (
+                (b // dp, seq // tp, cfg.num_heads, cfg.head_dim),
+                (b // dp, seq, cfg.num_kv_heads, cfg.head_dim), offset,
+                True), (rank, kind)
+        n_bwd = sum(c[0] == "bwd" for c in calls)
+        assert n_bwd == cfg.num_layers if mode == "train" else not n_bwd
+
+
+@pytest.mark.parametrize("case,mesh", PAIRS)
+def test_each_process_writes_only_its_own_cache_shard_under_ulysses(
+        runs, case, mesh):
+    """With ``ulysses_attn`` the caches keep their ``serve_tp`` placements
+    and each process's mixer returns its new states at its own cache
+    shard; no cache nor state is redistributed in the prefill or the decode
+    steps."""
+    _own_cache_shards(runs[2][mesh], case, mesh, f"{case}/ulysses")

@@ -52,6 +52,9 @@ import textwrap
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -81,7 +84,11 @@ OCFG = tadamw.OptimConfig(warmup_steps=1, decay_steps=10)
 
 _REFERENCE = """
 import contextlib, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+# XLA unoptimised and without multi-threaded Eigen: the programs are
+# tiny, and the suite runs several processes at once
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_cpu_multi_thread_eigen=false")
 import numpy as np
 import jax, jax.numpy as jnp
 from repro import compat

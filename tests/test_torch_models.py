@@ -22,6 +22,9 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

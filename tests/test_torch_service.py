@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 from torch_witness import (torch_lock_witness,  # noqa: E402,F401
                            torch_witness_isolation)

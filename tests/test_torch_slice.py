@@ -19,6 +19,10 @@ from repro_torch.db import BitmapDB
 from repro_torch.engine import planner as tplanner
 from repro_torch.engine.policy import BitmapIndex
 
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 M, W = 64, 8
 

@@ -35,6 +35,9 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several test processes at once,
+# and a pool of a thread a core in each spends the CPUs waiting
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -654,7 +657,10 @@ def test_train_lm_torch_example_imports_no_jax(tmp_path):
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
+    # one intra-op thread, as in this process (the example's steps are
+    # tiny: torch's default pool spends more CPU than it saves)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout

@@ -8,11 +8,12 @@ Runs, in 4 ``gloo`` processes on the CPU, ``torch_mesh_worker.port_runs``
 (Qwen2-7B's smoke train step on (2, 2) and (1, 4), whose k/v projections
 split ``head_dim`` on (1, 4), and the checkpoint on (4, 1)) and
 ``ssm_runs`` on (2, 2) and (1, 4) (the Mamba2 and Hymba cases of
-``tests/test_torch_mesh_ssm.py``), and ``ssm_one`` in one process; then
-holds each SSM case's logits, caches and gradients on the meshes against
-the unsharded port's at the test file's tolerances
-(``torch_mesh_worker.SSM_FRAC``), and the (1, 1) mesh
-against the unsharded port bit for bit.  Prints one line a check and
+``tests/test_torch_mesh_ssm.py``, without and with each of
+``torch_mesh_worker.SSM_OPTIONS``), and ``ssm_one`` in one process; then
+holds each SSM case's logits, caches and gradients on the meshes, with
+the sequence options and without, against the unsharded port's at the
+test file's tolerances (``torch_mesh_worker.SSM_FRAC``), and the (1, 1)
+mesh against the unsharded port bit for bit, with the options too.  Prints one line a check and
 ``REHEARSAL OK`` last; exits 1 at the first check that fails.  Imports
 ``torch`` and ``repro_torch`` only.
 """
@@ -57,6 +58,14 @@ def main() -> int:
         _check(all(np.array_equal(one[f"mesh/{k}"], one[f"off/{k}"])
                    for k in keys), f"ssm_one {case}: (1, 1) bit-identical "
                f"to the unsharded port ({len(keys)} arrays)")
+        for opts in worker.SSM_OPTIONS:
+            pre = f"opt/{case}/{opts}/"
+            keys = [k[len(pre):] for k in one if k.startswith(pre)
+                    and not k.endswith(("/flash", "/carry"))]
+            _check(bool(keys) and all(
+                np.array_equal(one[pre + k], one[f"off/{case}/{k}"])
+                for k in keys), f"ssm_one {case} {opts}: (1, 1) "
+                f"bit-identical to the unsharded port ({len(keys)} arrays)")
     for shape in worker.MESHES:
         t = worker.tag(shape)
         dst = os.path.join(out, f"ssm_{t}.npz")
@@ -64,16 +73,19 @@ def main() -> int:
                      tempfile.mkdtemp(prefix="ckpt-", dir=out))
         got = dict(np.load(dst))
         for case in worker.SSM_CASES:
-            worst = {}
-            for k, frac in worker.SSM_FRAC.items():
-                for key in [x for x in got if x == f"{case}/{k}"
-                            or x.startswith(f"{case}/{k}/")]:
-                    want = one[f"off/{key}"]
-                    err = float(np.abs(got[key] - want).max())
-                    tol = frac * float(np.abs(want).max())
-                    worst[k] = max(worst.get(k, 0.0), err / max(tol, 1e-30))
-            _check(all(v <= 1 for v in worst.values()),
-                   f"ssm_runs {t} {case}: worst error / tolerance {worst}")
+            for run in (case, *(f"{case}/{o}" for o in worker.SSM_OPTIONS)):
+                worst = {}
+                for k, frac in worker.SSM_FRAC.items():
+                    for key in [x for x in got if x == f"{run}/{k}"
+                                or x.startswith(f"{run}/{k}/")]:
+                        want = one[f"off/{case}/{key[len(run) + 1:]}"]
+                        err = float(np.abs(got[key] - want).max())
+                        tol = frac * float(np.abs(want).max())
+                        worst[k] = max(worst.get(k, 0.0),
+                                       err / max(tol, 1e-30))
+                _check(bool(worst) and all(v <= 1 for v in worst.values()),
+                       f"ssm_runs {t} {run}: worst error / tolerance "
+                       f"{worst}")
             _check(bool(got[f"{case}/grads_bit_identical"]),
                    f"ssm_runs {t} {case}: two backward runs bit-identical")
     print("REHEARSAL OK", flush=True)

@@ -1,6 +1,6 @@
 """The port's side of ``tests/test_torch_mesh_train.py``,
-``tests/test_torch_mesh_serve.py``, ``tests/test_torch_mesh_families.py``
-and ``tests/test_torch_mesh_sp.py``:
+``tests/test_torch_mesh_serve.py``, ``tests/test_torch_mesh_families.py``,
+``tests/test_torch_mesh_sp.py`` and ``tests/test_torch_mesh_ssm.py``:
 processes of one ``gloo`` group on the CPU, each running the same program
 on its shard.
 
@@ -11,8 +11,9 @@ test files may run side by side) and run ``fn(rank, *args)``;
 :func:`port_runs` (training), :func:`serve_runs` (serving),
 :func:`family_runs` (the MoE and the encoder-decoder, both),
 :func:`sp_runs` (``ulysses_attn`` and ``seq_sharded``) and
-:func:`ssm_runs`/:func:`ssm_one` (the SSM and hybrid families) are the
-programs the tests hold against the reference.
+:func:`ssm_runs`/:func:`ssm_one` (the SSM and hybrid families, with the
+sequence options and without) are the programs the tests hold against the
+reference.
 """
 from __future__ import annotations
 
@@ -29,9 +30,6 @@ import torch.multiprocessing as mp
 MESHES = ((2, 2), (1, 4))
 #: the mesh a checkpoint written on (2, 2) restores on
 ELASTIC = (4, 1)
-#: the SSM and hybrid configurations, which raise on a device mesh with a
-#: sequence option (``ulysses_attn``, ``seq_sharded``)
-UNCOVERED = ("mamba2_2_7b", "hymba_1_5b")
 LOSS_CHUNK = 16
 #: the smoke configurations served on a mesh: GQA whose 2 KV heads do not
 #: divide 4, the parallel block, MQA, sliding windows, M-RoPE with a visual
@@ -78,7 +76,7 @@ def tag(shape) -> str:
 
 
 def _entry(rank: int, fn, world: int, init: str, args: tuple) -> None:
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}",
                             rank=rank, world_size=world)
     try:
@@ -819,6 +817,10 @@ def sp_runs(rank: int, shape: tuple, src: str, dst: str) -> None:
 #: published Hymba's divisibility on ``model`` of 4 (d_proj 322 and 18 SSM
 #: heads whole, conv_dim 160 split, d_inner 144 split mid-head)
 SSM_CASES = {"mamba2": MESHES, "hymba": MESHES, "hymba_w72": MESHES}
+#: the sequence options every SSM case also runs with (names of
+#: :data:`SP_OPTIONS`): each trains; serving takes ``ulysses_attn`` alone
+#: (``seq_sharded`` acts in training only, as in the reference)
+SSM_OPTIONS = ("ulysses", "seq", "both")
 #: the case whose (2, 2) checkpoint restores on :data:`ELASTIC` and off
 #: any mesh
 SSM_CKPT = "mamba2"
@@ -907,13 +909,14 @@ def _every_rank(seen: list) -> np.ndarray:
 
 
 def _ssm_serve(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
-               record: bool) -> None:
+               record: bool, key: str | None = None) -> None:
     """The serving run of one case at fp32 under the ``serve_tp`` rules,
     on ``mesh`` (or off any mesh for None): the prefill's logits and
     caches, SERVE_STEPS - 1 decode steps' logits and caches, the greedy
     ids; with ``record`` also the placements and local bytes, every
     process's flash calls and returned states, and the redistributions of
-    the prefill and the decode steps."""
+    the prefill and the decode steps.  Written under ``key`` (default
+    ``case``)."""
     from repro_torch.launch.dryrun import serve_tp_rules
     from repro_torch.models import model as tmodel
     from repro_torch.parallel.sharding import set_rules
@@ -923,6 +926,9 @@ def _ssm_serve(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
     kw = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
     params = tmodel.params_from_numpy(cfg, flat, dtype=torch.float32, **kw)
     names = [n for n in tmodel.CACHE_KEYS if n in tmodel.cache_logical(cfg)]
+    tokens = torch.from_numpy(data[f"{case}/tokens"])
+    decode_tokens = data[f"{case}/decode"]
+    case = key or case
     if record:
         for name, p in params.named_parameters():
             out[f"{case}/serve/placement/{name}"] = np.array(_placements(p))
@@ -935,7 +941,6 @@ def _ssm_serve(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
         out[f"{case}/local_bytes/cache"] = np.array(
             _local_bytes(empty[nm] for nm in names))
         del empty
-    tokens = torch.from_numpy(data[f"{case}/tokens"])
     prefill = sstep.make_prefill_step(cfg, max_len=S + steps)
     decode = sstep.make_decode_step(cfg)
     flash, states, redist = [], [], []
@@ -956,7 +961,7 @@ def _ssm_serve(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
         dec = []
         for i in range(steps - 1):
             logits, cache = decode(params, {
-                "tokens": torch.from_numpy(data[f"{case}/decode"][i]),
+                "tokens": torch.from_numpy(decode_tokens[i]),
                 "cache": cache})
             mine = len(redist)
             dec.append(_whole(logits))
@@ -1031,6 +1036,73 @@ def _ssm_train(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
     return params, opt
 
 
+def _ssm_option_train(out: dict, case: str, opts: str, cfg, flat: dict,
+                      data: dict, mesh) -> None:
+    """One ``make_train_step`` step of one case with the sequence options
+    ``opts`` (:data:`SP_OPTIONS`) at fp32 under the default rules, on
+    ``mesh`` (or off any mesh for None), under ``<case>/<opts>/``: the
+    loss, ``grad_norm``, the gradients the step applied and the
+    parameters and moments after it, gathered whole; on a mesh also every
+    process's flash calls and each layer's output placements."""
+    import dataclasses
+
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim.adamw import OptimConfig, init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, set_rules
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import step as tstep
+    set_rules(DEFAULT_RULES)
+    cfg = dataclasses.replace(cfg, **SP_OPTIONS[opts])
+    ocfg = OptimConfig(warmup_steps=1, decay_steps=10)
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
+    params = tmodel.params_from_numpy(cfg, flat, dtype=torch.float32, **kw)
+    opt = init_opt_state(params, ocfg)
+    batch = {k: torch.from_numpy(data[f"{case}/train/{k}"])
+             for k in ("tokens", "labels")}
+    if mesh is not None:
+        batch = tloop.distribute_batch(batch, mesh)
+    applied, seen, carry = {}, [], []
+    apply_updates = tstep.apply_updates
+
+    def keep_grads(named, grads, opt_state, *a, **kw_):
+        applied.update({n: g.detach().clone() for n, g in grads.items()})
+        return apply_updates(named, grads, opt_state, *a, **kw_)
+    tstep.apply_updates = keep_grads
+    hooks = [layer.register_forward_hook(lambda m, a, y: carry.append(
+        _placements(y))) for layer in params.layers]
+    undo = _record_flash(seen)
+    try:
+        step = tstep.make_train_step(cfg, tstep.TrainConfig(ocfg))
+        params, opt, metrics = step(params, opt, batch)
+    finally:
+        undo()
+        for h in hooks:
+            h.remove()
+        tstep.apply_updates = apply_updates
+    key = f"{case}/{opts}"
+    out[f"{key}/loss"] = _whole(metrics["loss"])
+    out[f"{key}/grad_norm"] = _whole(metrics["grad_norm"])
+    named = {n: p.detach() for n, p in params.named_parameters()}
+    for what, tree in (("g", applied), ("p", named), ("m", opt["m"]),
+                       ("v", opt["v"])):
+        for k, v in _full_stacked(cfg, tree).items():
+            out[f"{key}/{what}/{k}"] = v
+    out[f"{key}/flash"] = _every_rank(seen)
+    out[f"{key}/carry"] = np.array(repr(sorted(set(carry))))
+
+
+def _ssm_options(out: dict, case: str, cfg, flat: dict, data: dict, mesh,
+                 record: bool) -> None:
+    """Each :data:`SSM_OPTIONS` train step of one case
+    (:func:`_ssm_option_train`) and its serving run with ``ulysses_attn``
+    (:func:`_ssm_serve`, under ``<case>/ulysses/``) on ``mesh``."""
+    import dataclasses
+    for opts in SSM_OPTIONS:
+        _ssm_option_train(out, case, opts, cfg, flat, data, mesh)
+    _ssm_serve(out, case, dataclasses.replace(cfg, ulysses_attn=True), flat,
+               data, mesh, record, key=f"{case}/ulysses")
+
+
 def _ssm_flat(data: dict, case: str) -> dict:
     return {k[len(case) + 3:]: v for k, v in data.items()
             if k.startswith(f"{case}/p/")}
@@ -1041,7 +1113,8 @@ def ssm_runs(rank: int, shape: tuple, src: str, dst: str, ckpt: str
     """On the (data, model) mesh ``shape``, each :data:`SSM_CASES` case at
     fp32 from ``src``'s parameters: the serving run under ``serve_tp`` and
     the training run under the default rules (:func:`_ssm_serve`,
-    :func:`_ssm_train`, recorded), and the loss and gradients of one
+    :func:`_ssm_train`, recorded), the same with the sequence options
+    (:func:`_ssm_options`), and the loss and gradients of one
     sequence (a batch of 1, which no data axis splits).  On (2, 2)
     :data:`SSM_CKPT`'s trained state is checkpointed under ``ckpt`` and
     restored on :data:`ELASTIC` and off any mesh.  Rank 0 writes ``dst``
@@ -1065,6 +1138,7 @@ def ssm_runs(rank: int, shape: tuple, src: str, dst: str, ckpt: str
             cfg = ssm_config(case, get_smoke_config)
             flat = _ssm_flat(data, case)
             _ssm_serve(out, case, cfg, flat, data, mesh, True)
+            _ssm_options(out, case, cfg, flat, data, mesh, True)
             params, opt = _ssm_train(out, case, cfg, flat, data, mesh, True)
             if case == SSM_CKPT and shape == (2, 2):
                 ckpt_store.save_checkpoint(
@@ -1117,8 +1191,9 @@ def ssm_runs(rank: int, shape: tuple, src: str, dst: str, ckpt: str
 def ssm_one(rank: int, src: str, dst: str) -> None:
     """In one process: each :data:`SSM_CASES` case's serving and training
     runs (:func:`_ssm_serve`, :func:`_ssm_train`) on a (1, 1) device mesh
-    (keys ``mesh/...``) and off any mesh (``off/...``), for the
-    bit-for-bit comparison, and the one-sequence loss and gradients off
+    (keys ``mesh/...``; with the sequence options, :func:`_ssm_options`,
+    ``opt/...``) and off any mesh (``off/...``), for the bit-for-bit
+    comparison, and the one-sequence loss and gradients off
     any mesh (``off/<case>/one/...``).  Writes ``dst`` (npz)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_device_mesh
@@ -1137,6 +1212,9 @@ def ssm_one(rank: int, src: str, dst: str) -> None:
                 _ssm_serve(got, case, cfg, flat, data, m, False)
                 _ssm_train(got, case, cfg, flat, data, m, False)
                 out.update({f"{where}/{k}": v for k, v in got.items()})
+            got = {}
+            _ssm_options(got, case, cfg, flat, data, mesh, False)
+            out.update({f"opt/{k}": v for k, v in got.items()})
             set_rules(DEFAULT_RULES)
             params = tmodel.params_from_numpy(cfg, flat, device="cpu",
                                               dtype=torch.float32)
